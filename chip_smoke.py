@@ -1,0 +1,549 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with an NVIDIA H100 and the CUDA
+toolkit (``nvcc``). The hand kernels build from ``src/repro_torch/kernels/csrc``
+into ``build/repro_torch_kernels/`` at first use. Phases:
+
+  A  every kernel against its plain PyTorch version (fp32 and bf16) at the
+     main path's shapes, with kernel, plain and bound times;
+  B  one chain: BayesLR at N=12214, D=50, 1000 subsampled transitions and
+     20 exact ones;
+  C  K=32 chains in lock-step (``run_posterior_ensemble``), then the fused
+     route against ``fused_kernels="never"`` on 200 fixed proposals;
+  D  the paper's Fig. 5 on the card: evaluated sections per transition at
+     fixed theta for N = 1e4, 1e5, 1e6.
+
+Launch counts are set to 0 before each of B, C and D and read after it;
+every kernel must have launched on that path. Any failed check exits
+nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
+it lists the kernels with their launches, errors and times. The full report
+goes to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+SF_ITER_FLOPS = 20  # flops of one continued-fraction step of the t-test
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise CheckFailed(what)
+    print(f"  ok: {what}")
+
+
+def time_ms(fn, reps: int, setup=None, queued: bool = True) -> tuple[float, float]:
+    """(device ms, host ms) of one ``fn()`` call.
+
+    Device time: ``reps`` calls are queued behind a sleep kernel long enough
+    to cover their enqueueing, so the card runs them back to back; CUDA
+    events around the run give the device time per call (gaps between
+    launches included). The launch queue holds about a thousand kernels, so
+    ``reps`` times the kernels per call must stay well below that. Host
+    time: the wall time per call of the same loop run alone (the launch
+    overhead every call pays). ``setup`` (a state reset for in-place ops)
+    runs before each call and is timed with it. ``queued=False`` is for a
+    call of thousands of launches, which no queue holds: both numbers are
+    then the wall time per call.
+    """
+    import torch
+
+    for _ in range(2):
+        if setup is not None:
+            setup()
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    if not queued:
+        return host_ms, host_ms
+    e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    e0.record()
+    torch.cuda._sleep(int(3 * host_ms * 1e-3 * reps * 2e9))  # ~3x the enqueue time at <= 2 GHz
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    b.record()
+    b.synchronize()
+    if enqueue_s * 1e3 >= e0.elapsed_time(a):
+        raise CheckFailed("device timing: enqueueing outlasted the sleep in front of it")
+    return a.elapsed_time(b) / reps, host_ms
+
+
+def card_line() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase A: kernels against plain versions
+# ---------------------------------------------------------------------------
+
+
+def phase_a(report):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.t_test_round import t_test_round, t_test_round_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kern = report["kernels"]
+    tol = {"fp32": 1e-5, "bf16": 1e-5}  # both compare fp32 sums of the same products
+
+    def pool(n, d):
+        x = torch.randn(n, d, generator=gen, device=dev) / np.sqrt(d)
+        y = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, 1.0, -1.0)
+        return x, y
+
+    def weights(k, d):
+        w = 2.0 * torch.randn(k, d, generator=gen, device=dev)
+        return w, w + 0.05 * torch.randn(k, d, generator=gen, device=dev)
+
+    print("phase A: kernels against their plain versions")
+    cases = []
+    # logit_delta: the single-chain rounds (m rows of the pool) and the full pass
+    for (n, d, m) in [(12214, 50, 100), (12214, 50, None), (1_000_000, 50, None)]:
+        x, y = pool(n, d)
+        w, wp = weights(1, d)
+        idx = None if m is None else torch.randint(0, n, (m,), generator=gen, device=dev,
+                                                    dtype=torch.int32)
+        rows = n if m is None else m
+        for prec in ("fp32", "bf16"):
+            xx = x.to(torch.bfloat16) if prec == "bf16" else x
+            bx = 2 if prec == "bf16" else 4
+            run = lambda xx=xx, y=y, w=w, wp=wp, idx=idx, p=prec: ops.logit_delta(
+                xx, y, w[0], wp[0], idx=idx, precision=p)
+            plain = lambda xx=xx, y=y, w=w, wp=wp, idx=idx, p=prec: ops.logit_delta(
+                xx, y, w[0], wp[0], idx=idx, precision=p, mode="never")
+            byts = rows * (d * bx + 4 + 4 + (4 if idx is not None else 0)) + 2 * d * 4
+            cases.append(("logit_delta", f"N={n} D={d} rows={rows} {prec}", prec, run, plain,
+                          byts, rows * (4 * d + 30), (m == 100 and prec == "fp32")))
+    # batched (pre-gathered) and gathered forms of the pair-delta kernel
+    x, y = pool(12214, 50)
+    for (k, m, d) in [(32, 100, 50), (32, 1000, 50), (1, 7, 50)]:
+        w, wp = weights(k, d)
+        idx = torch.randint(0, 12214, (k, m), generator=gen, device=dev, dtype=torch.int32)
+        for prec in ("fp32", "bf16"):
+            xp = x.to(torch.bfloat16) if prec == "bf16" else x
+            xg, yg = xp[idx.long()].contiguous(), y[idx.long()].contiguous()
+            bx = 2 if prec == "bf16" else 4
+            cases.append(("batched_logit_delta", f"batched K={k} m={m} D={d} {prec}", prec,
+                          lambda xg=xg, yg=yg, w=w, wp=wp, p=prec: ops.batched_logit_delta(xg, yg, w, wp, precision=p),
+                          lambda xg=xg, yg=yg, w=w, wp=wp, p=prec: ops.batched_logit_delta(xg, yg, w, wp, precision=p, mode="never"),
+                          k * m * (d * bx + 4 + 4) + 2 * k * d * 4, k * m * (4 * d + 30), False))
+            cases.append(("batched_logit_delta", f"gather K={k} m={m} D={d} {prec}", prec,
+                          lambda xp=xp, y=y, idx=idx, w=w, wp=wp, p=prec: ops.gather_and_delta(xp, y, idx, w, wp, precision=p),
+                          lambda xp=xp, y=y, idx=idx, w=w, wp=wp, p=prec: ops.gather_and_delta(xp, y, idx, w, wp, precision=p, mode="never"),
+                          k * m * (d * bx + 4 + 4 + 4) + 2 * k * d * 4, k * m * (4 * d + 30),
+                          (k, m, prec) == (32, 100, "fp32")))
+    for name, label, prec, run, plain, byts, flops, main_shape in cases:
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        # at most ~5 launches per kernel call (bf16 rounds the weights first)
+        # and ~25 per plain call: keep each timed queue near 300 launches
+        (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 10)
+        bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+        print(f"  {name:20s} {label:34s} err={err:.2e} kernel={ms * 1e3:8.2f}us "
+              f"plain={plain_ms * 1e3:8.2f}us bound={bound * 1e3:8.3f}us "
+              f"host/call: kernel {host_ms * 1e3:6.1f}us plain {plain_host_ms * 1e3:6.1f}us")
+        check(err <= tol[prec], f"{name} {label} within {tol[prec]:g} of its plain version")
+        e = kern[name]
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["cases"].append({"case": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound, "host_ms": host_ms, "plain_host_ms": plain_host_ms})
+        if main_shape:
+            e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=(
+                "bytes" if byts / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations"))
+
+    # t_test_round: 32 chains whose df spans 1 .. 1e5, with an s == 0 lane
+    # and an exhausted lane
+    k, m, n_total = 32, 100, 100_200
+    rng = np.random.default_rng(0)
+    prior_n = np.floor(np.logspace(1, 5, k)).astype(np.float32)
+    nvalid = np.full(k, m)
+    prior_n[:3] = 0
+    nvalid[0], nvalid[1] = 2, 3  # df = 1 and 2 after the merge
+    prior_n[3] = n_total - m  # exhausted after the merge
+    tstat = rng.uniform(0.0, 4.0, k)
+    sigma = 1.0
+    mu0 = rng.normal(0, 0.1, k).astype(np.float32)
+    mean0 = (mu0 + tstat * sigma / np.sqrt(np.maximum(prior_n + nvalid, 1))).astype(np.float32)
+    l = (mean0[:, None] + sigma * rng.standard_normal((k, m))).astype(np.float32)
+    l[2] = 0.25  # s == 0: every value equal
+    valid = np.arange(m)[None, :] < nvalid[:, None]
+    m2 = (sigma ** 2 * np.maximum(prior_n - 1, 0)).astype(np.float32)
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=dev)
+    base = [t(prior_n), t(mean0), t(m2), t(mu0), t(np.full(k, 0.05, np.float32)),
+            t(np.zeros(k), torch.int32), t(np.zeros(k), torch.bool), t(np.zeros(k), torch.bool),
+            t(np.ones(k))]
+    lt, vt = t(l), t(valid, torch.bool)
+    sk, sp = [b.clone() for b in base], [b.clone() for b in base]
+    reset_k = lambda: [s.copy_(b) for s, b in zip(sk, base)]
+    reset_p = lambda: [s.copy_(b) for s, b in zip(sp, base)]
+    run = lambda: t_test_round(lt, vt, sk[0], sk[1], sk[2], sk[3], sk[4], n_total, 10_000, *sk[5:])
+    plain = lambda: t_test_round_ref(lt, vt, sp[0], sp[1], sp[2], sp[3], sp[4], n_total, 10_000, *sp[5:])
+    reset_k(); run(); reset_p(); plain()
+    torch.cuda.synchronize()
+    df = (sp[0] - 1).clamp_min(1).cpu().numpy()
+    print(f"  t_test_round df span {df.min():.0f} .. {df.max():.0f}; "
+          f"exhausted lane done={bool(sk[6][3])}, s==0 lane pval={float(sk[8][2])}")
+    check(df.min() == 1 and df.max() >= 1e5, "t_test_round case spans df 1 .. 1e5")
+    check(bool(sk[6][3]) and float(sk[8][2]) == 0.0, "exhausted and s == 0 lanes take their guards")
+    for i in (5, 6, 7):  # rounds, done, decision: exact
+        check(torch.equal(sk[i], sp[i]), f"t_test_round {('rounds', 'done', 'decision')[i - 5]} equal")
+    errs = {name: float((sk[i] - sp[i]).abs().max()) for i, name in
+            ((0, "count"), (1, "mean"), (2, "m2"), (8, "pval"))}
+    rel_p = float(((sk[8] - sp[8]).abs() / sp[8].abs().clamp_min(1e-30)).max())
+    print(f"  t_test_round errors {errs} pval max rel {rel_p:.3e}")
+    check(errs["count"] == 0 and errs["mean"] <= 1e-5 and errs["m2"] <= 1e-6 * float(sp[2].abs().max())
+          and rel_p <= 1e-4, "t_test_round within tolerance (count exact, mean 1e-5, m2 1e-6 of max, "
+          "pval 1e-4 relative: the merge sums in another order)")
+    # the state reset (9 copies) runs inside the timed window: measure it
+    # alone and take it off; the plain version is ~5000 launches a call
+    (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 30, reset_k), \
+        time_ms(plain, 5, reset_p, queued=False)
+    reset_ms, _ = time_ms(lambda: None, 30, reset_k)
+    ms -= reset_ms
+    iters = cf_iterations(sp, df)
+    flops = k * m * 8 + iters * SF_ITER_FLOPS + k * 200
+    byts = k * m * 5 + k * 10 * 4 * 2
+    bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    print(f"  t_test_round K={k} m={m} kernel={ms * 1e3:8.2f}us plain={plain_ms * 1e3:8.2f}us "
+          f"bound={bound * 1e3:8.4f}us host/call: kernel {host_ms * 1e3:6.1f}us "
+          f"plain {plain_host_ms * 1e3:8.1f}us (continued-fraction steps: {iters})")
+    kern["t_test_round"].update(max_abs_err=errs["pval"], ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                bound_by="bytes" if byts / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+                                else "operations")
+    kern["t_test_round"]["cases"].append({"case": f"K={k} m={m} df 1..1e5", **errs,
+                                          "pval_rel": rel_p, "ms": ms, "plain_ms": plain_ms,
+                                          "bound_ms": bound, "host_ms": host_ms,
+                                          "plain_host_ms": plain_host_ms})
+
+
+def cf_iterations(state, df) -> int:
+    """Continued-fraction steps this state needs, summed over the chains the
+    test reached (the data-dependent part of the round op's work)."""
+    import numpy as np
+
+    count, mean, m2, mu0 = (s.cpu().numpy().astype(np.float32) for s in state[:4])
+    f = np.float32
+    std = np.sqrt(m2 / np.maximum(count - 1, 1))
+    corr = np.clip(1 - (count - 1) / f(100_199), 0, 1)
+    s = std / np.sqrt(np.maximum(count, 1)) * np.sqrt(corr)
+    total = 0
+    for i in range(len(count)):
+        if not s[i] > 0:
+            continue
+        t = abs(mean[i] - mu0[i]) / s[i]
+        a, b = f(df[i] / 2), f(0.5)
+        x = f(df[i] / (df[i] + t * t))
+        if not x < (a + 1) / (a + b + 2):
+            a, b, x = b, a, f(1) - x
+        c, d, small = f(np.finfo(np.float32).eps / 2), f(0), f(np.finfo(np.float32).eps / 2)
+        for it in range(1, 200):
+            if it == 1:
+                num = f(1)
+            else:
+                mm = f((it - 1) // 2)
+                if it % 2 == 0:
+                    num = -(a + b) * x / (a + 1) if mm == 0 else \
+                        -(a + mm) * (a + b + mm) * x / ((a + 2 * mm) * (a + 2 * mm + 1))
+                else:
+                    num = mm * (b - mm) * x / ((a + 2 * mm - 1) * (a + 2 * mm))
+            c = f(1) + num / c
+            c = small if abs(c) < small else c
+            d = f(1) + num * d
+            d = f(1) / (small if abs(d) < small else d)
+            total += 1
+            if abs(c * d - 1) < small:
+                break
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phases B-D: the main path
+# ---------------------------------------------------------------------------
+
+
+def counted(report, phase, fn):
+    """Run ``fn`` with every launch count set to 0 first; record the counts."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    out = fn()
+    import torch
+
+    torch.cuda.synchronize()
+    counts = dict(ops.launches)
+    report["phases"][phase]["launches"] = counts
+    for name, n in counts.items():
+        report["kernels"][name]["launches"] += n
+    print(f"  launches during phase {phase}: {counts}")
+    return out
+
+
+def phase_b(report, data):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RandomWalk, SubsampledMHConfig, acceptance_rate, run_chain
+    from repro_torch.experiments import bayeslr
+
+    print("phase B: one chain, N=12214 D=50, 1000 subsampled + 20 exact transitions")
+    n = data.x_train.shape[0]
+    target = bayeslr.make_target(data.x_train, data.y_train)
+    cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="stream")
+    theta0 = torch.zeros(data.x_train.shape[1])
+
+    def run():
+        t0 = time.perf_counter()
+        th, samples, infos = run_chain(1, theta0, target, RandomWalk(0.05), 1000, config=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, ex_samples, ex_infos = run_chain(2, th, target, RandomWalk(0.05), 20, kernel="exact")
+        torch.cuda.synchronize()
+        return samples, infos, wall, ex_infos, time.perf_counter() - t0
+
+    samples, infos, wall, ex_infos, ex_wall = counted(report, "B", run)
+    acc = acceptance_rate(infos)
+    n_eval = float(infos.n_evaluated.float().mean())
+    rounds = float(infos.rounds.float().mean())
+    w_mean = samples[500:].mean(0)
+    err_post = bayeslr.test_error(w_mean, data.x_test, data.y_test)
+    err_true = bayeslr.test_error(data.w_true, data.x_test, data.y_test)
+    r = {"accept": acc, "mean_n_evaluated": n_eval, "mean_rounds": rounds,
+         "transitions_per_s": 1000 / wall, "exact_transitions_per_s": 20 / ex_wall,
+         "exact_accept": acceptance_rate(ex_infos), "test_error_posterior_mean": err_post,
+         "test_error_w_true": err_true}
+    report["phases"]["B"].update(r)
+    print(f"  acceptance={acc:.3f} mean n_evaluated={n_eval:.1f} ({n_eval / n:.2%} of N) "
+          f"rounds={rounds:.2f} transitions/s={1000 / wall:.1f} exact transitions/s={20 / ex_wall:.1f} "
+          f"test error {err_post:.3f} (w_true {err_true:.3f})")
+    check(bool(torch.isfinite(samples).all()), "phase B samples finite, shape "
+          f"{tuple(samples.shape)}")
+    check(0.05 < acc < 0.95 and n_eval <= n, "phase B acceptance in (0.05, 0.95), n_evaluated <= N")
+    check(err_post <= err_true + 0.05, "posterior-mean test error within 0.05 of w_true's")
+    check(bool(np.all(ex_infos.n_evaluated.cpu().numpy() == n)), "exact steps evaluate all N")
+
+
+def phase_c(report, data):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ChainEnsemble, RandomWalk, SubsampledMHConfig, finish_transition
+    from repro_torch.core.samplers import sampler_fns, stream_init, batch_sampler_state
+    from repro_torch.experiments import bayeslr
+
+    print("phase C: K=32 chains in lock-step, 1000 steps")
+    n = data.x_train.shape[0]
+    k, steps = 32, 1000
+
+    def run():
+        t0 = time.perf_counter()
+        samples, diag = bayeslr.run_posterior_ensemble(3, data, num_chains=k, num_steps=steps,
+                                                       batch_size=100, epsilon=0.05,
+                                                       sampler="stream", sigma=0.05)
+        torch.cuda.synchronize()
+        return samples, diag, time.perf_counter() - t0
+
+    samples, diag, wall = counted(report, "C", run)
+    rhat = np.asarray(diag["rhat"])
+    r = {"rhat_max": float(rhat.max()), "rhat_median": float(np.median(rhat)),
+         "ess_w0": diag["ess_w0"], "accept": diag["accept_rate_overall"],
+         "mean_n_evaluated_frac": diag["mean_n_evaluated_overall"] / n,
+         "mean_rounds": diag["mean_rounds_overall"],
+         "rounds_p99": diag["rounds_tail"]["p99"],
+         "transitions_per_s": k * steps / wall}
+    report["phases"]["C"].update(r)
+    print(f"  split R-hat max={r['rhat_max']:.3f} median={r['rhat_median']:.3f} "
+          f"ESS(w0)={r['ess_w0']:.1f} acceptance={r['accept']:.3f} "
+          f"n_evaluated/N={r['mean_n_evaluated_frac']:.4f} transitions/s={r['transitions_per_s']:.1f}")
+    check(bool(np.isfinite(samples).all()) and samples.shape == (k, steps, 50),
+          f"phase C samples finite, shape {samples.shape}")
+    check(0.05 < r["accept"] < 0.95, "phase C acceptance in (0.05, 0.95)")
+
+    # fused route against the batched plain route on 200 fixed proposals
+    target = bayeslr.make_target(data.x_train, data.y_train)
+    cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="stream")
+    rng = np.random.default_rng(7)
+    flat = samples.reshape(-1, 50)
+    theta = torch.tensor(flat[rng.integers(0, len(flat), 200)], device="cuda")
+    theta_p = theta + 0.05 * torch.tensor(rng.standard_normal((200, 50)), dtype=torch.float32,
+                                          device="cuda")
+    log_u = torch.tensor(np.log(rng.uniform(1e-20, 1.0, 200)), dtype=torch.float32, device="cuda")
+    mu0 = (log_u - target.log_global(theta, theta_p)) / n
+    reset_fn, draw_fn = sampler_fns("stream")
+    out = {}
+    for route in ("auto", "never"):
+        ens = ChainEnsemble(target, RandomWalk(0.05), 200, config=cfg, fused_kernels=route)
+        sampler = batch_sampler_state(stream_init(n), 200)
+        _, _, info = finish_transition(None, theta, theta_p, mu0, log_u, sampler, target, cfg,
+                                       reset_fn, draw_fn, max_rounds=ens._max_rounds, mode=route,
+                                       eval_fn=lambda idx, e=ens: e._round_eval(theta, theta_p, idx))
+        out[route] = info
+    a, b = out["auto"], out["never"]
+    differ = (a.accepted != b.accepted) | (a.n_evaluated != b.n_evaluated)
+    borderline = ((b.pvalue - 0.05).abs() <= 1e-3 * 0.05) | ((a.pvalue - 0.05).abs() <= 1e-3 * 0.05)
+    n_diff = int(differ.sum())
+    report["phases"]["C"]["fused_vs_plain_differ"] = n_diff
+    print(f"  fused vs never on 200 proposals: {n_diff} differ in decision or n_evaluated; "
+          f"max |mu_hat diff| {float((a.mu_hat - b.mu_hat).abs().max()):.3e}")
+    check(not bool((differ & ~borderline).any()),
+          "fused and plain routes agree on every proposal whose p-value is not within 0.1% of epsilon")
+
+
+def phase_d(report):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RandomWalk, SubsampledMHConfig, make_kernel, mh_step
+    from repro_torch.experiments import bayeslr
+
+    print("phase D: Fig. 5, evaluated sections per transition at fixed theta")
+    rows = []
+
+    def run():
+        for n in (10_000, 100_000, 1_000_000):
+            data = bayeslr.synth_2d(0, n)
+            target = bayeslr.make_target(data.x_train, data.y_train)
+            cfg = SubsampledMHConfig(batch_size=100, epsilon=0.01, sampler="stream")
+            state0, step = make_kernel(target, RandomWalk(0.1), cfg)
+            theta = torch.tensor([1.6, -1.6], device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(100)
+            step(gen, theta, state0)  # warm-up
+            torch.cuda.synchronize()
+            evals = []
+            t0 = time.perf_counter()
+            for _ in range(60):
+                _, _, info = step(gen, theta, state0)  # theta stays fixed
+                evals.append(info.n_evaluated)
+            torch.cuda.synchronize()
+            sub_s = (time.perf_counter() - t0) / 60
+            t0 = time.perf_counter()
+            for _ in range(3):
+                mh_step(gen, theta, target, RandomWalk(0.1))
+            torch.cuda.synchronize()
+            ex_s = (time.perf_counter() - t0) / 3
+            mean_eval = float(torch.stack(evals).float().mean())
+            rows.append({"N": n, "mean_n_evaluated": mean_eval, "frac": mean_eval / n,
+                         "subsampled_us": sub_s * 1e6, "exact_us": ex_s * 1e6})
+
+    counted(report, "D", run)
+    for r in rows:
+        print(f"  N={r['N']:>8d} mean n_evaluated={r['mean_n_evaluated']:9.1f} "
+              f"({r['frac']:.4%}) subsampled={r['subsampled_us']:.0f}us exact={r['exact_us']:.0f}us")
+    report["phases"]["D"]["rows"] = rows
+    fr = [r["frac"] for r in rows]
+    check(fr[0] > fr[1] > fr[2], "n_evaluated / N falls as N grows")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 2
+    src = os.path.join(HERE, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch", "kernels", "csrc")):
+        print("chip_smoke: run it from a checkout: src/repro_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, src)
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    lib_dir = _build.build_all()
+    print(f"kernels built in {time.perf_counter() - t0:.2f}s into {lib_dir}")
+    for src, log in _build.build_log.items():
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"  {src}: {line.strip()}")
+
+    replaces = {
+        "logit_delta": "src/repro/kernels/logit_loglik.py:35",
+        "batched_logit_delta": "src/repro/kernels/batched_loglik.py:40",
+        "t_test_round": "src/repro/core/sequential_test.py:32 (XLA-fused, not a pallas_call)",
+    }
+    sources = {
+        "logit_delta": "src/repro_torch/kernels/csrc/logit_delta.cu",
+        "batched_logit_delta": "src/repro_torch/kernels/csrc/logit_delta.cu",
+        "t_test_round": "src/repro_torch/kernels/csrc/t_test_round.cu",
+    }
+    report = {"card": card, "kind": kind, "phases": {p: {} for p in "BCD"},
+              "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
+                                 "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
+                                 "ms": None, "plain_ms": None, "bound_ms": None,
+                                 "bound_by": None, "library_ms": None, "cases": []}
+                          for name in replaces}}
+    print("no single PyTorch call computes any of these functions: library_ms is null")
+
+    from repro_torch.experiments import bayeslr
+
+    phase_a(report)
+    data = bayeslr.synth_mnist_like(0)
+    phase_b(report, data)
+    phase_c(report, data)
+    phase_d(report)
+    for name, e in report["kernels"].items():
+        check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
+    for phase, need in (("B", ("logit_delta", "t_test_round")),
+                        ("C", ("batched_logit_delta", "t_test_round")),
+                        ("D", ("logit_delta", "t_test_round"))):
+        got = report["phases"][phase]["launches"]
+        check(all(got.get(n, 0) > 0 for n in need), f"phase {phase} went through {need}")
+
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1, default=float)
+    line = [{k: v for k, v in e.items() if k != "cases"} for e in report["kernels"].values()]
+    print(card)
+    print(json.dumps({"kernels": line}, default=float))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except CheckFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,61 @@
+"""Carry the JAX package's state across into the port.
+
+The counterpart of loading weights: the BayesLR data pool, a batch of chain
+positions theta (K, D), and the samplers' state (the stream's ``pos``; the
+Fisher–Yates ``idx``/``pos``/``size``), each handed over as numpy arrays and
+built into an :class:`~repro_torch.experiments.bayeslr.LRData` or an
+:class:`~repro_torch.core.ensemble.EnsembleState` on a given device. Taking
+numpy keeps this module free of JAX: call ``np.asarray`` on the reference's
+arrays first.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .core.ensemble import EnsembleState
+from .core.samplers import FisherYatesState, StreamSliceState
+from .experiments.bayeslr import LRData
+
+
+def _f32(a, dev) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=dev)  # a copy: the port owns it
+
+
+def _i32(a, dev) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+
+def lr_data(x_train, y_train, x_test=None, y_test=None, w_true=None, *, device=None) -> LRData:
+    """An :class:`LRData` from numpy arrays (test split and w_true optional)."""
+    dev = resolve_device(device)
+    x, y = _f32(x_train, dev), _f32(y_train, dev)
+    xt = x[:0] if x_test is None else _f32(x_test, dev)
+    yt = y[:0] if y_test is None else _f32(y_test, dev)
+    w = torch.zeros(x.shape[1], device=dev) if w_true is None else _f32(w_true, dev)
+    return LRData(x, y, xt, yt, w)
+
+
+def sampler_state(kind: str, n: int, *, pos, idx=None, size=None, device=None):
+    """A sampler state from the reference's arrays: ``kind="stream"`` takes
+    ``pos``; ``kind="fy"`` takes ``idx``, ``pos`` and ``size``. Leading
+    chain axes are kept as given."""
+    dev = resolve_device(device)
+    if kind == "stream":
+        return StreamSliceState(_i32(pos, dev), int(n))
+    if kind == "fy":
+        if idx is None:
+            raise ValueError("the Fisher–Yates state needs its idx buffer")
+        return FisherYatesState(_i32(idx, dev), _i32(pos, dev),
+                                _i32(n if size is None else size, dev))
+    raise ValueError(f"unknown sampler kind: {kind!r}")
+
+
+def ensemble_state(theta, kind: str, n: int, *, pos, idx=None, size=None,
+                   device=None) -> EnsembleState:
+    """An :class:`EnsembleState` from theta (K, ...) and the batched sampler
+    arrays (leading (K,) axis)."""
+    dev = resolve_device(device)
+    return EnsembleState(_f32(theta, dev),
+                         sampler_state(kind, n, pos=pos, idx=idx, size=size, device=dev))

@@ -1,0 +1,141 @@
+"""Without-replacement mini-batch samplers with sublinear per-round cost.
+
+The port of ``repro.core.samplers``. Sampler states hold tensors with an
+optional leading chain axis: ``pos`` is () for one chain and (K,) for an
+ensemble, and one draw serves both. Every draw takes an ``active`` mask
+(default: all chains): chains that are not active keep their state, which is
+the lock-step rule of the reference's batched while loop.
+
+  * ``stream``: a pre-permuted pool consumed in contiguous slices. It uses no
+    randomness, so a sequential test on it is deterministic.
+  * ``fy``: a partial Fisher–Yates shuffle over a persistent index buffer.
+    One round is m swap steps batched over chains, with all m uniforms drawn
+    in one call. The swaps update the buffer in place (the JAX package's
+    state is immutable; XLA updates it in place under its loop). This is m
+    small launches per round: correct, and slow on the card; a kernel for it
+    is later work.
+
+The ``_bounded`` twins of the reference wait for the adaptive scheduler.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .._device import resolve_device
+
+
+class FisherYatesState(NamedTuple):
+    idx: torch.Tensor  # int32 (..., capacity): a permutation buffer
+    pos: torch.Tensor  # int32 (...): indices consumed this transition
+    size: torch.Tensor  # int32 (...): logical pool size (<= capacity)
+
+    @property
+    def capacity(self) -> int:
+        return self.idx.shape[-1]
+
+
+def fy_init(n: int, size=None, *, device=None) -> FisherYatesState:
+    """Pool over [0, n); ``size`` restricts draws to a logical prefix."""
+    device = resolve_device(device)
+    return FisherYatesState(
+        torch.arange(n, dtype=torch.int32, device=device),
+        torch.zeros((), dtype=torch.int32, device=device),
+        torch.tensor(n if size is None else size, dtype=torch.int32, device=device),
+    )
+
+
+def fy_reset(state: FisherYatesState) -> FisherYatesState:
+    """Rewind for a new transition; the buffer itself persists."""
+    return FisherYatesState(state.idx, torch.zeros_like(state.pos), state.size)
+
+
+def fy_draw(gen: torch.Generator, state: FisherYatesState, m: int,
+            active: torch.Tensor | None = None):
+    """Draw ``m`` indices without replacement from the logical pool.
+
+    Returns (new_state, indices int32 (..., m), valid bool (..., m)). When
+    fewer than m remain, the tail repeats valid draws and is flagged invalid.
+    """
+    idx, pos, n = state.idx, state.pos, state.size
+    cap = idx.shape[-1]
+    u = torch.rand(pos.shape + (m,), generator=gen, dtype=torch.float64, device=idx.device)
+    for k in range(m):
+        p = torch.clamp_max(pos + k, cap - 1)
+        span = torch.clamp_min(n - p, 1)
+        draw = torch.minimum((u[..., k] * span).to(torch.int32), span - 1)
+        j = torch.clamp_max(p + draw, cap - 1)
+        if active is not None:
+            j = torch.where(active, j, p)  # a self-swap leaves the buffer alone
+        p1, j1 = p[..., None].long(), j[..., None].long()
+        vi, vj = idx.gather(-1, p1), idx.gather(-1, j1)
+        idx.scatter_(-1, p1, vj)
+        idx.scatter_(-1, j1, vi)
+    offs = pos[..., None] + torch.arange(m, dtype=torch.int32, device=idx.device)
+    valid = offs < n[..., None]
+    out = idx.gather(-1, torch.clamp_max(offs, cap - 1).long())
+    new_pos = torch.minimum(pos + m, n)
+    if active is not None:
+        new_pos = torch.where(active, new_pos, pos)
+    return FisherYatesState(idx, new_pos, n), out, valid
+
+
+class StreamSliceState(NamedTuple):
+    """Without-replacement draws as contiguous slices of a pool that the data
+    pipeline already put in random order."""
+
+    pos: torch.Tensor  # int32 (...)
+    n: int
+
+    @property
+    def num_sections(self) -> int:
+        return self.n
+
+
+def stream_init(n: int, *, device=None) -> StreamSliceState:
+    return StreamSliceState(torch.zeros((), dtype=torch.int32, device=resolve_device(device)), n)
+
+
+def stream_reset(state: StreamSliceState) -> StreamSliceState:
+    return StreamSliceState(torch.zeros_like(state.pos), state.n)
+
+
+def stream_draw(gen, state: StreamSliceState, m: int, active: torch.Tensor | None = None):
+    del gen  # randomness lives in the stream order
+    pos = state.pos
+    offs = pos[..., None] + torch.arange(m, dtype=torch.int32, device=pos.device)
+    valid = offs < state.n
+    out = torch.clamp_max(offs, state.n - 1)
+    new_pos = torch.clamp_max(pos + m, state.n)
+    if active is not None:
+        new_pos = torch.where(active, new_pos, pos)
+    return StreamSliceState(new_pos, state.n), out, valid
+
+
+def sampler_fns(kind: str):
+    """(reset_fn, draw_fn) for ``kind`` in {fy, stream}."""
+    if kind == "fy":
+        return fy_reset, fy_draw
+    if kind == "stream":
+        return stream_reset, stream_draw
+    raise ValueError(f"unknown sampler kind: {kind!r}")
+
+
+def make_sampler(kind: str, n: int, *, device=None):
+    """Returns (init_state, reset_fn, draw_fn) for ``kind`` in {fy, stream}."""
+    reset_fn, draw_fn = sampler_fns(kind)
+    init = fy_init if kind == "fy" else stream_init
+    return init(n, device=device), reset_fn, draw_fn
+
+
+def batch_sampler_state(state, num_chains: int):
+    """Give every tensor of a single-chain sampler state a leading (K,) axis
+    (independent copies: the Fisher–Yates buffer is updated in place)."""
+    if isinstance(state, FisherYatesState):
+        return FisherYatesState(
+            state.idx[None].repeat(num_chains, 1),
+            state.pos[None].repeat(num_chains),
+            state.size[None].repeat(num_chains),
+        )
+    return StreamSliceState(state.pos[None].repeat(num_chains), state.n)

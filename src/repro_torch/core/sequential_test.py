@@ -1,0 +1,115 @@
+"""Alg. 2: the sequential Student-t test for the MH accept decision.
+
+The port of ``repro.core.sequential_test``. Given u ~ U[0,1], accept iff
+mu > mu0, where mu0 = (log u - sum_{global} log w_n) / N and mu is the mean
+of the N local-section deltas l_i. The test draws mini-batches of l_i without
+replacement, keeps a Welford accumulator, applies the finite-population
+correction, and stops when the two-sided t p-value drops below epsilon, or
+when the pool is exhausted (then the decision is exact). When s_l = 0 no
+test is made and another batch is drawn.
+
+One function serves one chain (mu0 of shape ()) and K chains in lock-step
+(mu0 of shape (K,)): each round is one draw, one (K, m) evaluation and one
+round op (:func:`repro_torch.kernels.ops.t_test_round`: merge, stopping rule
+and bookkeeping, a single launch on the card). The reference's
+``lax.while_loop`` becomes a Python loop that reads ``done`` on the host
+once per round.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..kernels import ops, ref
+from .stats import Welford
+
+
+def test_round_decision(welford: Welford, mu0, n_total, epsilon):
+    """One round's stopping logic on the running accumulator (Alg. 2 steps
+    7-14). Returns ``(decision, pvalue, test_ok, exhausted)``. The one
+    definition of the rule: the round op's plain version calls the same
+    float32 arithmetic (:func:`repro_torch.kernels.ref.round_decision_ref`)
+    and its CUDA kernel repeats it operation for operation."""
+    return ref.round_decision_ref(welford.count, welford.mean, welford.m2, mu0,
+                                  n_total, epsilon)
+
+
+class SeqTestResult(NamedTuple):
+    decision: torch.Tensor  # bool: True = H1 (mu > mu0) = accept
+    n_evaluated: torch.Tensor  # int32: local sections actually evaluated
+    rounds: torch.Tensor  # int32: mini-batches drawn
+    mu_hat: torch.Tensor  # f32
+    pvalue: torch.Tensor  # f32 (final)
+    sampler_state: tuple  # threaded sampler state
+
+
+def sequential_test(
+    gen: torch.Generator | None,
+    mu0: torch.Tensor,
+    draw_fn: Callable,
+    eval_fn: Callable[[torch.Tensor], torch.Tensor],
+    sampler_state,
+    num_sections: int,
+    batch_size: int,
+    epsilon,
+    max_rounds: int | None = None,
+    *,
+    mode: str = "auto",
+) -> SeqTestResult:
+    """Run the sequential test for one chain (mu0 shape ()) or K lock-step
+    chains (mu0 shape (K,)).
+
+    draw_fn(gen, sampler_state, m, active) -> (sampler_state, idx, valid)
+    eval_fn(idx) -> l, shaped mu0.shape + (m,)
+
+    ``epsilon`` is a float or a per-chain tensor; ``mode`` is the kernel
+    dispatch of the round op.
+
+    Example — an easy decision (all l_i far above mu0) stops after one round::
+
+        >>> import torch
+        >>> from repro_torch.core import make_sampler, sequential_test
+        >>> state0, reset, draw = make_sampler("stream", 1000, device="cpu")
+        >>> res = sequential_test(
+        ...     None, mu0=torch.tensor(-1.0), draw_fn=draw,
+        ...     eval_fn=lambda idx: idx.float(), sampler_state=reset(state0),
+        ...     num_sections=1000, batch_size=50, epsilon=0.05)
+        >>> bool(res.decision), int(res.rounds), int(res.n_evaluated)
+        (True, 1, 50)
+    """
+    if max_rounds is None:
+        max_rounds = int(math.ceil(int(num_sections) / batch_size))
+    mu0 = mu0.to(torch.float32).contiguous()
+    shape, dev = mu0.shape, mu0.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    w = Welford.empty(shape, device=dev)
+    rounds = torch.zeros(shape, dtype=torch.int32, device=dev)
+    done = torch.zeros(shape, dtype=torch.bool, device=dev)
+    decision = torch.zeros(shape, dtype=torch.bool, device=dev)
+    pval = torch.ones(shape, **f32)
+    eps = torch.broadcast_to(torch.as_tensor(epsilon, **f32), shape).contiguous()
+    flat = lambda t: t.view(-1)  # (K,) views of the state: () becomes (1,)
+    sampler = sampler_state
+    batched = len(shape) > 0
+    while True:
+        active = ~done if batched else None
+        sampler, idx, valid = draw_fn(gen, sampler, batch_size, active)
+        l = eval_fn(idx)
+        ops.t_test_round(
+            l.reshape(-1, batch_size), valid.reshape(-1, batch_size),
+            flat(w.count), flat(w.mean), flat(w.m2), flat(mu0), flat(eps),
+            num_sections, max_rounds, flat(rounds), flat(done), flat(decision),
+            flat(pval), mode=mode,
+        )
+        if bool(done.all()):
+            break
+    return SeqTestResult(
+        decision=decision,
+        n_evaluated=w.count.to(torch.int32),
+        rounds=rounds,
+        mu_hat=w.mean,
+        pvalue=pval,
+        sampler_state=sampler,
+    )

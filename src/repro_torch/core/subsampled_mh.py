@@ -1,0 +1,151 @@
+"""Alg. 3: the sublinear-time subsampled MH transition.
+
+The port of ``repro.core.subsampled_mh``. Local sections are evaluated only
+when the sequential test asks for another mini-batch, so a transition costs
+O(m * rounds) with rounds set by the test.
+
+Randomness comes from one ``torch.Generator`` per chain (or per ensemble),
+drawn in the reference's order: u, then the proposal's noise, then the
+sampler's. The scheduler's traced knobs (``batch_eff``, ``scheduled=True``)
+wait for the adaptive-scheduler slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from .._device import resolve_device, tree_leaves, tree_select
+from .samplers import make_sampler
+from .sequential_test import sequential_test
+from .target import PartitionedTarget
+
+Params = Any
+
+
+class SubsampledMHInfo(NamedTuple):
+    accepted: torch.Tensor  # bool
+    n_evaluated: torch.Tensor  # int32: sections actually evaluated
+    rounds: torch.Tensor  # int32: mini-batches drawn
+    mu_hat: torch.Tensor  # f32
+    mu0: torch.Tensor  # f32
+    pvalue: torch.Tensor  # f32
+    log_u: torch.Tensor  # f32
+    epsilon: torch.Tensor  # f32: tolerance this transition ran with
+    batch_eff: torch.Tensor  # int32: mini-batch size this transition
+
+
+@dataclasses.dataclass(frozen=True)
+class SubsampledMHConfig:
+    """Static configuration of one subsampled-MH chain.
+
+    ``batch_size`` (m) sections per round; ``epsilon`` the test's p-value
+    tolerance; ``max_rounds`` caps the test (default: enough rounds to
+    exhaust the pool); ``sampler`` is "fy" (Fisher–Yates) or "stream".
+
+        >>> cfg = SubsampledMHConfig(batch_size=50, epsilon=0.05)
+        >>> cfg.batch_size, cfg.sampler
+        (50, 'fy')
+    """
+
+    batch_size: int = 100
+    epsilon: float = 0.01
+    max_rounds: int | None = None
+    sampler: str = "fy"
+
+
+def draw_log_u(gen: torch.Generator, shape, device) -> torch.Tensor:
+    """log u with u ~ U[1e-20, 1), float32 (the reference's floor)."""
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return torch.log(torch.clamp_min(u, 1e-20))
+
+
+def propose_and_mu0(gen: torch.Generator, theta: Params, target: PartitionedTarget,
+                    proposal, prop_scale=None, *, batch_shape=()):
+    """Steps 2-6 of Alg. 3: draw u, propose, evaluate the global section.
+    Returns ``(theta_prime, mu0, log_u)``; ``batch_shape`` is (K,) for a
+    batch of chains."""
+    dev = tree_leaves(theta)[0].device
+    log_u = draw_log_u(gen, batch_shape, dev)
+    if prop_scale is None:
+        theta_p, corr = proposal(gen, theta)
+    else:
+        theta_p, corr = proposal(gen, theta, prop_scale)
+    g = target.log_global(theta, theta_p) + corr
+    mu0 = (log_u - g) / target.num_sections
+    return theta_p, mu0, log_u
+
+
+def finish_transition(gen, theta, theta_p, mu0, log_u, sampler_state, target, config,
+                      reset_fn, draw_fn, *, eval_fn=None, epsilon=None,
+                      max_rounds: int | None = None, mode: str = "auto"):
+    """Steps 7-19 of Alg. 3 for a given proposal: the sequential test with
+    lazily evaluated local sections, then accept or keep. Returns
+    ``(theta', sampler', info)``. ``eval_fn`` defaults to the target's
+    single-chain ``log_local``."""
+    eps = config.epsilon if epsilon is None else epsilon
+    if eval_fn is None:
+        eval_fn = lambda idx: target.log_local(theta, theta_p, idx)
+    res = sequential_test(
+        gen, mu0, draw_fn, eval_fn, reset_fn(sampler_state), target.num_sections,
+        config.batch_size, eps,
+        max_rounds=config.max_rounds if max_rounds is None else max_rounds,
+        mode=mode,
+    )
+    accept = res.decision
+    theta_new = tree_select(accept, theta_p, theta)
+    f32 = dict(dtype=torch.float32, device=mu0.device)
+    info = SubsampledMHInfo(
+        accepted=accept,
+        n_evaluated=res.n_evaluated,
+        rounds=res.rounds,
+        mu_hat=res.mu_hat,
+        mu0=mu0,
+        pvalue=res.pvalue,
+        log_u=log_u,
+        epsilon=torch.broadcast_to(torch.as_tensor(eps, **f32), mu0.shape),
+        batch_eff=torch.full(mu0.shape, config.batch_size, dtype=torch.int32, device=mu0.device),
+    )
+    return theta_new, res.sampler_state, info
+
+
+def subsampled_mh_step(gen: torch.Generator, theta: Params, sampler_state,
+                       target: PartitionedTarget, proposal, config: SubsampledMHConfig,
+                       reset_fn, draw_fn, *, epsilon=None, max_rounds: int | None = None,
+                       prop_scale=None, mode: str = "auto"):
+    """One approximate MH transition (Alg. 3). Returns (theta', sampler', info).
+
+    Steps: 2 sample u; 3-4 evaluate the global section; 6 compute mu0; 7-14
+    the sequential test; 15-19 accept or restore.
+    """
+    theta_p, mu0, log_u = propose_and_mu0(gen, theta, target, proposal, prop_scale)
+    return finish_transition(gen, theta, theta_p, mu0, log_u, sampler_state, target,
+                             config, reset_fn, draw_fn, epsilon=epsilon,
+                             max_rounds=max_rounds, mode=mode)
+
+
+def adaptive_max_rounds(config: SubsampledMHConfig, num_sections: int, buckets) -> int:
+    """Static round cap covering pool exhaustion at the smallest bucket."""
+    if config.max_rounds is not None:
+        return config.max_rounds
+    m_min = max(1, min(int(b) for b in buckets))
+    return int(math.ceil(num_sections / m_min))
+
+
+def make_kernel(target: PartitionedTarget, proposal, config: SubsampledMHConfig | None = None,
+                *, device=None):
+    """Bundle an ``(init_state, step)`` pair:
+    ``step(gen, theta, sampler_state) -> (theta', sampler_state', info)``.
+    The sampler lives on ``device``, by default the target's device (or the
+    card, for a hand-wired target)."""
+    config = config or SubsampledMHConfig()
+    device = device if device is not None else (target.device or resolve_device(None))
+    state0, reset_fn, draw_fn = make_sampler(config.sampler, target.num_sections, device=device)
+
+    def step(gen, theta, sampler_state):
+        return subsampled_mh_step(gen, theta, sampler_state, target, proposal, config,
+                                  reset_fn, draw_fn)
+
+    return state0, step

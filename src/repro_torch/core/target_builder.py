@@ -1,0 +1,185 @@
+"""Target construction: one kernel-family registry for every workload.
+
+The port of ``repro.core.target_builder``. A target declares its
+local-likelihood family and the builder attaches
+
+  * ``log_local``          the (m,) pair delta of one chain's round,
+  * ``log_local_ensemble`` the (K, m) lock-step round, both through the
+                           kernel dispatch of :mod:`repro_torch.kernels.ops`,
+  * ``log_density``        prior + full local sum, for diagnostics.
+
+This slice registers the ``logit`` family (BayesLR): data = (x (N, D),
+y (N,)), params = w. Unlike the reference, whose single-chain delta calls
+the plain version directly, both rounds dispatch, so no plain version runs
+on the card. The other families (``gaussian_ar1``, ``ce``,
+``gaussian_mean``), per-chain (K, N, D) pools, latent-dependent (callable)
+data and the ``TargetSpec`` recipes (partitioning, streaming append) come
+with their slices and raise ``NotImplementedError`` here. The reference's
+mesh constraints (``lc``) have no counterpart on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..kernels import ops, ref
+from .target import PartitionedTarget
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelFamily:
+    """A local-likelihood family: ``loglik(data, params, idx) -> (m,)``,
+    ``delta(data, params, params_p, idx) -> (m,)`` for one chain, and
+    ``ensemble_delta(data, params, params_p, idx, mode=) -> (K, m)`` for a
+    lock-step round."""
+
+    name: str
+    loglik: Callable[..., torch.Tensor]
+    delta: Callable[..., torch.Tensor]
+    ensemble_delta: Callable[..., torch.Tensor]
+
+
+_FAMILIES: dict[str, KernelFamily] = {}
+
+
+def register_family(family: KernelFamily) -> KernelFamily:
+    """Add a family to the registry (overwrites an existing name)."""
+    _FAMILIES[family.name] = family
+    return family
+
+
+def get_family(name: str) -> KernelFamily:
+    if name not in _FAMILIES:
+        raise KeyError(f"unknown kernel family {name!r}; registered: {sorted(_FAMILIES)}")
+    return _FAMILIES[name]
+
+
+def registered_families() -> tuple[str, ...]:
+    return tuple(sorted(_FAMILIES))
+
+
+def _logit_pool(data):
+    x, y = data
+    if x.ndim != 2:
+        raise NotImplementedError("per-chain (K, N, D) logit pools come with a later slice")
+    return x, y
+
+
+def _logit_loglik(data, w, idx):
+    x, y = _logit_pool(data)
+    idx = idx.long()
+    return ref.logit_loglik(w, x[idx], y[idx])
+
+
+def _logit_delta(data, w, w_p, idx):
+    x, y = _logit_pool(data)
+    return ops.logit_delta(x, y, w, w_p, idx=idx)
+
+
+def _logit_ensemble_delta(data, w, w_p, idx, mode: str = "auto"):
+    x, y = _logit_pool(data)
+    return ops.gather_and_delta(x, y, idx, w, w_p, mode=mode)
+
+
+register_family(KernelFamily("logit", _logit_loglik, _logit_delta, _logit_ensemble_delta))
+
+_LATER = {"gaussian_ar1": "the stochastic-volatility slice",
+          "ce": "the LM slice", "gaussian_mean": "the partition slice"}
+
+
+def build_target(
+    family: str | None,
+    data: Any = None,
+    num_sections: int | None = None,
+    *,
+    prior_logpdf: Callable[[Params], torch.Tensor] | None = None,
+    log_global: Callable[[Params, Params], torch.Tensor] | None = None,
+    log_local: Callable[[Params, Params, torch.Tensor], torch.Tensor] | None = None,
+    log_density: Callable[[Params], torch.Tensor] | None = None,
+    params_fn: Callable[[Params], Any] | None = None,
+    prior_scale: float = 1.0,
+) -> PartitionedTarget:
+    """Construct a :class:`~repro_torch.core.target.PartitionedTarget` from a
+    registered kernel family.
+
+    ``data`` is the family's section pool; ``params_fn`` maps theta to the
+    family's parameters (default: identity). The global section comes from
+    ``prior_logpdf`` (differenced) or an explicit ``log_global``; the prior
+    must accept a leading chain axis and return one value per chain.
+    ``prior_scale`` tempers the prior to ``prior_scale * log p(theta)``.
+
+        >>> import torch
+        >>> from repro_torch.core import build_target
+        >>> g = torch.Generator().manual_seed(0)
+        >>> x = torch.randn(100, 3, generator=g)
+        >>> y = torch.where(torch.rand(100, generator=g) < 0.5, 1.0, -1.0)
+        >>> t = build_target("logit", (x, y), 100,
+        ...                  prior_logpdf=lambda w: -5.0 * (w ** 2).sum(-1))
+        >>> t.family, t.num_sections, t.log_local_ensemble is not None
+        ('logit', 100, True)
+        >>> w0, w1 = torch.zeros(3), torch.full((3,), 0.1)
+        >>> t.log_local(w0, w1, torch.arange(8, dtype=torch.int32)).shape
+        torch.Size([8])
+    """
+    if num_sections is None:
+        raise ValueError("num_sections is required")
+    if family in _LATER:
+        raise NotImplementedError(f"the {family!r} family comes with {_LATER[family]}")
+    if prior_logpdf is not None and prior_scale != 1.0:
+        scale, base_prior = float(prior_scale), prior_logpdf
+        prior_logpdf = lambda theta: scale * base_prior(theta)
+    elif prior_scale != 1.0:
+        raise ValueError("prior_scale tempering requires prior_logpdf")
+    if log_global is None:
+        if prior_logpdf is None:
+            raise ValueError("pass prior_logpdf or an explicit log_global")
+
+        def log_global(theta, theta_p):
+            return prior_logpdf(theta_p) - prior_logpdf(theta)
+
+    if family is None:
+        if log_local is None:
+            raise ValueError("family=None requires an explicit log_local")
+        return PartitionedTarget(num_sections, log_global, log_local, log_density)
+
+    fam = get_family(family)
+    if callable(data):
+        raise NotImplementedError("latent-dependent (callable) section data comes with a later slice")
+    params_fn = params_fn or (lambda theta: theta)
+
+    if log_local is None:
+
+        def log_local(theta, theta_p, idx):
+            return fam.delta(data, params_fn(theta), params_fn(theta_p), idx)
+
+    def log_local_ensemble(theta, theta_p, idx, mode: str = "auto"):
+        return fam.ensemble_delta(data, params_fn(theta), params_fn(theta_p), idx, mode=mode)
+
+    device = data[0].device if isinstance(data, (tuple, list)) else data.device
+    if log_density is None and prior_logpdf is not None:
+
+        def log_density(theta):
+            idx = torch.arange(num_sections, dtype=torch.int32, device=device)
+            return prior_logpdf(theta) + fam.loglik(data, params_fn(theta), idx).sum()
+
+    return PartitionedTarget(
+        num_sections=num_sections,
+        log_global=log_global,
+        log_local=log_local,
+        log_density=log_density,
+        log_local_ensemble=log_local_ensemble,
+        family=fam.name,
+        device=device,
+    )
+
+
+def spec_of(target: PartitionedTarget):
+    raise NotImplementedError("TargetSpec recipes come with the partition slice")
+
+
+def append_observations(target: PartitionedTarget, new_data: Any):
+    raise NotImplementedError("streaming append comes with the partition slice")

@@ -1,0 +1,174 @@
+"""Public wrappers: the hand kernel for CUDA tensors, the plain version for
+CPU tensors.
+
+The dispatch vocabulary is the JAX package's (``repro.kernels.ops``):
+
+  ``mode="auto"``    the kernel for tensors on the card, the plain version
+                     for tensors on the CPU — unless ``REPRO_FUSED`` pins
+                     another default. The choice follows the tensors' device,
+                     not whether a card happens to be present;
+  ``mode="always"``  the kernel; raises for tensors on the CPU, where no
+                     kernel runs (there is no interpret mode);
+  ``mode="never"``   the plain PyTorch version, wherever the tensors are.
+
+``mode="kernel"`` / ``mode="ref"`` are deprecated aliases for ``always`` /
+``never`` and emit a ``DeprecationWarning``.
+
+``precision="fp32"`` is float32 end to end; ``precision="bf16"`` reads the
+data rows (and rounds the weight pair) as bfloat16 while every kernel still
+accumulates in float32; ``precision="auto"`` defers to ``REPRO_PRECISION``,
+defaulting to fp32. For the gathered form the pool itself is read in bf16:
+hand a bf16 pool to avoid converting it on every call.
+
+There is no fallback: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+import os
+import warnings
+
+import torch
+
+from . import _build, ref
+from .batched_loglik import batched_logit_delta as _batched_kernel
+from .batched_loglik import gather_and_delta as _gather_kernel
+from .logit_loglik import logit_delta as _logit_kernel
+from .t_test_round import t_test_round as _t_test_kernel
+from .t_test_round import t_test_round_ref
+
+MODES = ("auto", "always", "never")
+_DEPRECATED_ALIASES = {"kernel": "always", "ref": "never"}
+ENV_VAR = "REPRO_FUSED"
+
+PRECISIONS = ("auto", "fp32", "bf16")
+PRECISION_ENV_VAR = "REPRO_PRECISION"
+
+
+def normalize_mode(mode: str) -> str:
+    """Canonicalize a dispatch mode, accepting (and warning on) the
+    deprecated ``kernel``/``ref`` spellings."""
+    if mode in _DEPRECATED_ALIASES:
+        canon = _DEPRECATED_ALIASES[mode]
+        warnings.warn(
+            f"mode={mode!r} is deprecated; use mode={canon!r}",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+        return canon
+    if mode not in MODES:
+        raise ValueError(f"unknown dispatch mode {mode!r}; expected one of {MODES}")
+    return mode
+
+
+def resolve_mode(mode: str = "auto") -> str:
+    """``auto`` after the ``REPRO_FUSED`` default is applied."""
+    mode = normalize_mode(mode)
+    if mode == "auto":
+        env = os.environ.get(ENV_VAR, "auto")
+        mode = normalize_mode(env) if env != "auto" else "auto"
+    return mode
+
+
+def use_kernel(mode: str = "auto", tensor: torch.Tensor | None = None) -> bool:
+    """Resolve a dispatch mode for tensors living where ``tensor`` lives:
+    "run the hand kernel?" Raises for ``always`` on CPU tensors."""
+    mode = resolve_mode(mode)
+    on_cuda = tensor is not None and tensor.device.type == "cuda"
+    if mode == "never":
+        return False
+    if mode == "always" and not on_cuda:
+        where = "no tensor" if tensor is None else f"tensors on {tensor.device}"
+        raise RuntimeError(f"mode='always' needs CUDA tensors; got {where}")
+    return on_cuda
+
+
+def resolve_precision(precision: str = "auto") -> str:
+    """Resolve a precision mode to ``fp32``/``bf16``; ``auto`` defers to
+    ``$REPRO_PRECISION`` and defaults to exact fp32."""
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"unknown precision {precision!r}; expected one of {PRECISIONS}"
+        )
+    if precision == "auto":
+        env = os.environ.get(PRECISION_ENV_VAR, "fp32")
+        if env not in ("fp32", "bf16"):
+            raise ValueError(
+                f"${PRECISION_ENV_VAR}={env!r}; expected 'fp32' or 'bf16'"
+            )
+        return env
+    return precision
+
+
+def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+
+
+def _bf16_round(w: torch.Tensor) -> torch.Tensor:
+    return w.to(torch.bfloat16).to(torch.float32)
+
+
+def _prepare(x, w_cur, w_prop, precision):
+    if resolve_precision(precision) == "bf16":
+        return _bf16_rows(x), _bf16_round(w_cur), _bf16_round(w_prop)
+    return x, w_cur.to(torch.float32), w_prop.to(torch.float32)
+
+
+def dispatch_summary() -> str:
+    """One attribution line for logs: which path ``auto`` takes for tensors
+    on the card, at what precision, and what card there is."""
+    mode = resolve_mode("auto")
+    path = {"auto": "cuda-kernels(cuda tensors)/plain(cpu tensors)",
+            "always": "cuda-kernels", "never": "plain"}[mode]
+    card = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "none"
+    return (
+        f"kernels: dispatch={path} ({ENV_VAR}={os.environ.get(ENV_VAR, 'auto')}) "
+        f"precision={resolve_precision()} device={card}"
+    )
+
+
+def logit_delta(x, y, w_cur, w_prop, *, idx=None, mode: str = "auto",
+                precision: str = "auto"):
+    """BayesLR pair delta for one chain: x (N, D), y (N,), w_* (D,) -> (N,),
+    or only rows ``idx`` (m,) of the pool -> (m,)."""
+    x, w_cur, w_prop = _prepare(x, w_cur, w_prop, precision)
+    y = y.to(torch.float32)
+    if not use_kernel(mode, x):
+        if idx is not None:
+            idx = idx.long()
+            x, y = x[idx], y[idx]
+        return ref.logit_delta_ref(x, y, w_cur, w_prop)
+    return _logit_kernel(x, y, w_cur.contiguous(), w_prop.contiguous(), idx=idx)
+
+
+def batched_logit_delta(xg, yg, w_cur, w_prop, *, mode: str = "auto",
+                        precision: str = "auto"):
+    """Ensemble-batched (K, m) BayesLR delta block on gathered rows."""
+    xg, w_cur, w_prop = _prepare(xg, w_cur, w_prop, precision)
+    yg = yg.to(torch.float32)
+    if not use_kernel(mode, xg):
+        return ref.batched_logit_delta_ref(xg, yg, w_cur, w_prop)
+    return _batched_kernel(xg, yg, w_cur.contiguous(), w_prop.contiguous())
+
+
+def gather_and_delta(x, y, idx, w_cur, w_prop, *, mode: str = "auto",
+                     precision: str = "auto"):
+    """(K, m) BayesLR delta block on rows ``idx`` of the shared pool — one
+    call per multi-chain sequential-test round."""
+    x, w_cur, w_prop = _prepare(x, w_cur, w_prop, precision)
+    y = y.to(torch.float32)
+    if not use_kernel(mode, x):
+        return ref.gather_and_delta_ref(x, y, idx, w_cur, w_prop)
+    return _gather_kernel(x, y, idx, w_cur.contiguous(), w_prop.contiguous())
+
+
+def t_test_round(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds,
+                 rounds, done, decision, pval, *, mode: str = "auto") -> None:
+    """One lock-step sequential-test round, in place (see
+    :mod:`repro_torch.kernels.t_test_round`)."""
+    fn = _t_test_kernel if use_kernel(mode, l) else t_test_round_ref
+    fn(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds, rounds, done,
+       decision, pval)
+
+
+launches = _build.LAUNCHES
+reset_launches = _build.reset_launches
