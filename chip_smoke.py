@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit (``nvcc``). The hand kernels build from ``src/repro_torch/kernels/csrc``
@@ -14,13 +14,23 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
   C  K=32 chains in lock-step (``run_posterior_ensemble``), then the fused
      route against ``fused_kernels="never"`` on 200 fixed proposals;
   D  the paper's Fig. 5 on the card: evaluated sections per transition at
-     fixed theta for N = 1e4, 1e5, 1e6.
+     fixed theta for N = 1e4, 1e5, 1e6;
+  E  stochastic volatility (Sec. 4.3), one chain: S=200 series x T=5, the
+     paper's cycle (particle-Gibbs sweep with P=25, then subsampled-MH moves
+     on phi and sigma^2 with the Fisher–Yates sampler), 500 cycle steps;
+  F  the same cycle on K=32 chains in lock-step, 500 steps, then the fused
+     route against ``fused_kernels="never"`` on 200 fixed phi proposals;
+  G  the sublinear section count on dependent sections: h fixed at the true
+     paths, the phi move at fixed theta for S = 200, 2000, 20000
+     (N = 1e3, 1e4, 1e5), with one exact transition's time beside it.
 
-Launch counts are set to 0 before each of B, C and D and read after it;
-every kernel must have launched on that path. Any failed check exits
+Launch counts are set to 0 before each of B-G and read after it; every
+kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels with their launches, errors and times. The full report
-goes to ``chiprun_out/chip_smoke.json``.
+goes to ``chiprun_out/chip_smoke.json``. ``--profile`` instead runs short
+windows of phases B, C, E and F under ``torch.profiler`` and reports the
+device's idle share (``chiprun_out/chip_profile.json``).
 """
 from __future__ import annotations
 
@@ -167,21 +177,12 @@ def phase_a(report):
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        check(err <= tol[prec], f"{name} {label} within {tol[prec]:g} of its plain version")
         # at most ~5 launches per kernel call (bf16 rounds the weights first)
         # and ~25 per plain call: keep each timed queue near 300 launches
         (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 10)
-        bound = max(byts / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-        print(f"  {name:20s} {label:34s} err={err:.2e} kernel={ms * 1e3:8.2f}us "
-              f"plain={plain_ms * 1e3:8.2f}us bound={bound * 1e3:8.3f}us "
-              f"host/call: kernel {host_ms * 1e3:6.1f}us plain {plain_host_ms * 1e3:6.1f}us")
-        check(err <= tol[prec], f"{name} {label} within {tol[prec]:g} of its plain version")
-        e = kern[name]
-        e["max_abs_err"] = max(e["max_abs_err"], err)
-        e["cases"].append({"case": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound, "host_ms": host_ms, "plain_host_ms": plain_host_ms})
-        if main_shape:
-            e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=(
-                "bytes" if byts / HBM_BYTES_PER_S >= flops / FP32_FLOPS else "operations"))
+        record(report, name, label, err, ms, plain_ms, byts, flops, host_ms, plain_host_ms,
+               main_shape)
 
     # t_test_round: 32 chains whose df spans 1 .. 1e5, with an s == 0 lane
     # and an exhausted lane
@@ -246,6 +247,375 @@ def phase_a(report):
                                           "pval_rel": rel_p, "ms": ms, "plain_ms": plain_ms,
                                           "bound_ms": bound, "host_ms": host_ms,
                                           "plain_host_ms": plain_host_ms})
+
+
+def record(report, name, label, err, ms, plain_ms, byts, ops_, host_ms, plain_host_ms,
+           main_shape, **extra):
+    """Print one kernel case and keep it; the main path's shape also fills the
+    kernel's line."""
+    bound = max(byts / HBM_BYTES_PER_S, ops_ / FP32_FLOPS) * 1e3
+    bound_by = "bytes" if byts / HBM_BYTES_PER_S >= ops_ / FP32_FLOPS else "operations"
+    print(f"  {name:20s} {label:38s} err={err:.2e} kernel={ms * 1e3:9.2f}us "
+          f"plain={plain_ms * 1e3:10.2f}us bound={bound * 1e3:8.3f}us ({bound_by}) "
+          f"host/call: kernel {host_ms * 1e3:6.1f}us plain {plain_host_ms * 1e3:8.1f}us")
+    e = report["kernels"][name]
+    e["max_abs_err"] = max(e["max_abs_err"], err)
+    e["cases"].append({"case": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": bound_by, "host_ms": host_ms,
+                       "plain_host_ms": plain_host_ms, **extra})
+    if main_shape:
+        e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+
+
+def phase_a_sv(report):
+    """The stochvol kernels against their plain versions."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pgibbs import draw_sweep_randomness
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    print("phase A (stochvol kernels): AR(1) delta, Fisher-Yates draw, pgibbs sweep")
+
+    # AR(1) pair delta: one chain's round on a shared (N,) pool, K=32 chains'
+    # rounds on per-chain (K, N) pools, and a full pass over 1e5 sections.
+    # ~16 flops a section (two pairs of multiply, subtract, square, divide,
+    # add and the scale; the logs are per chain).
+    tol = 1e-4  # the same float32 operations; sums of terms up to ~1e3
+    for (k, m, n, gather) in [(1, 100, 1000, True), (32, 100, 1000, True), (1, 100_000, None, False)]:
+        for prec in ("fp32", "bf16"):
+            bx = 2 if prec == "bf16" else 4
+            cols = n if gather else m
+            pools = [0.3 * torch.randn(k, cols, generator=gen, device=dev) for _ in range(2)]
+            if prec == "bf16":
+                pools = [p.to(torch.bfloat16) for p in pools]
+            phi = 0.9 + 0.05 * torch.rand(k, generator=gen, device=dev)
+            s2 = 0.005 + 0.01 * torch.rand(k, generator=gen, device=dev)
+            par = (phi, s2, phi + 0.01, s2 * 1.05)
+            if gather:
+                idx = torch.randint(0, n, (k, m), generator=gen, device=dev, dtype=torch.int32)
+                xt, xp = (p[0] for p in pools) if k == 1 else pools
+                run = lambda xt=xt, xp=xp, idx=idx, par=par, mode="always": ops.gather_ar1_delta(
+                    xt, xp, idx, *par, mode=mode)
+                byts = k * m * (2 * bx + 4 + 4) + k * 16
+                label = f"gather K={k} m={m} of N={n} {'shared' if k == 1 else 'per-chain'} {prec}"
+            else:
+                run = lambda xt=pools[0], xp=pools[1], par=par, mode="always": \
+                    ops.batched_gaussian_ar1_delta(xt, xp, *par, mode=mode)
+                byts = k * m * (2 * bx + 4) + k * 16
+                label = f"full pass K={k} N={m} {prec}"
+            plain = lambda run=run: run(mode="never")
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(err <= tol * max(1.0, float(want.abs().max())),
+                  f"gaussian_ar1_delta {label} within {tol:g} (relative to max |l|) of its plain version")
+            (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 10)
+            record(report, "gaussian_ar1_delta", label, err, ms, plain_ms, byts, k * m * 16,
+                   host_ms, plain_host_ms, (k, m, prec, gather) == (32, 100, "fp32", True))
+
+    # Fisher-Yates draw: 32 chains over N=1000, m=100, rounds to exhaustion
+    # with ~20% of the chains inactive each round: identical everything.
+    k, n, m = 32, 1000, 100
+    bufs = [torch.arange(n, dtype=torch.int32, device=dev).repeat(k, 1) for _ in range(2)]
+    pos = [torch.zeros(k, dtype=torch.int32, device=dev) for _ in range(2)]
+    size = torch.full((k,), n, dtype=torch.int32, device=dev)
+    size[5] = 937
+    rounds = 0
+    while bool((pos[0] < size).any()):
+        u = torch.rand((k, m), generator=gen, dtype=torch.float64, device=dev)
+        active = torch.rand(k, generator=gen, device=dev) < 0.8
+        outs = [ops.fy_draw(u, bufs[i], pos[i], size, m, active, mode=mode)
+                for i, mode in enumerate(("always", "never"))]
+        check(all(torch.equal(a, b) for a, b in zip(*outs)) and torch.equal(*bufs),
+              f"fy_draw round {rounds}: indices, valid flags, positions and buffers identical")
+        pos = [outs[0][2], outs[1][2]]
+        rounds += 1
+    check(all(torch.equal(row.sort().values, torch.arange(n, dtype=torch.int32, device=dev))
+              for row in bufs[0]), f"fy_draw: every buffer still a permutation after {rounds} rounds")
+    # the timed shapes, the one chain of phase E among them: one round from
+    # a fresh buffer, kernel and plain version on copies with the same
+    # uniforms; the error is the largest difference of any output or buffer
+    # entry (the plain version's valid flags and positions included)
+    for (k, n) in [(32, 1000), (1, 1000), (1, 100_000)]:
+        start = torch.arange(n, dtype=torch.int32, device=dev).repeat(k, 1)
+        p0 = torch.zeros(k, dtype=torch.int32, device=dev)
+        sz = torch.full((k,), n, dtype=torch.int32, device=dev)
+        u = torch.rand((k, m), generator=gen, dtype=torch.float64, device=dev)
+        bufs = [start.clone(), start.clone()]
+        outs = [ops.fy_draw(u, b, p0, sz, m, mode=mode) for b, mode in zip(bufs, ("always", "never"))]
+        torch.cuda.synchronize()
+        err = max(float((a.long() - b.long()).abs().max())
+                  for a, b in zip(outs[0] + (bufs[0],), outs[1] + (bufs[1],)))
+        label = f"K={k} m={m} of N={n}"
+        check(err == 0, f"fy_draw {label}: indices, valid flags, position and buffer identical")
+        buf = bufs[0]
+        run = lambda buf=buf, p0=p0, sz=sz, u=u: ops.fy_draw(u, buf, p0, sz, m, mode="always")
+        plain = lambda buf=buf, p0=p0, sz=sz, u=u: ops.fy_draw(u, buf, p0, sz, m, mode="never")
+        # the plain version is ~4 m launches a call: wall time per call
+        (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 3, queued=False)
+        # bytes: the uniforms, the 2 m entries read and written, the outputs;
+        # ~12 integer operations a swap
+        byts = k * m * (8 + 16 + 4 + 1) + k * 12
+        record(report, "fy_draw", label, err, ms, plain_ms, byts, k * m * 12, host_ms,
+               plain_host_ms, (k, n) == (32, 1000))
+
+    # pgibbs sweep: the lattices of phases F and E, and one chain at S=20000
+    for (k, s, t, p) in [(32, 200, 5, 25), (1, 200, 5, 25), (1, 20_000, 5, 25)]:
+        obs = torch.exp(0.5 * 0.3 * torch.randn(s, t, generator=gen, device=dev)) \
+            * torch.randn(s, t, generator=gen, device=dev)
+        h = 0.3 * torch.randn(k, s, t, generator=gen, device=dev)
+        phi = torch.full((k,), 0.95, device=dev)
+        s2 = torch.full((k,), 0.01, device=dev)
+        rand = draw_sweep_randomness(gen, k, s, t, p, dev)
+        run = lambda rand=rand, obs=obs, h=h, phi=phi, s2=s2: ops.pgibbs_sweep(
+            *rand, obs, h, phi, s2, mode="always")
+        plain = lambda rand=rand, obs=obs, h=h, phi=phi, s2=s2: ops.pgibbs_sweep(
+            *rand, obs, h, phi, s2, mode="never")
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        same = (got == want).all(-1)
+        frac = 1.0 - float(same.float().mean())
+        err = float((got - want).abs().max())
+        label = f"K={k} S={s} T={t} P={p}"
+        print(f"  pgibbs_sweep {label}: {frac:.3e} of the paths differ (max |diff| {err:.3e})")
+        check(bool(torch.isfinite(got).all()) and frac <= 0.01,
+              f"pgibbs_sweep {label}: finite, paths equal except where a uniform lies within "
+              "float32 rounding of a CDF boundary (at most 1% of the paths)")
+        (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 5)
+        byts = 2 * t * k * s * p * 4 + k * s * 4 + s * t * 4 + 2 * k * s * t * 4 + 8 * k
+        record(report, "pgibbs_sweep", label, err, ms, plain_ms, byts, t * k * s * p * 25,
+               host_ms, plain_host_ms, (k, s) == (32, 200), paths_differ_frac=frac)
+
+
+def phase_e(report):
+    import numpy as np
+    import torch
+
+    from repro_torch.experiments import stochvol
+
+    print("phase E: stochastic volatility, one chain, S=200 T=5 P=25, 500 cycle steps")
+    steps = 500
+    data = stochvol.synth(10, num_series=200, length=5)
+    n = data.obs.numel()
+
+    def run():
+        stochvol.run_posterior_sequential(0, data, 3)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = stochvol.run_posterior_sequential(11, data, steps)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (_, samples, infos), wall = counted(report, "E", run)
+    phi = samples["phi"].cpu().numpy()
+    sig = np.sqrt(np.maximum(samples["sigma2"].cpu().numpy(), 0))
+    r = {"cycle_steps_per_s": steps / wall, "phi_mean_2nd_half": float(phi[steps // 2:].mean()),
+         "sigma_mean_2nd_half": float(sig[steps // 2:].mean())}
+    for name in ("phi", "sigma2"):
+        info = infos[name]
+        r[name] = {"accept": float(info.accepted.float().mean()),
+                   "mean_rounds": float(info.rounds.float().mean()),
+                   "frac_evaluated": float(info.n_evaluated.float().mean()) / n}
+    report["phases"]["E"].update(r)
+    print(f"  cycle steps/s={r['cycle_steps_per_s']:.1f}  phi: {r['phi']}  sigma2: {r['sigma2']}")
+    print(f"  posterior means over the second half: phi={r['phi_mean_2nd_half']:.4f} (generating "
+          f"0.95), sigma={r['sigma_mean_2nd_half']:.4f} (generating 0.1)")
+    check(np.isfinite(phi).all() and np.isfinite(sig).all() and phi.shape == (steps,),
+          f"phase E samples finite, shape {phi.shape}")
+    check(all(0.0 < r[v]["accept"] < 1.0 for v in ("phi", "sigma2"))
+          and 0 < r["phi_mean_2nd_half"] < 1 and r["sigma_mean_2nd_half"] > 0,
+          "phase E: both moves accept and reject; phi in (0, 1), sigma > 0")
+
+    # an ensemble of one chain reproduces the sequential cycle on the card
+    small = stochvol.synth(12, num_series=30, length=5)
+    kw = dict(batch_size=50, num_particles=12)
+    _, s1, i1, _ = stochvol.run_posterior_ensemble(13, small, num_chains=1, num_steps=25, **kw)
+    _, s2, i2 = stochvol.run_posterior_sequential(13, small, 25, **kw)
+    check(torch.equal(s1["phi"][0], s2["phi"]) and torch.equal(s1["sigma2"][0], s2["sigma2"])
+          and all(torch.equal(i1[v].n_evaluated[0], i2[v].n_evaluated) for v in ("phi", "sigma2")),
+          "ensemble of one chain == run_posterior_sequential, bit for bit, on the card")
+
+
+def phase_f(report):
+    import numpy as np
+    import torch
+
+    from repro_torch.core import finish_transition
+    from repro_torch.core.samplers import batch_sampler_state, fy_init, sampler_fns
+    from repro_torch.experiments import stochvol
+
+    print("phase F: stochastic volatility, K=32 chains in lock-step, 500 cycle steps")
+    k, steps = 32, 500
+    data = stochvol.synth(10, num_series=200, length=5)
+    n = data.obs.numel()
+
+    def run():
+        stochvol.run_posterior_ensemble(0, data, num_chains=k, num_steps=8)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = stochvol.run_posterior_ensemble(14, data, num_chains=k, num_steps=steps)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (state, samples, infos, diag), wall = counted(report, "F", run)
+    r = {"cycle_steps_per_s": k * steps / wall, "rhat_phi": diag["rhat_phi"],
+         "rhat_sigma2": diag["rhat_sigma2"], "frac_evaluated": diag["frac_evaluated"],
+         "accept": {v: float(np.mean(diag["accept_rate"][v])) for v in ("phi", "sigma2")},
+         "mean_rounds": {v: float(infos[v].rounds.float().mean()) for v in ("phi", "sigma2")}}
+    report["phases"]["F"].update(r)
+    print(f"  cycle steps/s (summed over chains)={r['cycle_steps_per_s']:.1f} split R-hat "
+          f"phi={r['rhat_phi']:.3f} sigma2={r['rhat_sigma2']:.3f} acceptance={r['accept']} "
+          f"n_evaluated/N={r['frac_evaluated']} rounds={r['mean_rounds']}")
+    phi = samples["phi"].cpu().numpy()
+    check(np.isfinite(phi).all() and phi.shape == (k, steps)
+          and bool(torch.isfinite(samples["sigma2"]).all()), f"phase F samples finite, shape {phi.shape}")
+    check(all(0.0 < r["accept"][v] < 1.0 for v in ("phi", "sigma2")),
+          "phase F: both moves accept and reject")
+
+    # fused route against the plain route on 200 fixed phi proposals from the
+    # chains' final states; both draw the same Fisher-Yates uniforms
+    cyc = stochvol.make_inference_cycle(data.obs)
+    op = cyc.ops[1]
+    reps = 200 // k + 1
+    theta = {name: leaf.repeat((reps,) + (1,) * (leaf.ndim - 1))[:200]
+             for name, leaf in state.theta.items()}
+    g = torch.Generator(device="cuda").manual_seed(15)
+    theta_p, _ = op.proposal(g, theta)
+    log_u = torch.log(torch.rand(200, generator=g, device="cuda").clamp_min(1e-20))
+    mu0 = (log_u - op.target.log_global(theta, theta_p)) / n
+    reset_fn, draw_fn = sampler_fns("fy")
+    out = {}
+    for route in ("auto", "never"):
+        sampler = batch_sampler_state(fy_init(n), 200)
+        gen = torch.Generator(device="cuda").manual_seed(16)
+        _, _, info = finish_transition(gen, theta, theta_p, mu0, log_u, sampler, op.target, op.cfg,
+                                       reset_fn, draw_fn, max_rounds=op.max_rounds, mode=route,
+                                       eval_fn=op.target.local_round(theta, theta_p, ensemble=True,
+                                                                     mode=route))
+        out[route] = info
+    a, b = out["auto"], out["never"]
+    differ = (a.accepted != b.accepted) | (a.n_evaluated != b.n_evaluated)
+    eps = op.cfg.epsilon
+    borderline = ((b.pvalue - eps).abs() <= 1e-3 * eps) | ((a.pvalue - eps).abs() <= 1e-3 * eps)
+    n_diff = int(differ.sum())
+    report["phases"]["F"]["fused_vs_plain_differ"] = n_diff
+    print(f"  fused vs never on 200 phi proposals: {n_diff} differ in decision or n_evaluated; "
+          f"max |mu_hat diff| {float((a.mu_hat - b.mu_hat).abs().max()):.3e}; "
+          f"acceptance {float(a.accepted.float().mean()):.3f}")
+    check(not bool((differ & ~borderline).any()),
+          "fused and plain routes agree on every proposal whose p-value is not within 0.1% of epsilon")
+
+
+def phase_g(report):
+    import torch
+
+    from repro_torch.core import SubsampledMHConfig, make_kernel, mh_step
+    from repro_torch.experiments import stochvol
+
+    print("phase G: sublinear section count on dependent sections (phi move, h = h_true)")
+    rows = []
+
+    def run():
+        for s in (200, 2000, 20_000):
+            data = stochvol.synth(20, num_series=s, length=5)
+            n = data.obs.numel()
+            target = stochvol.make_param_target(data.h_true, "phi")
+            cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="fy")
+            rw = stochvol.SingleLeafRW("phi", 0.02)
+            state0, step = make_kernel(target, rw, cfg)
+            theta = {"phi": torch.tensor(0.95, device="cuda"),
+                     "sigma2": torch.tensor(0.01, device="cuda")}
+            gen = torch.Generator(device="cuda").manual_seed(21)
+            step(gen, theta, state0)  # warm-up
+            torch.cuda.synchronize()
+            evals, state = [], state0
+            t0 = time.perf_counter()
+            for _ in range(50):
+                _, state, info = step(gen, theta, state)  # theta stays fixed
+                evals.append(info.n_evaluated)
+            torch.cuda.synchronize()
+            sub_s = (time.perf_counter() - t0) / 50
+            t0 = time.perf_counter()
+            for _ in range(3):
+                mh_step(gen, theta, target, rw)
+            torch.cuda.synchronize()
+            ex_s = (time.perf_counter() - t0) / 3
+            mean_eval = float(torch.stack(evals).float().mean())
+            rows.append({"S": s, "N": n, "mean_n_evaluated": mean_eval, "frac": mean_eval / n,
+                         "subsampled_us": sub_s * 1e6, "exact_us": ex_s * 1e6})
+
+    counted(report, "G", run)
+    for r in rows:
+        print(f"  S={r['S']:>6d} N={r['N']:>7d} mean n_evaluated={r['mean_n_evaluated']:8.1f} "
+              f"({r['frac']:.4%}) subsampled={r['subsampled_us']:.0f}us exact={r['exact_us']:.0f}us")
+    report["phases"]["G"]["rows"] = rows
+    fr = [r["frac"] for r in rows]
+    check(fr[0] > fr[1] > fr[2], "n_evaluated / N falls as N grows (dependent sections)")
+
+
+def profile_idle_share() -> dict:
+    """``--profile``: short windows of the main paths under torch.profiler
+    (device activity only): wall time, summed device time of every kernel
+    and copy, the device's idle share, and the kernels that take the most
+    device time. The profiler slows the host, so each window also runs once
+    without it; its wall time beside the profiled busy time gives an
+    estimate (two runs, one call) of the unprofiled idle share. Not part of
+    the default run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import RandomWalk, SubsampledMHConfig, run_chain
+    from repro_torch.experiments import bayeslr, stochvol
+
+    lr = bayeslr.synth_mnist_like(0)
+    lr_target = bayeslr.make_target(lr.x_train, lr.y_train)
+    lr_cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="stream")
+    sv = stochvol.synth(10, num_series=200, length=5)
+    windows = {
+        "B: BayesLR one chain, 100 transitions": lambda: run_chain(
+            1, torch.zeros(50), lr_target, RandomWalk(0.05), 100, config=lr_cfg),
+        "C: BayesLR K=32, 20 steps": lambda: bayeslr.run_posterior_ensemble(
+            3, lr, num_chains=32, num_steps=20, batch_size=100, epsilon=0.05, sampler="stream",
+            sigma=0.05),
+        "E: stochvol one chain, 50 cycle steps": lambda: stochvol.run_posterior_sequential(
+            11, sv, 50),
+        "F: stochvol K=32, 20 cycle steps": lambda: stochvol.run_posterior_ensemble(
+            14, sv, num_chains=32, num_steps=20),
+    }
+    out = {}
+    for name, fn in windows.items():
+        fn()  # warm-up outside the window
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()  # the same window without the profiler, for its wall time
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+        events = sorted(prof.key_averages(), key=dev, reverse=True)
+        busy_ms = sum(dev(e) for e in events) / 1e3
+        top = [(e.key[:60], round(dev(e) / 1e3, 3), e.count) for e in events[:6] if dev(e) > 0]
+        share = None if busy_ms <= 0 else 1.0 - busy_ms / wall_ms
+        # an estimate from two runs of the window: the busy time taken under
+        # the profiler over the wall time of the unprofiled run
+        est = None if busy_ms <= 0 else 1.0 - busy_ms / plain_wall_ms
+        out[name] = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": share,
+                     "unprofiled_wall_ms": plain_wall_ms, "idle_share_estimate_unprofiled": est,
+                     "top_kernels_ms_count": top}
+        shown = "not measured (no device time recorded)" if share is None else f"{share:.4f}"
+        print(f"  {name}: wall {wall_ms:.1f} ms, device busy {busy_ms:.2f} ms, idle share {shown}; "
+              f"unprofiled wall {plain_wall_ms:.1f} ms, idle share estimated from the two runs "
+              f"{'not measured' if est is None else f'{est:.4f}'}")
+        for key, ms, count in top:
+            print(f"      {ms:9.3f} ms  x{count:<6d} {key}")
+    return out
 
 
 def cf_iterations(state, df) -> int:
@@ -359,7 +729,7 @@ def phase_c(report, data):
     import numpy as np
     import torch
 
-    from repro_torch.core import ChainEnsemble, RandomWalk, SubsampledMHConfig, finish_transition
+    from repro_torch.core import SubsampledMHConfig, finish_transition
     from repro_torch.core.samplers import sampler_fns, stream_init, batch_sampler_state
     from repro_torch.experiments import bayeslr
 
@@ -404,11 +774,12 @@ def phase_c(report, data):
     reset_fn, draw_fn = sampler_fns("stream")
     out = {}
     for route in ("auto", "never"):
-        ens = ChainEnsemble(target, RandomWalk(0.05), 200, config=cfg, fused_kernels=route)
         sampler = batch_sampler_state(stream_init(n), 200)
         _, _, info = finish_transition(None, theta, theta_p, mu0, log_u, sampler, target, cfg,
-                                       reset_fn, draw_fn, max_rounds=ens._max_rounds, mode=route,
-                                       eval_fn=lambda idx, e=ens: e._round_eval(theta, theta_p, idx))
+                                       reset_fn, draw_fn, max_rounds=-(-n // cfg.batch_size),
+                                       mode=route,
+                                       eval_fn=target.local_round(theta, theta_p, ensemble=True,
+                                                                  mode=route))
         out[route] = info
     a, b = out["auto"], out["never"]
     differ = (a.accepted != b.accepted) | (a.n_evaluated != b.n_evaluated)
@@ -496,18 +867,33 @@ def main() -> int:
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    if "--profile" in sys.argv[1:]:
+        print("device idle share under torch.profiler (no checks; not the default run)")
+        prof = profile_idle_share()
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        with open(os.path.join(HERE, "chiprun_out", "chip_profile.json"), "w") as f:
+            json.dump({"card": card, "windows": prof}, f, indent=1, default=float)
+        print(card)
+        return 0
 
     replaces = {
         "logit_delta": "src/repro/kernels/logit_loglik.py:35",
         "batched_logit_delta": "src/repro/kernels/batched_loglik.py:40",
         "t_test_round": "src/repro/core/sequential_test.py:32 (XLA-fused, not a pallas_call)",
+        "gaussian_ar1_delta": "src/repro/kernels/gaussian_ar1.py:41",
+        "fy_draw": "src/repro/core/samplers.py:62 (XLA fori_loop, not a pallas_call)",
+        "pgibbs_sweep": "src/repro/kernels/pgibbs.py:58 (XLA-fused scan, not a pallas_call)",
     }
+    csrc = "src/repro_torch/kernels/csrc/"
     sources = {
-        "logit_delta": "src/repro_torch/kernels/csrc/logit_delta.cu",
-        "batched_logit_delta": "src/repro_torch/kernels/csrc/logit_delta.cu",
-        "t_test_round": "src/repro_torch/kernels/csrc/t_test_round.cu",
+        "logit_delta": csrc + "logit_delta.cu",
+        "batched_logit_delta": csrc + "logit_delta.cu",
+        "t_test_round": csrc + "t_test_round.cu",
+        "gaussian_ar1_delta": csrc + "gaussian_ar1_delta.cu",
+        "fy_draw": csrc + "fy_draw.cu",
+        "pgibbs_sweep": csrc + "pgibbs_sweep.cu",
     }
-    report = {"card": card, "kind": kind, "phases": {p: {} for p in "BCD"},
+    report = {"card": card, "kind": kind, "phases": {p: {} for p in "BCDEFG"},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -518,15 +904,21 @@ def main() -> int:
     from repro_torch.experiments import bayeslr
 
     phase_a(report)
+    phase_a_sv(report)
     data = bayeslr.synth_mnist_like(0)
     phase_b(report, data)
     phase_c(report, data)
     phase_d(report)
+    phase_e(report)
+    phase_f(report)
+    phase_g(report)
     for name, e in report["kernels"].items():
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
+    sv = ("gaussian_ar1_delta", "fy_draw", "pgibbs_sweep", "t_test_round")
     for phase, need in (("B", ("logit_delta", "t_test_round")),
                         ("C", ("batched_logit_delta", "t_test_round")),
-                        ("D", ("logit_delta", "t_test_round"))):
+                        ("D", ("logit_delta", "t_test_round")),
+                        ("E", sv), ("F", sv), ("G", sv[:2] + sv[3:])):
         got = report["phases"][phase]["launches"]
         check(all(got.get(n, 0) > 0 for n in need), f"phase {phase} went through {need}")
 

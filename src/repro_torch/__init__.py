@@ -6,6 +6,6 @@ names (``repro_torch.core.ensemble`` is the counterpart of
 Hopper live in :mod:`repro_torch.kernels`; entry points put their tensors on
 the card unless told ``device="cpu"``.
 """
-from . import convert, core, experiments, kernels
+from . import convert, core, experiments, inference, kernels
 
-__all__ = ["convert", "core", "experiments", "kernels"]
+__all__ = ["convert", "core", "experiments", "inference", "kernels"]

@@ -1,12 +1,13 @@
 """Carry the JAX package's state across into the port.
 
 The counterpart of loading weights: the BayesLR data pool, a batch of chain
-positions theta (K, D), and the samplers' state (the stream's ``pos``; the
-Fisher–Yates ``idx``/``pos``/``size``), each handed over as numpy arrays and
-built into an :class:`~repro_torch.experiments.bayeslr.LRData` or an
-:class:`~repro_torch.core.ensemble.EnsembleState` on a given device. Taking
-numpy keeps this module free of JAX: call ``np.asarray`` on the reference's
-arrays first.
+positions theta (K, D), the stochastic-volatility data (obs, h_true) and
+theta ``{phi, sigma2, h}``, and the samplers' state (the stream's ``pos``;
+the Fisher–Yates ``idx``/``pos``/``size``; one state per component of a
+composite cycle), each handed over as numpy arrays and built into the
+port's types on a given device. Taking numpy keeps this module free of JAX:
+call ``np.asarray`` on the reference's arrays first (``jax.tree.map`` for a
+tree).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from ._device import resolve_device
 from .core.ensemble import EnsembleState
 from .core.samplers import FisherYatesState, StreamSliceState
 from .experiments.bayeslr import LRData
+from .experiments.stochvol import SVData
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -59,3 +61,37 @@ def ensemble_state(theta, kind: str, n: int, *, pos, idx=None, size=None,
     dev = resolve_device(device)
     return EnsembleState(_f32(theta, dev),
                          sampler_state(kind, n, pos=pos, idx=idx, size=size, device=dev))
+
+
+def sv_data(obs, h_true, *, device=None) -> SVData:
+    """An :class:`SVData` from the (S, T) observations and latent paths."""
+    dev = resolve_device(device)
+    return SVData(_f32(obs, dev), _f32(h_true, dev))
+
+
+def sv_theta(theta, *, device=None) -> dict:
+    """Stochvol theta ``{phi, sigma2, h}`` (with or without a leading (K,)
+    chain axis on every leaf) as float32 tensors."""
+    dev = resolve_device(device)
+    return {name: _f32(theta[name], dev) for name in ("phi", "sigma2", "h")}
+
+
+def cycle_samplers(states, *, device=None) -> tuple:
+    """Per-component sampler states of a composite cycle, as the reference's
+    ``init_cycle_samplers`` lays them out (leading chain axes kept): a
+    Fisher–Yates state is a triple ``(idx, pos, size)``, a stream state a
+    pair ``(pos, n)``, a sweep's placeholder a bare int array."""
+    dev = resolve_device(device)
+    out = []
+    for st in states:
+        if isinstance(st, tuple) and len(st) == 3:
+            idx, pos, size = st
+            out.append(sampler_state("fy", np.asarray(idx).shape[-1], pos=pos, idx=idx,
+                                     size=size, device=dev))
+        elif isinstance(st, tuple) and len(st) == 2:
+            pos, n = st
+            out.append(sampler_state("stream", int(np.asarray(n).reshape(-1)[0]), pos=pos,
+                                     device=dev))
+        else:
+            out.append(_i32(st, dev))
+    return tuple(out)

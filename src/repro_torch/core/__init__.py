@@ -1,11 +1,19 @@
 """Core algorithms (paper Alg. 1-3) in PyTorch: the port of ``repro.core``.
 
-This slice covers the BayesLR main path: samplers, Welford and the Student-t
-test, the sequential test, the subsampled and exact MH transitions, the
-single-chain drivers, the ``logit`` target family and the lock-step
-ensemble.
+Covered so far: samplers, Welford and the Student-t test, the sequential
+test, the subsampled and exact MH transitions, the single-chain drivers, the
+``logit`` and ``gaussian_ar1`` target families, composite cycles and the
+lock-step ensemble (single kernels and cycles).
 """
 from .chain import acceptance_rate, run_chain, run_chain_timed
+from .composite import (
+    CycleOp,
+    SubsampledMHOp,
+    SweepOp,
+    cycle,
+    init_cycle_samplers,
+    run_cycle_sequential,
+)
 from .ensemble import ChainEnsemble, EnsembleState, run_ensemble
 from .mh import MHInfo, exact_decide, mh_step
 from .proposals import IndependentGaussian, RandomWalk
@@ -45,7 +53,8 @@ from .target import PartitionedTarget, from_iid_loglik
 from .target_builder import KernelFamily, build_target, get_family, register_family, registered_families
 
 __all__ = [
-    "ChainEnsemble", "EnsembleState", "FisherYatesState", "IndependentGaussian",
+    "ChainEnsemble", "CycleOp", "EnsembleState", "SubsampledMHOp", "SweepOp", "cycle",
+    "init_cycle_samplers", "run_cycle_sequential", "FisherYatesState", "IndependentGaussian",
     "KernelFamily", "MHInfo", "PartitionedTarget", "RandomWalk", "SeqTestResult",
     "StreamSliceState", "SubsampledMHConfig", "SubsampledMHInfo", "Welford",
     "acceptance_rate", "adaptive_max_rounds", "build_target", "effective_sample_size",

@@ -19,14 +19,24 @@ A target without ``log_local_ensemble`` is scored chain by chain with
 ``log_local``. The ensemble's callables get theta with its chain axis, so
 ``target.log_global`` must return (K,) for (K, ...) thetas.
 
+``transition=cycle(...)`` (:mod:`repro_torch.core.composite`) replaces the
+single (target, proposal) pair with a composite cycle: each engine
+transition applies every component once, in order. A subsampled-MH op runs
+the lock-step transition above with its own target, proposal, config and
+batched sampler state; a sweep op calls its ``batched_fn`` on the whole
+batch when it has one, and its ``fn`` chain by chain otherwise. Infos are
+then a dict keyed by component name.
+
 Randomness: one device ``torch.Generator`` per ``run`` draws all K chains'
-noise each step (u, then the proposal, then the sampler). An ensemble of one
-chain therefore reproduces :func:`repro_torch.core.chain.run_chain` with the
-same seed. The reference's "chain k equals a sequential run with key k" and
-its resumable ``step_keys`` schedule rest on JAX's splittable keys and wait
-for the serving slice. So do ``stepping="masked"``, ``schedule=``,
-``transition=cycle(...)``; the ``shard=`` mesh paths wait for the
-distributed slice. Each raises ``NotImplementedError``.
+noise each step (u, then the proposal, then the sampler; for a cycle, each
+component's draws in cycle order). An ensemble of one chain therefore
+reproduces :func:`repro_torch.core.chain.run_chain`, and with a cycle
+:func:`repro_torch.core.composite.run_cycle_sequential`, with the same seed.
+The reference's "chain k equals a sequential run with key k" and its
+resumable ``step_keys`` schedule rest on JAX's splittable keys and wait for
+the serving slice. So do ``stepping="masked"`` and ``schedule=`` for single
+kernels; the ``shard=`` mesh paths wait for the distributed slice. Each
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import torch
 
 from .._device import make_generator, resolve_device, tree_leaves, tree_map, tree_select
 from .chain import _stack
+from .composite import CycleOp, SubsampledMHOp, init_cycle_samplers
 from .mh import MHInfo
 from .samplers import batch_sampler_state, make_sampler, sampler_fns
 from .subsampled_mh import (
@@ -104,16 +115,18 @@ class ChainEnsemble:
             raise ValueError(f"unknown fused_kernels {self.fused_kernels!r}")
         if self.num_chains < 1:
             raise ValueError(f"num_chains must be >= 1, got {self.num_chains}")
+        if self.transition is not None:
+            self._check_composite()
+            self._device  # resolve now: without a card and without device= this raises
+            return
         if self.stepping == "masked":
             _later("stepping='masked'", "the scheduler slice")
         if self.schedule is not None:
             _later("schedule=", "the scheduler slice")
-        if self.transition is not None:
-            _later("transition=cycle(...)", "the composite-cycle slice")
         if self.shard not in ("auto", False):
             _later(f"shard={self.shard!r}", "the distributed slice")
         if self.target is None or self.proposal is None:
-            raise ValueError("target and proposal are required")
+            raise ValueError("target and proposal are required without transition=")
         self._device  # resolve now: without a card and without device= this raises
         if self.fused_kernels == "always" and self.kernel == "exact":
             raise ValueError("fused_kernels='always' requires the subsampled kernel")
@@ -122,6 +135,36 @@ class ChainEnsemble:
                 "fused_kernels='always' but the target carries no log_local_ensemble "
                 "(build it via repro_torch.core.build_target)"
             )
+
+    def _check_composite(self):
+        """The reference's rules for ``transition=cycle(...)``."""
+        if not isinstance(self.transition, CycleOp):
+            raise TypeError(f"transition must be a cycle(...), got {self.transition!r}")
+        if self.target is not None or self.proposal is not None:
+            raise ValueError("pass either (target, proposal) or transition=cycle(...), not both")
+        if self.kernel != "subsampled" or self.config is not None or self.chunk_size is not None:
+            raise ValueError(
+                "composite transitions take kernel/config per component "
+                "(SubsampledMHOp(..., config=)); the ensemble-level kernel=, config= "
+                "and chunk_size= knobs do not apply"
+            )
+        if self.stepping != "lockstep":
+            raise ValueError("composite transitions run in lock-step; the masked superstep "
+                             "supports single-kernel ensembles only")
+        if self.schedule is not None:
+            raise ValueError("adaptive scheduling is not supported with composite transitions "
+                             "(the controller assumes one target)")
+        if self.shard not in ("auto", False):
+            raise ValueError("composite transitions run unsharded; use shard='auto' or False")
+        if self.fused_kernels == "always":
+            names = self.transition.names
+            missing = [names[i] for i, op in self.transition.mh_ops
+                       if op.target.log_local_ensemble is None]
+            if missing:
+                raise ValueError(
+                    f"fused_kernels='always' but composite MH components {missing} carry no "
+                    "log_local_ensemble (build their targets via repro_torch.core.build_target)"
+                )
 
     # -- derived static config -------------------------------------------
 
@@ -138,15 +181,14 @@ class ChainEnsemble:
         return adaptive_max_rounds(self._config, self.target.num_sections,
                                    (self._config.batch_size,))
 
-    def _round_eval(self, theta, theta_p, idx):
-        """(K, m) deltas of one round."""
-        t = self.target
+    def _round_fn(self, theta, theta_p, target=None):
+        """``idx (K, m) -> (K, m)`` deltas for one transition's rounds."""
+        t = self.target if target is None else target
         if t.log_local_ensemble is not None:
-            return t.log_local_ensemble(theta, theta_p, idx, mode=self.fused_kernels)
-        rows = [t.log_local(tree_map(lambda l: l[k], theta),
-                            tree_map(lambda l: l[k], theta_p), idx[k])
-                for k in range(self.num_chains)]
-        return torch.stack(rows)
+            return t.local_round(theta, theta_p, ensemble=True, mode=self.fused_kernels)
+        chains = [t.local_round(tree_map(lambda l: l[k], theta), tree_map(lambda l: l[k], theta_p))
+                  for k in range(self.num_chains)]
+        return lambda idx: torch.stack([fn(idx[k]) for k, fn in enumerate(chains)])
 
     # -- state ------------------------------------------------------------
 
@@ -164,6 +206,11 @@ class ChainEnsemble:
         lead = tree_leaves(theta)[0].shape[0]
         if lead != K:
             raise ValueError(f"theta leading axis {lead} != num_chains {K}")
+        if self.transition is not None:
+            samplers = tuple(
+                s.repeat(K) if isinstance(s, torch.Tensor) else batch_sampler_state(s, K)
+                for s in init_cycle_samplers(self.transition, device=dev))
+            return EnsembleState(theta, samplers, None)
         if self.kernel == "exact":
             return EnsembleState(theta, None, None)
         state0, _, _ = make_sampler(self._config.sampler, self.target.num_sections, device=dev)
@@ -171,16 +218,46 @@ class ChainEnsemble:
 
     # -- transitions -------------------------------------------------------
 
-    def _subsampled_step(self, gen, theta, sampler):
-        cfg = self._config
+    def _mh_step(self, gen, theta, sampler, target, proposal, cfg, max_rounds):
+        """One lock-step subsampled-MH transition of all K chains."""
         reset_fn, draw_fn = sampler_fns(cfg.sampler)
-        theta_p, mu0, log_u = propose_and_mu0(gen, theta, self.target, self.proposal,
+        theta_p, mu0, log_u = propose_and_mu0(gen, theta, target, proposal,
                                               batch_shape=(self.num_chains,))
         return finish_transition(
-            gen, theta, theta_p, mu0, log_u, sampler, self.target, cfg, reset_fn, draw_fn,
-            eval_fn=lambda idx: self._round_eval(theta, theta_p, idx),
-            max_rounds=self._max_rounds, mode=self.fused_kernels,
+            gen, theta, theta_p, mu0, log_u, sampler, target, cfg, reset_fn, draw_fn,
+            eval_fn=self._round_fn(theta, theta_p, target),
+            max_rounds=max_rounds, mode=self.fused_kernels,
         )
+
+    def _subsampled_step(self, gen, theta, sampler):
+        return self._mh_step(gen, theta, sampler, self.target, self.proposal, self._config,
+                             self._max_rounds)
+
+    def _sweep_op_step(self, gen, theta, op):
+        """A sweep of a composite cycle: ``batched_fn`` on the whole batch, or
+        ``fn`` chain by chain. Returns (theta, info or None)."""
+        if op.batched_fn is not None:
+            out = op.batched_fn(gen, theta)
+        else:
+            rows = [op.fn(gen, tree_map(lambda l: l[k], theta)) for k in range(self.num_chains)]
+            out = _stack(rows)
+        return out if op.has_info else (out, None)
+
+    def _composite_step(self, gen, theta, samplers):
+        """One engine transition of a cycle: every component once, in order,
+        drawing from ``gen`` in cycle order. Returns (theta, samplers, infos
+        keyed by component name)."""
+        cyc = self.transition
+        samplers, infos = list(samplers), {}
+        for i, (name, op) in enumerate(zip(cyc.names, cyc.ops)):
+            if isinstance(op, SubsampledMHOp):
+                theta, samplers[i], infos[name] = self._mh_step(
+                    gen, theta, samplers[i], op.target, op.proposal, op.cfg, op.max_rounds)
+            else:
+                theta, info = self._sweep_op_step(gen, theta, op)
+                if op.has_info:
+                    infos[name] = info
+        return theta, tuple(samplers), infos
 
     def _exact_step(self, gen, theta, sampler):
         K, n, dev = self.num_chains, self.target.num_sections, self._device
@@ -189,10 +266,11 @@ class ChainEnsemble:
         g = self.target.log_global(theta, theta_p) + corr
         step = n if self.chunk_size is None or self.chunk_size >= n else self.chunk_size
         total = torch.zeros((K,), dtype=torch.float32, device=dev)
+        eval_fn = self._round_fn(theta, theta_p)
         for start in range(0, n, step):
             idx = torch.arange(start, min(start + step, n), dtype=torch.int32, device=dev)
             idx = idx[None].expand(K, -1).contiguous()
-            total = total + self._round_eval(theta, theta_p, idx).sum(-1)
+            total = total + eval_fn(idx).sum(-1)
         accept = log_u < g + total
         info = MHInfo(
             accepted=accept,
@@ -212,7 +290,12 @@ class ChainEnsemble:
         generator again to continue its stream). Returns ``(state, samples,
         infos)`` with leaves shaped (K, num_steps, ...)."""
         gen = make_generator(seed, self._device)
-        step = self._subsampled_step if self.kernel == "subsampled" else self._exact_step
+        if self.transition is not None:
+            step = self._composite_step
+        elif self.kernel == "subsampled":
+            step = self._subsampled_step
+        else:
+            step = self._exact_step
         collect = self.collect or (lambda t: t)
         theta, sampler = state.theta, state.sampler_state
         samples, infos = [], []

@@ -11,11 +11,12 @@ the lock-step rule of the reference's batched while loop.
   * ``fy``: a partial Fisher–Yates shuffle over a persistent index buffer.
     One round is m swap steps batched over chains, with all m uniforms drawn
     in one call. The swaps update the buffer in place (the JAX package's
-    state is immutable; XLA updates it in place under its loop). This is m
-    small launches per round: correct, and slow on the card; a kernel for it
-    is later work.
+    state is immutable; XLA updates it in place under its loop), in one
+    launch of the ``fy_draw`` kernel on the card.
 
-The ``_bounded`` twins of the reference wait for the adaptive scheduler.
+Both draws take ``mode`` (the kernel dispatch); the stream draw launches
+nothing and ignores it. The ``_bounded`` twins of the reference wait for the
+adaptive scheduler.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from .._device import resolve_device
+from ..kernels import ops
 
 
 class FisherYatesState(NamedTuple):
@@ -52,33 +54,25 @@ def fy_reset(state: FisherYatesState) -> FisherYatesState:
 
 
 def fy_draw(gen: torch.Generator, state: FisherYatesState, m: int,
-            active: torch.Tensor | None = None):
+            active: torch.Tensor | None = None, *, mode: str = "auto"):
     """Draw ``m`` indices without replacement from the logical pool.
 
     Returns (new_state, indices int32 (..., m), valid bool (..., m)). When
     fewer than m remain, the tail repeats valid draws and is flagged invalid.
+    The m uniforms of every chain come from ``gen`` in one call; the swaps
+    run in :func:`repro_torch.kernels.ops.fy_draw` (one launch on the card,
+    dispatched by ``mode``).
     """
     idx, pos, n = state.idx, state.pos, state.size
     cap = idx.shape[-1]
     u = torch.rand(pos.shape + (m,), generator=gen, dtype=torch.float64, device=idx.device)
-    for k in range(m):
-        p = torch.clamp_max(pos + k, cap - 1)
-        span = torch.clamp_min(n - p, 1)
-        draw = torch.minimum((u[..., k] * span).to(torch.int32), span - 1)
-        j = torch.clamp_max(p + draw, cap - 1)
-        if active is not None:
-            j = torch.where(active, j, p)  # a self-swap leaves the buffer alone
-        p1, j1 = p[..., None].long(), j[..., None].long()
-        vi, vj = idx.gather(-1, p1), idx.gather(-1, j1)
-        idx.scatter_(-1, p1, vj)
-        idx.scatter_(-1, j1, vi)
-    offs = pos[..., None] + torch.arange(m, dtype=torch.int32, device=idx.device)
-    valid = offs < n[..., None]
-    out = idx.gather(-1, torch.clamp_max(offs, cap - 1).long())
-    new_pos = torch.minimum(pos + m, n)
-    if active is not None:
-        new_pos = torch.where(active, new_pos, pos)
-    return FisherYatesState(idx, new_pos, n), out, valid
+    flat = lambda t: t.reshape(-1) if t.ndim == pos.ndim else t.reshape(-1, t.shape[-1])
+    out, valid, new_pos = ops.fy_draw(
+        flat(u), flat(idx), flat(pos), flat(n), m,
+        None if active is None else active.reshape(-1), mode=mode)
+    shape = pos.shape + (m,)
+    return FisherYatesState(idx, new_pos.reshape(pos.shape), n), out.reshape(shape), \
+        valid.reshape(shape)
 
 
 class StreamSliceState(NamedTuple):
@@ -101,8 +95,9 @@ def stream_reset(state: StreamSliceState) -> StreamSliceState:
     return StreamSliceState(torch.zeros_like(state.pos), state.n)
 
 
-def stream_draw(gen, state: StreamSliceState, m: int, active: torch.Tensor | None = None):
-    del gen  # randomness lives in the stream order
+def stream_draw(gen, state: StreamSliceState, m: int, active: torch.Tensor | None = None,
+                *, mode: str = "auto"):
+    del gen, mode  # randomness lives in the stream order; nothing launches
     pos = state.pos
     offs = pos[..., None] + torch.arange(m, dtype=torch.int32, device=pos.device)
     valid = offs < state.n

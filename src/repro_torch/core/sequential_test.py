@@ -61,11 +61,11 @@ def sequential_test(
     """Run the sequential test for one chain (mu0 shape ()) or K lock-step
     chains (mu0 shape (K,)).
 
-    draw_fn(gen, sampler_state, m, active) -> (sampler_state, idx, valid)
+    draw_fn(gen, sampler_state, m, active, mode=) -> (sampler_state, idx, valid)
     eval_fn(idx) -> l, shaped mu0.shape + (m,)
 
     ``epsilon`` is a float or a per-chain tensor; ``mode`` is the kernel
-    dispatch of the round op.
+    dispatch of the draw and the round op.
 
     Example — an easy decision (all l_i far above mu0) stops after one round::
 
@@ -95,7 +95,7 @@ def sequential_test(
     batched = len(shape) > 0
     while True:
         active = ~done if batched else None
-        sampler, idx, valid = draw_fn(gen, sampler, batch_size, active)
+        sampler, idx, valid = draw_fn(gen, sampler, batch_size, active, mode=mode)
         l = eval_fn(idx)
         ops.t_test_round(
             l.reshape(-1, batch_size), valid.reshape(-1, batch_size),

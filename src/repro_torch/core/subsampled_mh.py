@@ -84,10 +84,11 @@ def finish_transition(gen, theta, theta_p, mu0, log_u, sampler_state, target, co
     """Steps 7-19 of Alg. 3 for a given proposal: the sequential test with
     lazily evaluated local sections, then accept or keep. Returns
     ``(theta', sampler', info)``. ``eval_fn`` defaults to the target's
-    single-chain ``log_local``."""
+    single-chain round, bound once for this pair
+    (:meth:`~repro_torch.core.target.PartitionedTarget.local_round`)."""
     eps = config.epsilon if epsilon is None else epsilon
     if eval_fn is None:
-        eval_fn = lambda idx: target.log_local(theta, theta_p, idx)
+        eval_fn = target.local_round(theta, theta_p, mode=mode)
     res = sequential_test(
         gen, mu0, draw_fn, eval_fn, reset_fn(sampler_state), target.num_sections,
         config.batch_size, eps,

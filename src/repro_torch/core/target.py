@@ -12,6 +12,11 @@ The port of ``repro.core.target``. The MH kernels consume only:
 In an ensemble every leaf of theta carries a leading (K,) chain axis and the
 target's callables receive it as is: the batch dimension is written out, not
 mapped over, so ``log_global`` must return (K,) for (K, ...) thetas.
+
+The transitions score their rounds through :meth:`PartitionedTarget
+.local_round`, which binds one (theta, theta') pair for the whole sequential
+test: a target whose sections derive from theta (the stochvol paths) builds
+its pools once per transition, not once per round.
 """
 from __future__ import annotations
 
@@ -40,6 +45,20 @@ class PartitionedTarget:
     family: str | None = None
     # Device of the target's section data, or None for hand-wired targets.
     device: torch.device | None = None
+    # Optional (theta, theta', ensemble, mode) -> (idx -> deltas): the round
+    # evaluator of one transition, with whatever depends on the pair alone
+    # (latent-dependent section pools, the family's parameters) computed once.
+    bind: Callable[..., Callable[[torch.Tensor], torch.Tensor]] | None = None
+
+    def local_round(self, theta, theta_p, *, ensemble: bool = False, mode: str = "auto"):
+        """``idx -> deltas`` for one transition's pair: (m,) for one chain,
+        or (K, m) through ``log_local_ensemble`` with ``ensemble=True``.
+        ``mode`` is the kernel dispatch."""
+        if self.bind is not None:
+            return self.bind(theta, theta_p, ensemble, mode)
+        if ensemble:
+            return lambda idx: self.log_local_ensemble(theta, theta_p, idx, mode=mode)
+        return lambda idx: self.log_local(theta, theta_p, idx)
 
 
 def from_iid_loglik(

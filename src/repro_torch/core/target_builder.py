@@ -6,16 +6,23 @@ local-likelihood family and the builder attaches
   * ``log_local``          the (m,) pair delta of one chain's round,
   * ``log_local_ensemble`` the (K, m) lock-step round, both through the
                            kernel dispatch of :mod:`repro_torch.kernels.ops`,
-  * ``log_density``        prior + full local sum, for diagnostics.
+  * ``log_density``        prior + full local sum, for diagnostics,
+  * ``bind``               the round evaluator of one transition (see
+                           :meth:`~repro_torch.core.target.PartitionedTarget.local_round`).
 
-This slice registers the ``logit`` family (BayesLR): data = (x (N, D),
-y (N,)), params = w. Unlike the reference, whose single-chain delta calls
-the plain version directly, both rounds dispatch, so no plain version runs
-on the card. The other families (``gaussian_ar1``, ``ce``,
-``gaussian_mean``), per-chain (K, N, D) pools, latent-dependent (callable)
-data and the ``TargetSpec`` recipes (partitioning, streaming append) come
-with their slices and raise ``NotImplementedError`` here. The reference's
-mesh constraints (``lc``) have no counterpart on one device.
+Registered families: ``logit`` (BayesLR: data = (x (N, D), y (N,)), params
+= w) and ``gaussian_ar1`` (stochastic volatility: data = (xt, xp), the
+current and previous latent state of each transition factor, as shared (N,)
+or per-chain (K, N) pools; params = (phi, sigma^2)). ``data`` may be a
+callable ``theta -> pools`` (latent-dependent sections, as in the stochvol
+ensemble, where the pools derive from ``theta["h"]``); the transitions then
+evaluate it once per transition through ``bind``. Unlike the reference,
+whose single-chain deltas call the plain versions directly, both rounds
+dispatch, so no plain version runs on the card. The other families (``ce``,
+``gaussian_mean``), per-chain logit pools and the ``TargetSpec`` recipes
+(partitioning, streaming append) come with their slices and raise
+``NotImplementedError`` here. The reference's mesh constraints (``lc``)
+have no counterpart on one device.
 """
 from __future__ import annotations
 
@@ -33,9 +40,9 @@ Params = Any
 @dataclasses.dataclass(frozen=True)
 class KernelFamily:
     """A local-likelihood family: ``loglik(data, params, idx) -> (m,)``,
-    ``delta(data, params, params_p, idx) -> (m,)`` for one chain, and
-    ``ensemble_delta(data, params, params_p, idx, mode=) -> (K, m)`` for a
-    lock-step round."""
+    ``delta(data, params, params_p, idx, mode=) -> (m,)`` for one chain,
+    and ``ensemble_delta(data, params, params_p, idx, mode=) -> (K, m)`` for
+    a lock-step round; ``mode`` is the kernel dispatch."""
 
     name: str
     loglik: Callable[..., torch.Tensor]
@@ -75,9 +82,9 @@ def _logit_loglik(data, w, idx):
     return ref.logit_loglik(w, x[idx], y[idx])
 
 
-def _logit_delta(data, w, w_p, idx):
+def _logit_delta(data, w, w_p, idx, mode: str = "auto"):
     x, y = _logit_pool(data)
-    return ops.logit_delta(x, y, w, w_p, idx=idx)
+    return ops.logit_delta(x, y, w, w_p, idx=idx, mode=mode)
 
 
 def _logit_ensemble_delta(data, w, w_p, idx, mode: str = "auto"):
@@ -85,10 +92,29 @@ def _logit_ensemble_delta(data, w, w_p, idx, mode: str = "auto"):
     return ops.gather_and_delta(x, y, idx, w, w_p, mode=mode)
 
 
-register_family(KernelFamily("logit", _logit_loglik, _logit_delta, _logit_ensemble_delta))
+def _ar1_loglik(data, params, idx):
+    phi, s2 = params
+    xt, xp = (ref.gather_pool(a, idx) for a in data)
+    s2c = torch.clamp_min(s2, ref.S2_FLOOR)
+    z2 = (xt - phi * xp) ** 2 / s2c
+    return -0.5 * (z2 + torch.log(s2c) + ref.LOG2PI)
 
-_LATER = {"gaussian_ar1": "the stochastic-volatility slice",
-          "ce": "the LM slice", "gaussian_mean": "the partition slice"}
+
+def _ar1_delta(data, params, params_p, idx, mode: str = "auto"):
+    xt, xp = data
+    out = ops.gather_ar1_delta(xt, xp, idx.reshape(1, -1), *params, *params_p, mode=mode)
+    return out.reshape(idx.shape)
+
+
+def _ar1_ensemble_delta(data, params, params_p, idx, mode: str = "auto"):
+    xt, xp = data
+    return ops.gather_ar1_delta(xt, xp, idx, *params, *params_p, mode=mode)
+
+
+register_family(KernelFamily("logit", _logit_loglik, _logit_delta, _logit_ensemble_delta))
+register_family(KernelFamily("gaussian_ar1", _ar1_loglik, _ar1_delta, _ar1_ensemble_delta))
+
+_LATER = {"ce": "the LM slice", "gaussian_mean": "the partition slice"}
 
 
 def build_target(
@@ -102,15 +128,19 @@ def build_target(
     log_density: Callable[[Params], torch.Tensor] | None = None,
     params_fn: Callable[[Params], Any] | None = None,
     prior_scale: float = 1.0,
+    device=None,
 ) -> PartitionedTarget:
     """Construct a :class:`~repro_torch.core.target.PartitionedTarget` from a
     registered kernel family.
 
-    ``data`` is the family's section pool; ``params_fn`` maps theta to the
-    family's parameters (default: identity). The global section comes from
-    ``prior_logpdf`` (differenced) or an explicit ``log_global``; the prior
-    must accept a leading chain axis and return one value per chain.
-    ``prior_scale`` tempers the prior to ``prior_scale * log p(theta)``.
+    ``data`` is the family's section pool, or a callable ``theta -> pool``
+    for sections that derive from theta (it must not read a leaf the
+    proposal moves); ``params_fn`` maps theta to the family's parameters
+    (default: identity). The global section comes from ``prior_logpdf``
+    (differenced) or an explicit ``log_global``; the prior must accept a
+    leading chain axis and return one value per chain. ``prior_scale``
+    tempers the prior to ``prior_scale * log p(theta)``. ``device`` names
+    where a callable's pools live (a pool of tensors carries its own).
 
         >>> import torch
         >>> from repro_torch.core import build_target
@@ -147,24 +177,37 @@ def build_target(
         return PartitionedTarget(num_sections, log_global, log_local, log_density)
 
     fam = get_family(family)
-    if callable(data):
-        raise NotImplementedError("latent-dependent (callable) section data comes with a later slice")
+    data_fn = data if callable(data) else (lambda theta: data)
     params_fn = params_fn or (lambda theta: theta)
+    user_log_local = log_local
 
     if log_local is None:
 
         def log_local(theta, theta_p, idx):
-            return fam.delta(data, params_fn(theta), params_fn(theta_p), idx)
+            return fam.delta(data_fn(theta), params_fn(theta), params_fn(theta_p), idx)
 
     def log_local_ensemble(theta, theta_p, idx, mode: str = "auto"):
-        return fam.ensemble_delta(data, params_fn(theta), params_fn(theta_p), idx, mode=mode)
+        return fam.ensemble_delta(data_fn(theta), params_fn(theta), params_fn(theta_p), idx,
+                                  mode=mode)
 
-    device = data[0].device if isinstance(data, (tuple, list)) else data.device
+    def bind(theta, theta_p, ensemble: bool = False, mode: str = "auto"):
+        if not ensemble and user_log_local is not None:
+            return lambda idx: user_log_local(theta, theta_p, idx)
+        pools, a, b = data_fn(theta), params_fn(theta), params_fn(theta_p)
+        fn = fam.ensemble_delta if ensemble else fam.delta
+        return lambda idx: fn(pools, a, b, idx, mode=mode)
+
+    if not callable(data):
+        device = data[0].device if isinstance(data, (tuple, list)) else data.device
+    elif device is not None:
+        device = torch.device(device)
     if log_density is None and prior_logpdf is not None:
 
         def log_density(theta):
-            idx = torch.arange(num_sections, dtype=torch.int32, device=device)
-            return prior_logpdf(theta) + fam.loglik(data, params_fn(theta), idx).sum()
+            pools = data_fn(theta)
+            first = pools[0] if isinstance(pools, (tuple, list)) else pools
+            idx = torch.arange(num_sections, dtype=torch.int32, device=first.device)
+            return prior_logpdf(theta) + fam.loglik(pools, params_fn(theta), idx).sum()
 
     return PartitionedTarget(
         num_sections=num_sections,
@@ -174,6 +217,7 @@ def build_target(
         log_local_ensemble=log_local_ensemble,
         family=fam.name,
         device=device,
+        bind=bind,
     )
 
 

@@ -1,4 +1,5 @@
-"""Paper experiments in PyTorch: BayesLR (Sec. 4.1) in this slice."""
-from . import bayeslr
+"""Paper experiments in PyTorch: BayesLR (Sec. 4.1) and stochastic
+volatility (Sec. 4.3)."""
+from . import bayeslr, stochvol
 
-__all__ = ["bayeslr"]
+__all__ = ["bayeslr", "stochvol"]

@@ -32,7 +32,13 @@ import torch
 from . import _build, ref
 from .batched_loglik import batched_logit_delta as _batched_kernel
 from .batched_loglik import gather_and_delta as _gather_kernel
+from .fy_draw import fy_draw as _fy_kernel
+from .fy_draw import fy_draw_ref
+from .gaussian_ar1 import batched_gaussian_ar1_delta as _ar1_batched_kernel
+from .gaussian_ar1 import gather_ar1_delta as _ar1_gather_kernel
 from .logit_loglik import logit_delta as _logit_kernel
+from .pgibbs import pgibbs_sweep as _pgibbs_kernel
+from .pgibbs import pgibbs_sweep_ref
 from .t_test_round import t_test_round as _t_test_kernel
 from .t_test_round import t_test_round_ref
 
@@ -159,6 +165,53 @@ def gather_and_delta(x, y, idx, w_cur, w_prop, *, mode: str = "auto",
     if not use_kernel(mode, x):
         return ref.gather_and_delta_ref(x, y, idx, w_cur, w_prop)
     return _gather_kernel(x, y, idx, w_cur.contiguous(), w_prop.contiguous())
+
+
+def _chain_params(like: torch.Tensor, *vals) -> list[torch.Tensor]:
+    """Each per-chain parameter as a (K,) float32 tensor on the pools'
+    device (one chain's 0-d parameter becomes (1,))."""
+    return [torch.as_tensor(v, dtype=torch.float32, device=like.device).reshape(-1)
+            for v in vals]
+
+
+def batched_gaussian_ar1_delta(xt, xp, phi_cur, s2_cur, phi_prop, s2_prop, *,
+                               mode: str = "auto", precision: str = "auto"):
+    """Ensemble-batched (K, m) AR(1) transition-factor delta block on
+    gathered sections (the stochvol sigma^2/phi local sections)."""
+    if resolve_precision(precision) == "bf16":
+        xt, xp = _bf16_rows(xt), _bf16_rows(xp)
+    params = _chain_params(xt, phi_cur, s2_cur, phi_prop, s2_prop)
+    if not use_kernel(mode, xt):
+        return ref.batched_gaussian_ar1_delta_ref(xt, xp, *params)
+    return _ar1_batched_kernel(xt, xp, *params)
+
+
+def gather_ar1_delta(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop, *,
+                     mode: str = "auto", precision: str = "auto"):
+    """(K, m) AR(1) delta block on sections ``idx`` (K, m) of shared (N,) or
+    per-chain (K, N) pools — one call per sequential-test round (K = 1 for a
+    single chain)."""
+    if resolve_precision(precision) == "bf16":
+        xt, xp = _bf16_rows(xt), _bf16_rows(xp)
+    params = _chain_params(xt, phi_cur, s2_cur, phi_prop, s2_prop)
+    if not use_kernel(mode, xt):
+        return ref.gather_ar1_delta_ref(xt, xp, idx, *params)
+    return _ar1_gather_kernel(xt, xp, idx, *params)
+
+
+def fy_draw(u, idx, pos, size, m: int, active=None, *, mode: str = "auto"):
+    """The m partial Fisher–Yates swaps of every active chain, in place on
+    ``idx`` (see :mod:`repro_torch.kernels.fy_draw`). Returns
+    ``(indices, valid, new_pos)``."""
+    fn = _fy_kernel if use_kernel(mode, idx) else fy_draw_ref
+    return fn(u, idx, pos, size, m, active)
+
+
+def pgibbs_sweep(noise, u, u_pick, obs, h, phi, s2, *, h0: float = 0.0, mode: str = "auto"):
+    """One conditional-SMC sweep of every chain's series from given random
+    numbers (see :mod:`repro_torch.kernels.pgibbs`) -> new paths (K, S, T)."""
+    fn = _pgibbs_kernel if use_kernel(mode, h) else pgibbs_sweep_ref
+    return fn(noise, u, u_pick, obs, h, phi, s2, h0=h0)
 
 
 def t_test_round(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds,

@@ -61,6 +61,64 @@ def gather_and_delta_ref(x, y, idx, w_cur, w_prop) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Stochastic volatility: the AR(1) transition factor and the observation
+# factor, shared by the MH delta and the particle-Gibbs sweep.
+# ---------------------------------------------------------------------------
+
+LOG2PI = 1.8378770664093453
+S2_FLOOR = 1e-12  # sigma^2 clip: out-of-support proposals stay finite
+
+
+def ar1_propagate(h_prev, noise, phi, s2) -> torch.Tensor:
+    """AR(1) transition sample ``phi * h_prev + sqrt(clip(s2)) * z``: the
+    sampling twin of :func:`gaussian_ar1_delta_ref`'s density."""
+    return phi * h_prev + torch.sqrt(torch.clamp_min(s2, S2_FLOOR)) * noise
+
+
+def sv_obs_loglik(x, h) -> torch.Tensor:
+    """Stochastic-volatility observation factor log N(x | 0, exp(h)),
+    elementwise: the particle weight of the pgibbs sweep."""
+    return -0.5 * (x * x * torch.exp(-h) + h + LOG2PI)
+
+
+def gaussian_ar1_delta_ref(xt, xp, phi_cur, s2_cur, phi_prop, s2_prop) -> torch.Tensor:
+    """AR(1) transition-factor delta (the stochvol local sections):
+
+        l_i = log N(xt_i | phi' xp_i, s2') - log N(xt_i | phi xp_i, s2)
+
+    in float32; the 2 pi constant cancels in the pair, and sigma^2 is clipped
+    at 1e-12 so out-of-support proposals (rejected by the -inf prior) still
+    give finite local values. xt, xp: (..., m) f32 or bf16; the parameters
+    broadcast against them -> (..., m) f32.
+    """
+    s2c = torch.clamp_min(torch.as_tensor(s2_cur, dtype=F32), S2_FLOOR)
+    s2p = torch.clamp_min(torch.as_tensor(s2_prop, dtype=F32), S2_FLOOR)
+    xt, xp = xt.to(F32), xp.to(F32)
+    lc = -0.5 * ((xt - phi_cur * xp) ** 2 / s2c + torch.log(s2c))
+    lp = -0.5 * ((xt - phi_prop * xp) ** 2 / s2p + torch.log(s2p))
+    return lp - lc
+
+
+def batched_gaussian_ar1_delta_ref(xt, xp, phi_cur, s2_cur, phi_prop, s2_prop) -> torch.Tensor:
+    """Ensemble-batched AR(1) delta: xt, xp (K, m), parameters (K,) -> (K, m)."""
+    col = lambda v: torch.as_tensor(v, dtype=F32, device=xt.device)[:, None]
+    return gaussian_ar1_delta_ref(xt, xp, col(phi_cur), col(s2_cur), col(phi_prop), col(s2_prop))
+
+
+def gather_pool(pool, idx) -> torch.Tensor:
+    """Rows ``idx`` (K, m) of a shared (N,) pool or of per-chain (K, N) pools."""
+    idx = idx.long()
+    return pool[idx] if pool.ndim == 1 else pool.gather(1, idx)
+
+
+def gather_ar1_delta_ref(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop) -> torch.Tensor:
+    """Gather each chain's sections ``idx`` (K, m) from the (N,) or (K, N)
+    pools, then the batched delta."""
+    return batched_gaussian_ar1_delta_ref(gather_pool(xt, idx), gather_pool(xp, idx),
+                                          phi_cur, s2_cur, phi_prop, s2_prop)
+
+
+# ---------------------------------------------------------------------------
 # Student-t tail: JAX's float32 regularized incomplete beta, step for step.
 #
 # ``repro.core.stats.student_t_sf`` calls ``jax.scipy.special.betainc`` in

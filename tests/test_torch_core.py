@@ -239,9 +239,7 @@ def test_lockstep_round_matches_jax(lr):
     rw = J.RandomWalk(0.05)
     max_rounds = -(-N // CFG["batch_size"])
     trans = jax.jit(_make_batched_transition(lr["jt"], rw, jcfg, k, False, max_rounds=max_rounds))
-    ens = ChainEnsemble(lr["tt"], RandomWalk(0.05), k, config=SubsampledMHConfig(**CFG),
-                        device="cpu")
-    cfg = ens._config
+    cfg = SubsampledMHConfig(**CFG)
     reset_fn, draw_fn = sampler_fns("stream")
     got, want = {n: [] for n in ("accepted", "rounds", "n_evaluated", "mu_hat")}, []
     jtheta = jnp.asarray((0.3 * rng.standard_normal((k, D))).astype(np.float32))
@@ -259,8 +257,8 @@ def test_lockstep_round_matches_jax(lr):
         np.testing.assert_allclose(tmu0.numpy(), np.asarray(mu0), rtol=1e-5, atol=1e-7)
         _, _, tinfo = finish_transition(None, theta, thp, tmu0, lu, state.sampler_state,
                                         lr["tt"], cfg, reset_fn, draw_fn,
-                                        max_rounds=ens._max_rounds,
-                                        eval_fn=lambda idx: ens._round_eval(theta, thp, idx))
+                                        max_rounds=max_rounds,
+                                        eval_fn=lr["tt"].local_round(theta, thp, ensemble=True))
         jtheta, jsampler, jinfo = trans(keys, jtheta, jsampler, eps, meff)
         want.append(jinfo)
         for n in got:
@@ -300,10 +298,13 @@ def test_fused_and_plain_routes_agree_on_cpu(lr):
 
 def test_deferred_paths_raise(lr):
     for kw in (dict(stepping="masked"), dict(schedule=object()), dict(shard=True),
-               dict(shard=("chains", "data")), dict(transition=object())):
+               dict(shard=("chains", "data"))):
         with pytest.raises(NotImplementedError):
             ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", **kw)
-    for fam in ("gaussian_ar1", "ce", "gaussian_mean"):
+    # composite cycles are ported; a cycle beside (target, proposal) is refused
+    with pytest.raises((TypeError, ValueError)):
+        ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", transition=object())
+    for fam in ("ce", "gaussian_mean"):
         with pytest.raises(NotImplementedError):
             build_target(fam, None, 10, prior_logpdf=lambda t: t)
 
@@ -334,7 +335,8 @@ def test_port_imports_neither_jax_nor_reference():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.core, repro_torch.experiments.bayeslr\n"
-        "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.experiments.stochvol, repro_torch.inference.smc\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels._build, repro_torch.kernels.pgibbs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
     )

@@ -87,9 +87,94 @@ def test_round_kernel_matches_plain(cuda_device):
         torch.testing.assert_close(got[i], want[i], rtol=1e-4, atol=1e-7)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+def test_ar1_delta_kernel_matches_plain(prec, cuda_device):
+    """The AR(1) pair delta on gathered sections, on a shared pool and on
+    per-chain pools: kernel against plain version, the same float32
+    operations in the same order (tolerance: a few ulps of the two terms)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    k, m, n = 32, 100, 1000
+    pools = [0.3 * torch.randn(k, n, generator=gen, device=cuda_device) for _ in range(2)]
+    if prec == "bf16":
+        pools = [p.to(torch.bfloat16) for p in pools]
+    phi = 0.9 + 0.05 * torch.rand(k, generator=gen, device=cuda_device)
+    s2 = 0.01 + 0.01 * torch.rand(k, generator=gen, device=cuda_device)
+    par = (phi, s2, phi + 0.01, s2 * 1.1)
+    idx = torch.randint(0, n, (k, m), generator=gen, device=cuda_device, dtype=torch.int32)
+    ops.reset_launches()
+    for run in (lambda mode: ops.gather_ar1_delta(pools[0][0], pools[1][0], idx, *par, mode=mode),
+                lambda mode: ops.gather_ar1_delta(*pools, idx, *par, mode=mode),
+                lambda mode: ops.batched_gaussian_ar1_delta(pools[0][:, :m].contiguous(),
+                                                            pools[1][:, :m].contiguous(), *par,
+                                                            mode=mode)):
+        torch.testing.assert_close(run("always"), run("never"), rtol=1e-5, atol=1e-4)
+    assert ops.launches["gaussian_ar1_delta"] == 3
+
+
+@pytest.mark.cuda
+def test_fy_draw_kernel_matches_plain(cuda_device):
+    """Identical indices, valid flags, positions and buffers over rounds to
+    exhaustion, with some chains inactive: the same swaps from the same
+    float64 uniforms."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    k, n, m = 32, 1000, 100
+    bufs = [torch.arange(n, dtype=torch.int32, device=cuda_device).repeat(k, 1) for _ in range(2)]
+    pos = [torch.zeros(k, dtype=torch.int32, device=cuda_device) for _ in range(2)]
+    size = torch.full((k,), n, dtype=torch.int32, device=cuda_device)
+    size[3] = 950  # a logical pool smaller than the buffer
+    ops.reset_launches()
+    for r in range(12):
+        u = torch.rand((k, m), generator=gen, dtype=torch.float64, device=cuda_device)
+        active = torch.rand(k, generator=gen, device=cuda_device) < 0.8
+        outs = [ops.fy_draw(u, bufs[i], pos[i], size, m, active, mode=mode)
+                for i, mode in enumerate(("always", "never"))]
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        pos = [outs[0][2], outs[1][2]]
+        assert torch.equal(bufs[0], bufs[1])
+    assert bool((pos[0] <= size).all()) and ops.launches["fy_draw"] == 12
+    for row in bufs[0]:  # still a permutation
+        assert torch.equal(row.sort().values, torch.arange(n, dtype=torch.int32, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_pgibbs_kernel_matches_plain(cuda_device):
+    """The sweep from the same random numbers: paths equal except where a
+    uniform lies within float32 rounding of a CDF boundary (the softmax sum
+    and the scan add in another order); at most 1% of the paths differ."""
+    from repro_torch.kernels.pgibbs import draw_sweep_randomness
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    k, s, t, p = 32, 200, 5, 25
+    obs = torch.exp(0.5 * 0.3 * torch.randn(s, t, generator=gen, device=cuda_device)) \
+        * torch.randn(s, t, generator=gen, device=cuda_device)
+    h = 0.3 * torch.randn(k, s, t, generator=gen, device=cuda_device)
+    phi = torch.full((k,), 0.95, device=cuda_device)
+    s2 = torch.full((k,), 0.01, device=cuda_device)
+    rand = draw_sweep_randomness(gen, k, s, t, p, cuda_device)
+    ops.reset_launches()
+    got = ops.pgibbs_sweep(*rand, obs, h, phi, s2, mode="always")
+    want = ops.pgibbs_sweep(*rand, obs, h, phi, s2, mode="never")
+    same = (got == want).all(-1)
+    assert float(same.float().mean()) >= 0.99 and ops.launches["pgibbs_sweep"] == 1
+    assert bool(torch.isfinite(got).all())
+
+
 def test_cuda_dispatch_refuses_cpu_tensors():
     """The other side of the device rule, checkable anywhere: `always` on
     CPU tensors raises instead of running the plain version."""
     x = torch.zeros(4, 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.logit_delta(x, torch.ones(4), torch.zeros(3), torch.zeros(3), mode="always")
+    z = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.fy_draw(torch.zeros(2, 3, dtype=torch.float64), torch.zeros(2, 5, dtype=torch.int32),
+                    z, z + 5, 3, mode="always")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.pgibbs_sweep(torch.zeros(4, 1, 2, 3), torch.zeros(4, 1, 2, 3), torch.zeros(1, 2),
+                                 torch.zeros(2, 4), torch.zeros(1, 2, 4), torch.ones(1),
+                                 torch.ones(1), mode="always")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.gather_ar1_delta(torch.zeros(5), torch.zeros(5), torch.zeros(1, 3, dtype=torch.int32),
+                             0.9, 0.1, 0.9, 0.1, mode="always")
