@@ -22,19 +22,35 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      route against ``fused_kernels="never"`` on 200 fixed phi proposals;
   G  the sublinear section count on dependent sections: h fixed at the true
      paths, the phi move at fixed theta for S = 200, 2000, 20000
-     (N = 1e3, 1e4, 1e5), with one exact transition's time beside it.
+     (N = 1e3, 1e4, 1e5), with one exact transition's time beside it;
+  A  (CE) the fused CE kernel against its plain version and the library
+     composite (torch.matmul + F.cross_entropy): ragged and extreme shapes,
+     fp32 and bf16, shared and per-chain tables, the gather form, and the
+     path's shapes (m=100 of N=8128 at D=4096, V=65024; K=1 and K=8);
+  H  the LM launcher (``repro_torch.launch.train``) for chatglm3-6b at full
+     width and depth with its defaults: 20 subsampled and 3 exact steps,
+     then a run stopped by an injected failure and resumed from its
+     checkpoint, against the uninterrupted run;
+  I  the ``ce`` family on one chain: the fp32 unembedding table of H's model
+     under subsampled MH over N = 64 x 127 next-token sections (final hidden
+     states of MarkovStream sequences), 50 transitions, then the fused route
+     against ``fused_kernels="never"`` on 20 fixed proposals;
+  J  the same target on K=8 lock-step chains with per-chain (8, V, D) fp32
+     tables, 20 steps.
 
-Launch counts are set to 0 before each of B-G and read after it; every
+Launch counts are set to 0 before each of B-J and read after it; every
 kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels with their launches, errors and times. The full report
 goes to ``chiprun_out/chip_smoke.json``. ``--profile`` instead runs short
-windows of phases B, C, E and F under ``torch.profiler`` and reports the
-device's idle share (``chiprun_out/chip_profile.json``).
+windows of phases B, C, E, F, H, I and J under ``torch.profiler`` and reports
+the device's idle share (``chip_profile.json`` beside the report); the windows of
+H, I and J use the launcher's initial model.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -87,21 +103,25 @@ def time_ms(fn, reps: int, setup=None, queued: bool = True) -> tuple[float, floa
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     if not queued:
         return host_ms, host_ms
-    e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    e0.record()
-    torch.cuda._sleep(int(3 * host_ms * 1e-3 * reps * 2e9))  # ~3x the enqueue time at <= 2 GHz
-    a.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        if setup is not None:
-            setup()
-        fn()
-    enqueue_s = time.perf_counter() - t0
-    b.record()
-    b.synchronize()
-    if enqueue_s * 1e3 >= e0.elapsed_time(a):
-        raise CheckFailed("device timing: enqueueing outlasted the sleep in front of it")
-    return a.elapsed_time(b) / reps, host_ms
+    # the sleep covers ~3x the measured enqueue time at <= 2 GHz; when the
+    # host is slower this time (its cores are shared), the run is repeated
+    # behind a sleep twice as long, up to three times
+    for attempt in range(3):
+        e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(int(3 * 2 ** attempt * host_ms * 1e-3 * reps * 2e9))
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if setup is not None:
+                setup()
+            fn()
+        enqueue_s = time.perf_counter() - t0
+        b.record()
+        b.synchronize()
+        if enqueue_s * 1e3 < e0.elapsed_time(a):
+            return a.elapsed_time(b) / reps, host_ms
+    raise CheckFailed("device timing: enqueueing outlasted the sleep in front of it three times")
 
 
 def card_line() -> str:
@@ -250,21 +270,23 @@ def phase_a(report):
 
 
 def record(report, name, label, err, ms, plain_ms, byts, ops_, host_ms, plain_host_ms,
-           main_shape, **extra):
+           main_shape, library_ms=None, **extra):
     """Print one kernel case and keep it; the main path's shape also fills the
     kernel's line."""
     bound = max(byts / HBM_BYTES_PER_S, ops_ / FP32_FLOPS) * 1e3
     bound_by = "bytes" if byts / HBM_BYTES_PER_S >= ops_ / FP32_FLOPS else "operations"
+    lib = "" if library_ms is None else f" library={library_ms * 1e3:9.2f}us"
     print(f"  {name:20s} {label:38s} err={err:.2e} kernel={ms * 1e3:9.2f}us "
-          f"plain={plain_ms * 1e3:10.2f}us bound={bound * 1e3:8.3f}us ({bound_by}) "
+          f"plain={plain_ms * 1e3:10.2f}us bound={bound * 1e3:8.3f}us ({bound_by}){lib} "
           f"host/call: kernel {host_ms * 1e3:6.1f}us plain {plain_host_ms * 1e3:8.1f}us")
     e = report["kernels"][name]
     e["max_abs_err"] = max(e["max_abs_err"], err)
     e["cases"].append({"case": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound, "bound_by": bound_by, "host_ms": host_ms,
-                       "plain_host_ms": plain_host_ms, **extra})
+                       "plain_host_ms": plain_host_ms, "library_ms": library_ms, **extra})
     if main_shape:
-        e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                 library_ms=library_ms)
 
 
 def phase_a_sv(report):
@@ -387,6 +409,128 @@ def phase_a_sv(report):
         byts = 2 * t * k * s * p * 4 + k * s * 4 + s * t * 4 + 2 * k * s * t * 4 + 8 * k
         record(report, "pgibbs_sweep", label, err, ms, plain_ms, byts, t * k * s * p * 25,
                host_ms, plain_host_ms, (k, s) == (32, 200), paths_differ_frac=frac)
+
+
+# the ce family's path shapes: m=100 of N = 64 x 127 next-token sections of
+# chatglm3-6b (D=4096, V=65024), one chain and K=8 per-chain tables
+CE_N, CE_D, CE_V, CE_M, CE_K = 8128, 4096, 65024, 100, 8
+
+
+def ce_tolerance(want, v):
+    """Per-token tolerance of the CE kernel against its plain version, fp32
+    and bf16 alike (both sides compute float32 logits from the same
+    operands): 1e-4 of log V, or of the largest |per-token value| where
+    extreme logits make those large (the JAX package's rtol at extreme
+    logits). The sums of the same products run in another order."""
+    return 1e-4 * max(math.log(v), float(want.abs().max()))
+
+
+def phase_a_ce(report):
+    """The fused CE kernel against its plain version, with the library
+    composite (torch.matmul + F.cross_entropy, which build the (T, V) logits)
+    beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    print("phase A (CE kernels): fused_ce, batched_fused_ce (shared / per-chain tables, gather)")
+
+    def library(h, table, targets, idx=None):
+        """log softmax(h W^T)[target] from two library calls (plus the row
+        gather where the kernel reads rows through idx)."""
+        if idx is not None:
+            h, targets = h[idx.long()], targets[idx.long()]
+        hf, tab = h.float(), table.float()
+        logits = hf @ tab.transpose(-1, -2) if tab.ndim == hf.ndim else hf @ tab.T
+        return -F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long(),
+                                reduction="none").reshape(targets.shape)
+
+    def case(name, label, prec, run, plain, lib, byts, flops, main_shape, v, reps):
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = ce_tolerance(want, v)
+        lib_err = float((lib() - want).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"{name} {label} within {tol:.3g} of its plain version (err {err:.2e}; "
+              f"library composite {lib_err:.2e})")
+        (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, reps), time_ms(plain, reps)
+        lib_ms, _ = time_ms(lib, reps)
+        record(report, name, label, err, ms, plain_ms, byts, flops, host_ms, plain_host_ms,
+               main_shape, library_ms=lib_ms)
+
+    def ce_cost(k, t, v, d, tables, eh, et):
+        """Bytes: the tables and h rows once, targets (and indices) and the
+        output; operations: 2 T V D per chain for the logits and ~4 per logit
+        for the online max, exp and sum."""
+        byts = tables * v * d * et + k * t * d * eh + k * t * 12
+        return byts, k * t * v * (2 * d + 4)
+
+    # ragged one-chain shapes (T, V off the tiles; D = 13 takes the scalar
+    # loads) and 30x extreme logits, fp32 and bf16
+    for (t, d, v, scale) in [(37, 16, 129, 0.5), (5, 13, 1000, 0.5), (16, 8, 64, 30.0)]:
+        for prec in ("fp32", "bf16"):
+            dt = torch.bfloat16 if prec == "bf16" else torch.float32
+            h = (scale * torch.randn(t, d, generator=gen, device=dev)).to(dt)
+            tab = (scale * torch.randn(v, d, generator=gen, device=dev)).to(dt)
+            tg = torch.randint(0, v, (t,), generator=gen, device=dev, dtype=torch.int32)
+            e = 2 if prec == "bf16" else 4
+            case("fused_ce", f"T={t} D={d} V={v} x{scale:g} {prec}", prec,
+                 lambda h=h, tab=tab, tg=tg: ops.fused_ce(h, tab, tg, mode="always"),
+                 lambda h=h, tab=tab, tg=tg: ops.fused_ce(h, tab, tg, mode="never"),
+                 lambda h=h, tab=tab, tg=tg: library(h, tab, tg),
+                 *ce_cost(1, t, v, d, 1, e, e), False, v, 20)
+    # K chains: shared and per-chain tables, pre-gathered rows and the gather form
+    k, t, d, v, n = 4, 33, 64, 1000, 500
+    pool = 0.5 * torch.randn(n, d, generator=gen, device=dev)
+    pool_t = torch.randint(0, v, (n,), generator=gen, device=dev, dtype=torch.int32)
+    idx = torch.randint(0, n, (k, t), generator=gen, device=dev, dtype=torch.int32)
+    for per_chain in (False, True):
+        tab = 0.5 * torch.randn((k, v, d) if per_chain else (v, d), generator=gen, device=dev)
+        hk, tk = pool[idx.long()].contiguous(), pool_t[idx.long()].contiguous()
+        kind = "per-chain" if per_chain else "shared"
+        cost = ce_cost(k, t, v, d, k if per_chain else 1, 4, 4)
+        case("batched_fused_ce", f"K={k} T={t} D={d} V={v} {kind}", "fp32",
+             lambda hk=hk, tab=tab, tk=tk: ops.batched_fused_ce(hk, tab, tk, mode="always"),
+             lambda hk=hk, tab=tab, tk=tk: ops.batched_fused_ce(hk, tab, tk, mode="never"),
+             lambda hk=hk, tab=tab, tk=tk: library(hk, tab, tk), *cost, False, v, 20)
+        for prec in ("fp32", "bf16"):
+            case("batched_fused_ce", f"gather K={k} m={t} of N={n} {kind} {prec}", prec,
+                 lambda tab=tab, p=prec: ops.gather_fused_ce(pool, pool_t, idx, tab,
+                                                             mode="always", precision=p),
+                 lambda tab=tab, p=prec: ops.gather_fused_ce(pool, pool_t, idx, tab,
+                                                             mode="never", precision=p),
+                 lambda tab=tab: library(pool, tab, pool_t, idx), *cost, False, v, 20)
+
+    # the path's shapes: bf16 hidden states (as forward_hidden gives them),
+    # fp32 tables at chatglm3-6b's width
+    h = torch.randn(CE_N, CE_D, generator=gen, device=dev).to(torch.bfloat16)
+    tg = torch.randint(0, CE_V, (CE_N,), generator=gen, device=dev, dtype=torch.int32)
+    table = 0.02 * torch.randn(CE_V, CE_D, generator=gen, device=dev)
+    idx1 = torch.randint(0, CE_N, (CE_M,), generator=gen, device=dev, dtype=torch.int32)
+    case("fused_ce", f"m={CE_M} of N={CE_N} D={CE_D} V={CE_V} (phase I)", "fp32",
+         lambda: ops.fused_ce(h, table, tg, idx=idx1, mode="always"),
+         lambda: ops.fused_ce(h, table, tg, idx=idx1, mode="never"),
+         lambda: library(h, table, tg, idx1),
+         *ce_cost(1, CE_M, CE_V, CE_D, 1, 2, 4), True, CE_V, 20)
+    tables = table[None].repeat(CE_K, 1, 1)
+    tables.add_(0.02 * torch.randn(tables.shape, generator=gen, device=dev))
+    idxk = torch.randint(0, CE_N, (CE_K, CE_M), generator=gen, device=dev, dtype=torch.int32)
+    case("batched_fused_ce", f"gather K={CE_K} m={CE_M} of N={CE_N} per-chain (phase J)", "fp32",
+         lambda: ops.gather_fused_ce(h, tg, idxk, tables, mode="always"),
+         lambda: ops.gather_fused_ce(h, tg, idxk, tables, mode="never"),
+         lambda: library(h, tables, tg, idxk),
+         *ce_cost(CE_K, CE_M, CE_V, CE_D, CE_K, 2, 4), True, CE_V, 5)
+    case("batched_fused_ce", f"gather K={CE_K} m={CE_M} of N={CE_N} shared table", "fp32",
+         lambda: ops.gather_fused_ce(h, tg, idxk, table, mode="always"),
+         lambda: ops.gather_fused_ce(h, tg, idxk, table, mode="never"),
+         lambda: library(h, table, tg, idxk),
+         *ce_cost(CE_K, CE_M, CE_V, CE_D, 1, 2, 4), False, CE_V, 5)
+    del tables, table
+    torch.cuda.empty_cache()
 
 
 def phase_e(report):
@@ -555,6 +699,265 @@ def phase_g(report):
     check(fr[0] > fr[1] > fr[2], "n_evaluated / N falls as N grows (dependent sections)")
 
 
+# ---------------------------------------------------------------------------
+# Phases H-J: the LM slice (chatglm3-6b at full width)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "chatglm3-6b"
+LM_STEPS, LM_EXACT_STEPS = 20, 3
+CE_SIGMA = 1.2e-4  # RW std on the unembedding table (acceptance ~0.1-0.6 on the card)
+CE_PRIOR_VAR = 1.0
+CE_SEQS, CE_SEQ_LEN = 64, 128  # N = 64 x 127 = 8128 next-token sections
+
+
+def gaussian_log_global(prior_var):
+    """log N(theta' | 0, v I) - log N(theta | 0, v I) for a (V, D) table, or
+    (K,) for (K, V, D) tables: sum((theta' - theta)(theta' + theta)) in
+    blocks of rows, which keeps the temporaries small and avoids differencing
+    two float32 totals of ~1e5."""
+    def log_global(theta, theta_p):
+        total = 0.0
+        for a, b in zip(theta.split(8192, dim=-2), theta_p.split(8192, dim=-2)):
+            total = total + ((b - a) * (b + a)).sum((-2, -1))
+        return (-0.5 / prior_var) * total
+    return log_global
+
+
+def lm_ce_setup(params, cfg):
+    """The ce family's data from the LM: final hidden states of 64
+    MarkovStream sequences of 128 tokens and their next tokens
+    (``forward_hidden`` over tokens[:, :-1]), and the target over the
+    unembedding table with a Gaussian prior."""
+    from repro_torch import convert
+    from repro_torch.core import build_target
+    from repro_torch.data import DataConfig, MarkovStream
+    from repro_torch.models import forward_hidden
+
+    tokens = MarkovStream(DataConfig(cfg.vocab, CE_SEQ_LEN, CE_SEQS, seed=1)).batch(0)["tokens"]
+    h = forward_hidden(params, tokens[:, :-1], cfg)
+    data = convert.ce_data(h.reshape(-1, cfg.d_model), tokens[:, 1:])
+    n = data[0].shape[0]
+    target = build_target("ce", data, n, log_global=gaussian_log_global(CE_PRIOR_VAR))
+    return data, target
+
+
+RESUME_LAYERS = 2  # depth of the crash-and-resume check (width stays full)
+
+
+def phase_h(report):
+    """The reference launcher's path on the port: ``repro_torch.launch.train``
+    for chatglm3-6b at full width and depth with the launcher's defaults,
+    then a run stopped by an injected failure and resumed from its
+    checkpoint, against an uninterrupted run.
+
+    Disk: a full-size checkpoint is 12 GB and the script keeps its writes to
+    about 30 GB, so each launcher run writes one (``--ckpt-every`` at the
+    run's length) and the resume check, which needs four, runs at full width
+    with the depth cut to ``RESUME_LAYERS`` layers (1.35 GB each)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.bayes import TrainConfig, make_train_step
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, MarkovStream
+    from repro_torch.launch import train
+    from repro_torch.models import init_params
+    from repro_torch.runtime import InjectedFailure, LoopConfig, run_loop
+
+    cfg = ARCHS[LM_ARCH]
+    print(f"phase H: the LM launcher, {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+          f"d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv}, d_ff={cfg.d_ff}, V={cfg.vocab}; "
+          f"{cfg.param_count():,} parameters in bf16), launcher defaults (batch 16, seq 64, "
+          f"round batch 4, eps 0.05, sigma 1e-4): {LM_EXACT_STEPS} exact + {LM_STEPS} subsampled "
+          "steps, one checkpoint each")
+    r = report["phases"]["H"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        def run():
+            exact = train.main(["--steps", str(LM_EXACT_STEPS), "--kernel", "exact",
+                                "--ckpt-every", str(LM_EXACT_STEPS), "--ckpt-dir", f"{tmp}/exact"])
+            exact.pop("params")
+            sub = train.main(["--steps", str(LM_STEPS), "--ckpt-every", str(LM_STEPS),
+                              "--ckpt-dir", f"{tmp}/sub"])
+            return sub, exact
+
+        sub, exact = counted(report, "H", run)
+        for name, out in (("subsampled", sub), ("exact", exact)):
+            infos = out["infos"]
+            r[name] = {"steps": len(infos), "steps_per_s": out["steps_per_s"],
+                       "step_ms_median": 1e3 * statistics.median(out["step_s"][1:]),
+                       "wall_s": out["wall_s"], "peak_gib": (out["peak_bytes"] or 0) / 2 ** 30,
+                       "accept": float(np.mean([i["accepted"] for i in infos])),
+                       "mean_sections": float(np.mean([i["n_evaluated"] for i in infos])),
+                       "mean_rounds": float(np.mean([i["rounds"] for i in infos]))}
+            print(f"  {name}: {r[name]}")
+        check(all(np.isfinite(i["mu_hat"]) for i in sub["infos"] + exact["infos"])
+              and all(int(i["n_evaluated"]) == 16 for i in exact["infos"]),
+              "phase H: finite mu_hat on every step; exact steps evaluate all 16 sequences")
+        check(all(bool(torch.isfinite(l.float()).all()) for l in
+                  [sub["params"]["embed"]["table"], sub["params"]["layers"]["mlp"]["wo"]]),
+              "phase H: the chain's parameters stay finite")
+
+        # the launcher's chain stopped by an injected failure at step 15 and
+        # resumed from its step-9 checkpoint must end where the same chain
+        # run without a stop ends (full width, depth cut for the disk)
+        small = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+        print(f"  resume check: {small.name} at full width, depth cut {cfg.n_layers} -> "
+              f"{RESUME_LAYERS} layers ({small.param_count():,} parameters, "
+              f"{2 * small.param_count() / 1e9:.2f} GB a checkpoint), {LM_STEPS} steps, "
+              "checkpoints every 10")
+        step = make_train_step(small, TrainConfig(round_batch=4, epsilon=0.05, sigma=1e-4))
+        stream = MarkovStream(DataConfig(small.vocab, 64, 16, seed=0))
+        params0 = init_params(0, small)
+        loop = lambda d, **kw: LoopConfig(num_steps=LM_STEPS, ckpt_dir=f"{tmp}/{d}", ckpt_every=10,
+                                          **kw)
+        t0 = time.perf_counter()
+        clean = run_loop(step, params0, stream.batch, loop("clean"))
+        try:
+            run_loop(step, params0, stream.batch, loop("crash", fail_at_step=15))
+            raise CheckFailed("phase H: the injected failure did not fire")
+        except InjectedFailure:
+            pass
+        resumed = run_loop(step, params0, stream.batch, loop("crash"))
+        torch.cuda.synchronize()
+        r["resume_wall_s"] = time.perf_counter() - t0
+        r["resume_layers"] = RESUME_LAYERS
+        same = all(torch.equal(a, b) for a, b in zip(_leaves(clean["params"]),
+                                                     _leaves(resumed["params"])))
+        same_infos = all(np.array_equal(a[k], b[k])
+                         for a, b in zip(clean["infos"][10:], resumed["infos"]) for k in a)
+        moved = sum(bool(i["accepted"]) for i in clean["infos"])
+        print(f"  resume: {len(resumed['infos'])} steps after the restore, {moved} of {LM_STEPS} "
+              f"steps accepted, {r['resume_wall_s']:.1f}s for the three runs")
+        check(same and same_infos and len(resumed["infos"]) == LM_STEPS - 10 and moved > 0,
+              "phase H: the run stopped at step 15 and resumed from step 9 equals the "
+              "uninterrupted run (every parameter bit and every step's info)")
+        del params0, clean, resumed
+    params = sub.pop("params")
+    return params, cfg
+
+
+def _leaves(tree):
+    from repro_torch._device import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def phase_i(report, params, cfg):
+    """The ce family on one chain: the unembedding table of phase H's model
+    under subsampled MH over its N = 8128 next-token sections (kernel
+    ``fused_ce``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RandomWalk, SubsampledMHConfig, finish_transition, fy_init, run_chain
+    from repro_torch.core.samplers import fy_draw, fy_reset
+
+    data, target = lm_ce_setup(params, cfg)
+    n = target.num_sections
+    h_desc = f"h {tuple(data[0].shape)} {data[0].dtype}"
+    del data
+    table = params["embed"]["table"].float()
+    print(f"phase I: ce family, one chain: fp32 table {tuple(table.shape)}, N={n} sections "
+          f"({h_desc}), m=100, eps 0.05, Fisher-Yates, "
+          f"RW sigma {CE_SIGMA:g}, prior N(0, {CE_PRIOR_VAR:g}), 50 transitions")
+    mh = SubsampledMHConfig(batch_size=CE_M, epsilon=0.05, sampler="fy")
+    rw = RandomWalk(CE_SIGMA)
+    small = lambda t: t[:2, :4].clone()
+
+    def run():
+        run_chain(30, table, target, rw, 2, config=mh, collect=small)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_chain(31, table, target, rw, 50, config=mh, collect=small)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (theta, samples, infos), wall = counted(report, "I", run)
+    r = {"transitions_per_s": 50 / wall, "accept": float(infos.accepted.float().mean()),
+         "mean_rounds": float(infos.rounds.float().mean()),
+         "frac_evaluated": float(infos.n_evaluated.float().mean()) / n, "sigma": CE_SIGMA,
+         "n_sections": n}
+    report["phases"]["I"].update(r)
+    print(f"  transitions/s={r['transitions_per_s']:.2f} rounds/transition={r['mean_rounds']:.2f} "
+          f"frac_evaluated={r['frac_evaluated']:.4f} acceptance={r['accept']:.3f}")
+    check(bool(torch.isfinite(samples).all()) and bool(torch.isfinite(infos.mu_hat).all()),
+          "phase I: samples and mu_hat finite")
+    check(0.0 < r["accept"] < 1.0, "phase I: the chain accepts and rejects")
+
+    # the fused route against fused_kernels="never" on 20 fixed proposals
+    err = 2 * report["kernels"]["fused_ce"]["max_abs_err"]  # a delta is two per-token values
+    g = torch.Generator(device="cuda").manual_seed(33)
+    rows = []
+    for i in range(20):
+        theta_p = theta + CE_SIGMA * torch.randn(theta.shape, generator=g, device="cuda")
+        log_u = torch.log(torch.rand((), generator=g, device="cuda").clamp_min(1e-20))
+        mu0 = (log_u - target.log_global(theta, theta_p)) / n
+        out = {}
+        for route in ("auto", "never"):
+            gen = torch.Generator(device="cuda").manual_seed(100 + i)
+            sampler = fy_init(n, device=theta.device)
+            _, _, out[route] = finish_transition(gen, theta, theta_p, mu0, log_u, sampler, target,
+                                                 mh, fy_reset, fy_draw, mode=route)
+        a, b = out["auto"], out["never"]
+        rows.append((bool(a.accepted) != bool(b.accepted) or int(a.n_evaluated) != int(b.n_evaluated),
+                     abs(float(b.mu_hat) - float(mu0)), abs(float(b.pvalue) - 0.05),
+                     abs(float(a.mu_hat) - float(b.mu_hat)), float(a.accepted)))
+        del theta_p
+    differ = [x for x in rows if x[0]]
+    unexplained = [x for x in differ if x[1] > err and x[2] > 1e-3 * 0.05]
+    report["phases"]["I"]["fused_vs_plain_differ"] = len(differ)
+    print(f"  fused vs never on 20 proposals: {len(differ)} differ in decision or n_evaluated; "
+          f"max |mu_hat diff| {max(x[3] for x in rows):.3e} (kernel error bound on a delta "
+          f"{err:.3e}); acceptance {np.mean([x[4] for x in rows]):.2f}")
+    check(not unexplained, "phase I: fused and plain routes agree on every proposal whose "
+          "|mu_hat - mu0| exceeds the kernel's error and whose p-value is not within 0.1% of eps")
+    return target, theta
+
+
+def phase_j(report, target, theta):
+    """The same target on K=8 lock-step chains with per-chain (8, V, D) fp32
+    tables (kernel ``batched_fused_ce``, gathering each chain's rows)."""
+    import torch
+
+    from repro_torch.core import ChainEnsemble, RandomWalk, SubsampledMHConfig
+
+    k, steps = CE_K, 20
+    n = target.num_sections
+    print(f"phase J: ce family, K={k} lock-step chains, per-chain fp32 tables "
+          f"({k}, {theta.shape[0]}, {theta.shape[1]}), {steps} steps")
+    ens = ChainEnsemble(target, RandomWalk(CE_SIGMA), k,
+                        config=SubsampledMHConfig(batch_size=CE_M, epsilon=0.05, sampler="fy"),
+                        collect=lambda t: t[:, :2, :4].clone())
+    state = ens.init(theta)
+    del theta
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ens.run(41, state, steps)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (state, samples, infos), wall = counted(report, "J", run)
+    r = {"transitions_per_s": k * steps / wall, "accept": float(infos.accepted.float().mean()),
+         "mean_rounds": float(infos.rounds.float().mean()),
+         "lockstep_rounds_per_step": float(infos.rounds.max(0).values.float().mean()),
+         "frac_evaluated": float(infos.n_evaluated.float().mean()) / n,
+         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    report["phases"]["J"].update(r)
+    print(f"  transitions/s (summed over chains)={r['transitions_per_s']:.2f} lock-step rounds/step="
+          f"{r['lockstep_rounds_per_step']:.2f} rounds/chain={r['mean_rounds']:.2f} "
+          f"frac_evaluated={r['frac_evaluated']:.4f} acceptance={r['accept']:.3f} "
+          f"peak {r['peak_gib']:.1f} GiB")
+    check(bool(torch.isfinite(samples).all()) and samples.shape == (k, steps, 2, 4),
+          f"phase J samples finite, shape {tuple(samples.shape)}")
+    check(0.0 < r["accept"] < 1.0, "phase J: the chains accept and reject")
+
+
 def profile_idle_share() -> dict:
     """``--profile``: short windows of the main paths under torch.profiler
     (device activity only): wall time, summed device time of every kernel
@@ -566,8 +969,29 @@ def profile_idle_share() -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import RandomWalk, SubsampledMHConfig, run_chain
+    from repro_torch.bayes import TrainConfig, make_train_step
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import RandomWalk, SubsampledMHConfig, run_chain, run_ensemble
+    from repro_torch.data import DataConfig, MarkovStream
     from repro_torch.experiments import bayeslr, stochvol
+    from repro_torch.models import init_params
+    from repro_torch.runtime import step_generator
+
+    # the launcher's initial model: two of its train steps (H), and the ce
+    # target of phases I and J
+    cfg = ARCHS[LM_ARCH]
+    params = init_params(0, cfg)
+    _, ce_target = lm_ce_setup(params, cfg)
+    table = params["embed"]["table"].float()
+    lm_step = make_train_step(cfg, TrainConfig(round_batch=4, epsilon=0.05, sigma=1e-4))
+    lm_batch = MarkovStream(DataConfig(cfg.vocab, 64, 16, seed=0)).batch(0)
+
+    def lm_steps():
+        for i in range(2):
+            lm_step(step_generator(0, i, table.device), params, lm_batch)
+
+    ce_cfg = SubsampledMHConfig(batch_size=CE_M, epsilon=0.05, sampler="fy")
+    tiny = lambda t: t[..., :1, :1].clone()
 
     lr = bayeslr.synth_mnist_like(0)
     lr_target = bayeslr.make_target(lr.x_train, lr.y_train)
@@ -583,6 +1007,11 @@ def profile_idle_share() -> dict:
             11, sv, 50),
         "F: stochvol K=32, 20 cycle steps": lambda: stochvol.run_posterior_ensemble(
             14, sv, num_chains=32, num_steps=20),
+        "H: chatglm3-6b train step (launcher defaults), 2 steps": lm_steps,
+        "I: ce one chain, 5 transitions": lambda: run_chain(
+            31, table, ce_target, RandomWalk(CE_SIGMA), 5, config=ce_cfg, collect=tiny),
+        f"J: ce K={CE_K}, 2 steps": lambda: run_ensemble(
+            41, table, ce_target, RandomWalk(CE_SIGMA), CE_K, 2, config=ce_cfg, collect=tiny),
     }
     out = {}
     for name, fn in windows.items():
@@ -601,7 +1030,7 @@ def profile_idle_share() -> dict:
             e, "self_cuda_time_total", 0.0)
         events = sorted(prof.key_averages(), key=dev, reverse=True)
         busy_ms = sum(dev(e) for e in events) / 1e3
-        top = [(e.key[:60], round(dev(e) / 1e3, 3), e.count) for e in events[:6] if dev(e) > 0]
+        top = [(e.key[:60], round(dev(e) / 1e3, 3), e.count) for e in events[:10] if dev(e) > 0]
         share = None if busy_ms <= 0 else 1.0 - busy_ms / wall_ms
         # an estimate from two runs of the window: the busy time taken under
         # the profiler over the wall time of the unprofiled run
@@ -664,9 +1093,15 @@ def cf_iterations(state, df) -> int:
 
 
 def counted(report, phase, fn):
-    """Run ``fn`` with every launch count set to 0 first; record the counts."""
+    """Run ``fn`` with every launch count set to 0 first; record the counts
+    (and the device memory held when the phase starts)."""
+    import torch
+
     from repro_torch.kernels import ops
 
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    report["phases"][phase]["gib_held_at_start"] = held
+    print(f"  device memory held at the start of phase {phase}: {held:.2f} GiB")
     ops.reset_launches()
     out = fn()
     import torch
@@ -877,6 +1312,8 @@ def main() -> int:
         return 0
 
     replaces = {
+        "fused_ce": "src/repro/kernels/fused_ce.py:65",
+        "batched_fused_ce": "src/repro/kernels/fused_ce.py:144",
         "logit_delta": "src/repro/kernels/logit_loglik.py:35",
         "batched_logit_delta": "src/repro/kernels/batched_loglik.py:40",
         "t_test_round": "src/repro/core/sequential_test.py:32 (XLA-fused, not a pallas_call)",
@@ -886,6 +1323,8 @@ def main() -> int:
     }
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
+        "fused_ce": csrc + "fused_ce.cu",
+        "batched_fused_ce": csrc + "fused_ce.cu",
         "logit_delta": csrc + "logit_delta.cu",
         "batched_logit_delta": csrc + "logit_delta.cu",
         "t_test_round": csrc + "t_test_round.cu",
@@ -893,13 +1332,15 @@ def main() -> int:
         "fy_draw": csrc + "fy_draw.cu",
         "pgibbs_sweep": csrc + "pgibbs_sweep.cu",
     }
-    report = {"card": card, "kind": kind, "phases": {p: {} for p in "BCDEFG"},
+    report = {"card": card, "kind": kind, "phases": {p: {} for p in "BCDEFGHIJ"},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
                                  "bound_by": None, "library_ms": None, "cases": []}
                           for name in replaces}}
-    print("no single PyTorch call computes any of these functions: library_ms is null")
+    print("library_ms: torch.matmul + F.cross_entropy(reduction='none') for the two CE kernels "
+          "(two calls that build the (T, V) logits); null for the others, which no single "
+          "PyTorch call computes")
 
     from repro_torch.experiments import bayeslr
 
@@ -912,13 +1353,23 @@ def main() -> int:
     phase_e(report)
     phase_f(report)
     phase_g(report)
+    phase_a_ce(report)
+    params, cfg = phase_h(report)
+    target, theta = phase_i(report, params, cfg)
+    del params  # phase H's model: J needs the room
+    torch.cuda.empty_cache()
+    phase_j(report, target, theta)
+    del target, theta
     for name, e in report["kernels"].items():
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
     sv = ("gaussian_ar1_delta", "fy_draw", "pgibbs_sweep", "t_test_round")
     for phase, need in (("B", ("logit_delta", "t_test_round")),
                         ("C", ("batched_logit_delta", "t_test_round")),
                         ("D", ("logit_delta", "t_test_round")),
-                        ("E", sv), ("F", sv), ("G", sv[:2] + sv[3:])):
+                        ("E", sv), ("F", sv), ("G", sv[:2] + sv[3:]),
+                        ("H", ("t_test_round",)),
+                        ("I", ("fused_ce", "fy_draw", "t_test_round")),
+                        ("J", ("batched_fused_ce", "fy_draw", "t_test_round"))):
         got = report["phases"][phase]["launches"]
         check(all(got.get(n, 0) > 0 for n in need), f"phase {phase} went through {need}")
 

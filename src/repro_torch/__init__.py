@@ -6,6 +6,7 @@ names (``repro_torch.core.ensemble`` is the counterpart of
 Hopper live in :mod:`repro_torch.kernels`; entry points put their tensors on
 the card unless told ``device="cpu"``.
 """
-from . import convert, core, experiments, inference, kernels
+from . import bayes, checkpoint, configs, convert, core, data, experiments, inference, kernels, models, runtime
 
-__all__ = ["convert", "core", "experiments", "inference", "kernels"]
+__all__ = ["bayes", "checkpoint", "configs", "convert", "core", "data", "experiments",
+           "inference", "kernels", "models", "runtime"]

@@ -68,3 +68,14 @@ def tree_select(pred: torch.Tensor, on_true: Any, on_false: Any) -> Any:
         return torch.where(p, a, b)
 
     return tree_map(sel, on_true, on_false)
+
+
+def row_chunks(t: torch.Tensor, max_elems: int) -> list[torch.Tensor]:
+    """Views of ``t`` along its leading axis, each at most ``max_elems``
+    elements (at least one row): the unit in which a big leaf is processed,
+    so temporaries stay one chunk. A tensor at or under the bound, or of
+    fewer than two dims, is one chunk."""
+    if t.numel() <= max_elems or t.ndim < 2:
+        return [t]
+    per = max(1, max_elems // max(1, t[0].numel()))
+    return list(t.split(per, dim=0))

@@ -1,0 +1,4 @@
+"""Atomic checkpoints of tensor trees (the port of ``repro.checkpoint``)."""
+from . import manager
+
+__all__ = ["manager"]

@@ -1,0 +1,79 @@
+"""Architecture registry of the port: the dense configurations, the input
+shape sets and the reduced smoke variants (the port of ``repro.configs``).
+
+``ARCHS`` holds the dense family, the same dataclass values as the
+reference's; the MoE, SSM, hybrid, audio and VLM entries join with their
+families.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..models.transformer import ModelConfig
+from . import chatglm3_6b, gemma3_4b, internlm2_20b, qwen1_5_32b
+
+ARCHS: dict[str, ModelConfig] = {
+    "qwen1.5-32b": qwen1_5_32b.CONFIG,
+    "gemma3-4b": gemma3_4b.CONFIG,
+    "internlm2-20b": internlm2_20b.CONFIG,
+    "chatglm3-6b": chatglm3_6b.CONFIG,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def reduce_config(cfg: ModelConfig) -> ModelConfig:
+    """Tiny same-family variant for CPU smoke tests: the structure (window
+    pattern, MoE cadence, hybrid period, enc-dec) at toy width; the
+    reference's rule, field for field."""
+    kw: dict = dict(
+        name=cfg.name + "-smoke",
+        d_model=64,
+        n_heads=4,
+        n_kv=min(cfg.n_kv, 2) if cfg.n_kv < cfg.n_heads else 4,
+        d_ff=128 if cfg.d_ff else 0,
+        vocab=128,
+        head_dim=16 if cfg.head_dim else None,
+        max_seq=256,
+    )
+    if cfg.family in ("dense", "vlm"):
+        kw["n_layers"] = 6 if cfg.global_every else 3
+    elif cfg.family == "moe":
+        kw["n_layers"] = 2
+        kw["n_experts"] = 4
+        kw["top_k"] = min(cfg.top_k, 2)
+    elif cfg.family == "ssm":
+        kw["n_layers"] = 4
+    elif cfg.family == "hybrid":
+        kw["n_layers"] = cfg.attn_period
+        kw["n_experts"] = 4
+        kw["top_k"] = 2
+    elif cfg.family == "audio":
+        kw["n_layers"] = 2
+        kw["enc_layers"] = 2
+        kw["n_audio_frames"] = 16
+    if cfg.window:
+        kw["window"] = 32
+    if cfg.local_window:
+        kw["local_window"] = 16
+    if cfg.mamba_expand:
+        kw["mamba_d_state"] = 8
+        kw["dt_rank"] = 8
+    return dataclasses.replace(cfg, **kw)
+
+
+__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "reduce_config"]

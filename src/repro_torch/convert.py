@@ -2,8 +2,9 @@
 
 The counterpart of loading weights: the BayesLR data pool, a batch of chain
 positions theta (K, D), the stochastic-volatility data (obs, h_true) and
-theta ``{phi, sigma2, h}``, and the samplers' state (the stream's ``pos``;
-the Fisher–Yates ``idx``/``pos``/``size``; one state per component of a
+theta ``{phi, sigma2, h}``, an LM's parameter tree and the ``ce`` family's
+data (hidden states and next tokens), and the samplers' state (the
+stream's ``pos``; the Fisher–Yates ``idx``/``pos``/``size``; one state per component of a
 composite cycle), each handed over as numpy arrays and built into the
 port's types on a given device. Taking numpy keeps this module free of JAX:
 call ``np.asarray`` on the reference's arrays first (``jax.tree.map`` for a
@@ -27,6 +28,17 @@ def _f32(a, dev) -> torch.Tensor:
 
 def _i32(a, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+
+def _float_leaf(a, dev) -> torch.Tensor:
+    """A float array as a tensor of the same float type: bfloat16 (numpy's
+    ``ml_dtypes`` type, recognised by name) keeps its bits, float32 and
+    float16 convert as they are."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    return torch.tensor(a, device=dev)
 
 
 def lr_data(x_train, y_train, x_test=None, y_test=None, w_true=None, *, device=None) -> LRData:
@@ -95,3 +107,22 @@ def cycle_samplers(states, *, device=None) -> tuple:
         else:
             out.append(_i32(st, dev))
     return tuple(out)
+
+
+def lm_params(tree, *, device=None) -> dict:
+    """An LM parameter tree (nested dicts of numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives them) as the port's tree of
+    tensors, each leaf in its own float type (bf16 or float32)."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_params(v, device=dev) for k, v in tree.items()}
+    return _float_leaf(tree, dev)
+
+
+def ce_data(h, targets, *, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``ce`` family's data: hidden states h (N, D) in their float type
+    (bf16 or float32) and next tokens (N,) as int32."""
+    dev = resolve_device(device)
+    h_t = h if isinstance(h, torch.Tensor) else _float_leaf(h, dev)
+    t_t = targets if isinstance(targets, torch.Tensor) else _i32(targets, dev)
+    return h_t.to(dev).reshape(-1, h_t.shape[-1]), t_t.to(dev, torch.int32).reshape(-1)

@@ -11,15 +11,18 @@ local-likelihood family and the builder attaches
                            :meth:`~repro_torch.core.target.PartitionedTarget.local_round`).
 
 Registered families: ``logit`` (BayesLR: data = (x (N, D), y (N,)), params
-= w) and ``gaussian_ar1`` (stochastic volatility: data = (xt, xp), the
+= w), ``gaussian_ar1`` (stochastic volatility: data = (xt, xp), the
 current and previous latent state of each transition factor, as shared (N,)
-or per-chain (K, N) pools; params = (phi, sigma^2)). ``data`` may be a
-callable ``theta -> pools`` (latent-dependent sections, as in the stochvol
+or per-chain (K, N) pools; params = (phi, sigma^2)) and ``ce`` (an LM's
+likelihood over its unembedding: data = (h (N, D), targets (N,)), the
+frozen final hidden states and next tokens; params = the table (V, D), or
+(K, V, D) for K chains; each delta is two passes of the fused CE kernel).
+``data`` may be a callable ``theta -> pools`` (latent-dependent sections, as in the stochvol
 ensemble, where the pools derive from ``theta["h"]``); the transitions then
 evaluate it once per transition through ``bind``. Unlike the reference,
 whose single-chain deltas call the plain versions directly, both rounds
-dispatch, so no plain version runs on the card. The other families (``ce``,
-``gaussian_mean``), per-chain logit pools and the ``TargetSpec`` recipes
+dispatch, so no plain version runs on the card. The ``gaussian_mean``
+family, per-chain logit pools and the ``TargetSpec`` recipes
 (partitioning, streaming append) come with their slices and raise
 ``NotImplementedError`` here. The reference's mesh constraints (``lc``)
 have no counterpart on one device.
@@ -111,10 +114,32 @@ def _ar1_ensemble_delta(data, params, params_p, idx, mode: str = "auto"):
     return ops.gather_ar1_delta(xt, xp, idx, *params, *params_p, mode=mode)
 
 
+def _ce_loglik(data, table, idx):
+    h, targets = data
+    return ops.fused_ce(h, table, targets, idx=idx)
+
+
+def _ce_delta(data, table, table_p, idx, mode: str = "auto"):
+    h, targets = data
+    return (ops.fused_ce(h, table_p, targets, idx=idx, mode=mode)
+            - ops.fused_ce(h, table, targets, idx=idx, mode=mode))
+
+
+def _ce_ensemble_delta(data, table, table_p, idx, mode: str = "auto"):
+    # Two kernel passes, not a pair-fused one, as in the reference: the two
+    # sides score against two different vocabulary tables, so both table
+    # streams are irreducible; pair fusion would only share the (m, D) row
+    # reads. The kernel gathers the rows itself on each pass.
+    h, targets = data
+    return (ops.gather_fused_ce(h, targets, idx, table_p, mode=mode)
+            - ops.gather_fused_ce(h, targets, idx, table, mode=mode))
+
+
 register_family(KernelFamily("logit", _logit_loglik, _logit_delta, _logit_ensemble_delta))
 register_family(KernelFamily("gaussian_ar1", _ar1_loglik, _ar1_delta, _ar1_ensemble_delta))
+register_family(KernelFamily("ce", _ce_loglik, _ce_delta, _ce_ensemble_delta))
 
-_LATER = {"ce": "the LM slice", "gaussian_mean": "the partition slice"}
+_LATER = {"gaussian_mean": "the partition slice"}
 
 
 def build_target(

@@ -18,7 +18,9 @@ The dispatch vocabulary is the JAX package's (``repro.kernels.ops``):
 data rows (and rounds the weight pair) as bfloat16 while every kernel still
 accumulates in float32; ``precision="auto"`` defers to ``REPRO_PRECISION``,
 defaulting to fp32. For the gathered form the pool itself is read in bf16:
-hand a bf16 pool to avoid converting it on every call.
+hand a bf16 pool to avoid converting it on every call. The CE kernel
+(``fused_ce``, ``batched_fused_ce``, ``gather_fused_ce``) instead rounds fp32
+operands to bf16 as it loads them, so a (K, V, D) table is never copied.
 
 There is no fallback: a kernel that fails to build or launch raises.
 """
@@ -32,6 +34,9 @@ import torch
 from . import _build, ref
 from .batched_loglik import batched_logit_delta as _batched_kernel
 from .batched_loglik import gather_and_delta as _gather_kernel
+from .fused_ce import batched_fused_ce as _batched_ce_kernel
+from .fused_ce import fused_ce as _ce_kernel
+from .fused_ce import gather_fused_ce as _gather_ce_kernel
 from .fy_draw import fy_draw as _fy_kernel
 from .fy_draw import fy_draw_ref
 from .gaussian_ar1 import batched_gaussian_ar1_delta as _ar1_batched_kernel
@@ -165,6 +170,54 @@ def gather_and_delta(x, y, idx, w_cur, w_prop, *, mode: str = "auto",
     if not use_kernel(mode, x):
         return ref.gather_and_delta_ref(x, y, idx, w_cur, w_prop)
     return _gather_kernel(x, y, idx, w_cur.contiguous(), w_prop.contiguous())
+
+
+def _ce_args(h, table, targets, mode, precision):
+    """Dispatch for the CE family: (run the kernel?, h, table, targets, round
+    in the kernel?). On the plain route bf16 is a copy in bf16; the kernel
+    rounds fp32 operands as it loads them, so no (K, V, D) table is copied
+    on every call."""
+    kernel = use_kernel(mode, h)
+    bf16 = resolve_precision(precision) == "bf16"
+    if bf16 and not kernel:
+        h, table = _bf16_rows(h), _bf16_rows(table)
+    return kernel, h, table, targets.to(torch.int32), bf16 and kernel
+
+
+def fused_ce(h, table, targets, *, idx=None, mode: str = "auto", precision: str = "auto",
+             **tiles):
+    """Per-token log-likelihood of one chain: log softmax(h table^T)[target].
+    h (T, D), table (V, D), targets (T,) -> (T,) f32; with ``idx`` (m,),
+    rows ``idx`` of the pool h (N, D) and targets (N,) -> (m,). ``tiles``
+    (``tile_t``, ``tile_v``) go to the kernel."""
+    kernel, h, table, targets, rnd = _ce_args(h, table, targets, mode, precision)
+    if not kernel:
+        if idx is not None:
+            h, targets = h[idx.long()], targets[idx.long()]
+        return ref.fused_ce_ref(h, table, targets)
+    return _ce_kernel(h, table, targets, idx=None if idx is None else idx.to(torch.int32),
+                      round_bf16=rnd, **tiles)
+
+
+def batched_fused_ce(h, table, targets, *, mode: str = "auto", precision: str = "auto",
+                     **tiles):
+    """Ensemble-batched (K, T) per-token log-likelihood: h (K, T, D) against a
+    shared (V, D) or per-chain (K, V, D) table."""
+    kernel, h, table, targets, rnd = _ce_args(h, table, targets, mode, precision)
+    if not kernel:
+        return ref.batched_fused_ce_ref(h, table, targets)
+    return _batched_ce_kernel(h, table, targets, round_bf16=rnd, **tiles)
+
+
+def gather_fused_ce(h, targets, idx, table, *, mode: str = "auto", precision: str = "auto",
+                    **tiles):
+    """(K, m) per-token log-likelihood on rows ``idx`` (K, m) of the shared
+    pool h (N, D), targets (N,) — one call per side of a multi-chain round of
+    the ``ce`` family."""
+    kernel, h, table, targets, rnd = _ce_args(h, table, targets, mode, precision)
+    if not kernel:
+        return ref.gather_fused_ce_ref(h, targets, idx, table)
+    return _gather_ce_kernel(h, targets, idx.to(torch.int32), table, round_bf16=rnd, **tiles)
 
 
 def _chain_params(like: torch.Tensor, *vals) -> list[torch.Tensor]:

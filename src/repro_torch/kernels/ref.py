@@ -61,6 +61,43 @@ def gather_and_delta_ref(x, y, idx, w_cur, w_prop) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The LM likelihood: per-token log softmax(h W^T)[target].
+#
+# The operands are upcast before the product, so the logits are float32 from
+# bf16 inputs too: what the Pallas kernel computes (preferred_element_type),
+# where the JAX package's own oracle rounds the logits to the input dtype.
+# ---------------------------------------------------------------------------
+
+
+def _ce_from_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return tgt - logz
+
+
+def fused_ce_ref(h: torch.Tensor, table: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """h (T, D), table (V, D), targets (T,) -> (T,) f32."""
+    return _ce_from_logits(h.to(F32) @ table.to(F32).T, targets)
+
+
+def batched_fused_ce_ref(h: torch.Tensor, table: torch.Tensor,
+                         targets: torch.Tensor) -> torch.Tensor:
+    """h (K, T, D); table (V, D) shared or (K, V, D) per chain; targets
+    (K, T) -> (K, T) f32."""
+    hf, tab = h.to(F32), table.to(F32)
+    logits = hf @ tab.T if tab.ndim == 2 else torch.bmm(hf, tab.transpose(1, 2))
+    return _ce_from_logits(logits, targets)
+
+
+def gather_fused_ce_ref(h: torch.Tensor, targets: torch.Tensor, idx: torch.Tensor,
+                        table: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (K, m) of the shared pool h (N, D), targets (N,), scored
+    against a shared (V, D) or per-chain (K, V, D) table -> (K, m) f32."""
+    idx = idx.long()
+    return batched_fused_ce_ref(h[idx], table, targets[idx])
+
+
+# ---------------------------------------------------------------------------
 # Stochastic volatility: the AR(1) transition factor and the observation
 # factor, shared by the MH delta and the particle-Gibbs sweep.
 # ---------------------------------------------------------------------------

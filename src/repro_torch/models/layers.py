@@ -1,0 +1,240 @@
+"""Transformer building blocks for the dense family: the port of
+``repro.models.layers``.
+
+Parameters are plain nested dicts of tensors. Shapes, layouts and the
+dtype at each step are the reference's: weights in bf16 by default, norms,
+rotary tables, attention logits and the softmax in float32, activations
+back in the weights' dtype. The reference's logical sharding constraints
+(``lc``) have no counterpart on one device.
+
+Conventions: B batch, S sequence, D d_model, H q-heads, K kv-heads, h
+head_dim, F d_ff, V vocab.
+
+Deferred: ``_attend_flash`` (the reference's chunked path above
+``FLASH_THRESHOLD`` query rows), the KV cache, ``layer_norm``, ``gelu_mlp``
+and ``moe_mlp`` come with the families and serving paths that use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from .._device import row_chunks
+
+Params = dict[str, Any]
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    logical: tuple  # logical axis name (or None) per dim
+    dtype: Any = torch.bfloat16
+    init_scale: str = "fan_in"  # "fan_in" | "one" | "zero" | "normal" | "embed"
+
+    @property
+    def numel(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= int(s)
+        return n
+
+
+def _init_std(spec: ParamSpec) -> float:
+    if spec.init_scale == "embed":
+        return 0.02  # keeps tied-unembedding logits O(1) at init
+    if spec.init_scale == "normal":
+        return 1.0
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else max(spec.shape[-1], 1)
+    return float(fan_in) ** -0.5
+
+
+# Leaves are drawn in chunks of leading-axis rows of at most this many
+# elements, so the float32 temporary stays one chunk (the stacked MLP leaf of
+# chatglm3-6b is 1.57 G elements: 6.3 GB in float32 at once).
+CHUNK = 1 << 26
+
+
+def init_leaf(gen: torch.Generator, spec: ParamSpec, device) -> torch.Tensor:
+    """A leaf drawn as the reference draws it: N(0, 1) in float32 times the
+    spec's scale, cast to its dtype (ones / zeros for those inits). The bits
+    differ from JAX's (Philox, not threefry); the distribution is the same."""
+    if spec.init_scale == "one":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init_scale == "zero":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    std = _init_std(spec)
+    out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+    for rows in row_chunks(out, CHUNK):
+        noise = torch.randn(rows.shape, generator=gen, dtype=F32, device=device)
+        rows.copy_(noise.mul_(std))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * (1 + gamma), in float32, back in x's dtype."""
+    dt = x.dtype
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * (1.0 + gamma.to(F32))).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_table(positions: torch.Tensor, head_dim: int, base: float, rotary_frac: float = 1.0):
+    """cos/sin tables (S, rot/2). ``rotary_frac`` < 1 rotates only the first
+    rot = head_dim * frac dims (ChatGLM's partial RoPE)."""
+    rot = int(head_dim * rotary_frac)
+    rot -= rot % 2
+    exps = -torch.arange(0, rot, 2, dtype=F32, device=positions.device) / rot
+    freqs = torch.pow(torch.tensor(base, dtype=F32, device=positions.device), exps)
+    angles = positions.to(F32)[..., None] * freqs  # (S, rot/2)
+    return torch.cos(angles), torch.sin(angles), rot
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, rot: int) -> torch.Tensor:
+    """x: (B, S, N, h); cos/sin: (S, rot/2) or (B, S, rot/2). Pairs are the
+    interleaved (even, odd) dims, as in the reference."""
+    dt = x.dtype
+    if cos.ndim == 2:
+        cos, sin = cos[None], sin[None]
+    cos = cos[:, :, None, :].to(F32)
+    sin = sin[:, :, None, :].to(F32)
+    xr = x[..., :rot].to(F32)
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape).to(dt)
+    return torch.cat([yr, x[..., rot:]], dim=-1) if rot < x.shape[-1] else yr
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, sliding window and rope base as data, optional qk-norm and
+# qkv bias). The dense path materializes (S, S) logits.
+# ---------------------------------------------------------------------------
+
+FLASH_THRESHOLD = 2048  # the reference switches to chunked attention above this
+_NEG = -1e30
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int, causal: bool) -> torch.Tensor:
+    diff = q_pos[:, None] - k_pos[None, :]
+    m = diff < window
+    if causal:
+        m &= diff >= 0
+    m &= k_pos[None, :] >= 0
+    return m
+
+
+def _attend_dense(qg, k_all, v_all, q_pos, k_pos, window, causal, scale):
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k_all).to(F32) * scale
+    mask = _mask(q_pos, k_pos, window, causal)[None, None, None]
+    logits = torch.where(mask, logits, torch.tensor(_NEG, dtype=F32, device=logits.device))
+    probs = torch.softmax(logits, dim=-1).to(qg.dtype)
+    return torch.einsum("bkgst,btkh->bskgh", probs, v_all)
+
+
+def attention(
+    x: torch.Tensor,  # (B, S, D)
+    p: Params,  # wq (D, H, h), wk/wv (D, K, h), wo (H, h, D), optional bq/bk/bv, qnorm/knorm
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    positions: torch.Tensor,  # (S,) or (B, S)
+    window: int,  # sliding-window size (>= S means full)
+    rope_base: float,
+    rotary_frac: float = 1.0,
+    causal: bool = True,
+    q_scale: float | None = None,
+    use_rope: bool = True,
+) -> torch.Tensor:
+    """Self-attention without a KV cache. Raises above ``FLASH_THRESHOLD``
+    query rows, where the reference takes its chunked path (not ported)."""
+    b, s, _ = x.shape
+    if s > FLASH_THRESHOLD:
+        raise NotImplementedError(
+            f"{s} query rows: above FLASH_THRESHOLD={FLASH_THRESHOLD} the reference uses "
+            "_attend_flash, which comes with a later slice")
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
+    k = torch.einsum("bsd,dkh->bskh", x, p["wk"])
+    v = torch.einsum("bsd,dkh->bskh", x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if "qnorm" in p:
+        q = rms_norm(q, p["qnorm"])
+        k = rms_norm(k, p["knorm"])
+    pos = positions if positions.ndim == 1 else positions[0]
+    if use_rope:
+        cos, sin, rot = rope_table(pos, head_dim, rope_base, rotary_frac)
+        q = apply_rope(q, cos, sin, rot)
+        k = apply_rope(k, cos, sin, rot)
+    group = n_heads // n_kv
+    qg = q.reshape(b, s, n_kv, group, head_dim)
+    scale = q_scale if q_scale is not None else head_dim ** -0.5
+    out5 = _attend_dense(qg, k, v, pos, pos, window, causal, scale)
+    out = out5.reshape(b, s, n_heads, head_dim)
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP, embedding, unembedding
+# ---------------------------------------------------------------------------
+
+
+def swiglu_mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """p: wi_gate (D, F), wi_up (D, F), wo (F, D)."""
+    g = torch.einsum("bsd,df->bsf", x, p["wi_gate"])
+    u = torch.einsum("bsd,df->bsf", x, p["wi_up"])
+    h = torch.nn.functional.silu(g.to(F32)).to(x.dtype) * u
+    return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool = False) -> torch.Tensor:
+    h = table[tokens.long()]
+    if scale:
+        h = h * torch.tensor(table.shape[-1] ** 0.5, dtype=h.dtype, device=h.device)
+    return h
+
+
+def unembed_loglik(
+    h: torch.Tensor,  # (B, S, D)
+    table: torch.Tensor,  # (V, D) (tied): logits = h @ table.T
+    targets: torch.Tensor,  # (B, S)
+    mask: torch.Tensor,  # (B, S)
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Per-sequence log-likelihood, a loop over sequence chunks so the
+    (B, S, V) logits never exist at once. The plain path, as in the
+    reference: the logits are computed in the operands' dtype and then
+    upcast; the fused CE kernel is not on this route (the reference does not
+    route it there either). The reference pads S to a multiple of ``chunk``;
+    the padded positions carry mask 0, so a shorter last chunk gives the same
+    sum."""
+    b, s, _ = h.shape
+    total = torch.zeros((b,), dtype=F32, device=h.device)
+    mh = mask.to(h.dtype)
+    for c0 in range(0, s, chunk):
+        hc, tc, mc = h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], mh[:, c0:c0 + chunk]
+        logits = torch.einsum("bcd,vd->bcv", hc, table).to(F32)
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, tc.long()[..., None])[..., 0]
+        total = total + ((tgt - logz) * mc).sum(-1)
+    return total

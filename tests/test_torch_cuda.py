@@ -178,3 +178,80 @@ def test_cuda_dispatch_refuses_cpu_tensors():
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.gather_ar1_delta(torch.zeros(5), torch.zeros(5), torch.zeros(1, 3, dtype=torch.int32),
                              0.9, 0.1, 0.9, 0.1, mode="always")
+
+
+def _ce_inputs(gen, dev, k, t, d, v, scale=0.5, per_chain=False, dtype=torch.float32):
+    h = scale * torch.randn(k, t, d, generator=gen, device=dev)
+    table = scale * torch.randn((k, v, d) if per_chain else (v, d), generator=gen, device=dev)
+    targets = torch.randint(0, v, (k, t), generator=gen, device=dev, dtype=torch.int32)
+    return h.to(dtype), table.to(dtype), targets
+
+
+def _ce_tol(want, v):
+    """1e-4 of log V, or of the largest |per-token value| where extreme
+    logits make those large (the JAX package's rtol at extreme logits): fp32
+    sums of the same products in another order (the kernel's tiles against
+    the plain version's matmul); bf16 operands are rounded alike on both
+    sides."""
+    return 1e-4 * max(float(np.log(v)), float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+@pytest.mark.parametrize("t,d,v,scale", [(37, 16, 129, 0.5), (100, 48, 300, 0.5),
+                                         (5, 13, 1000, 0.5), (16, 8, 64, 30.0)])
+def test_fused_ce_kernel_matches_plain(t, d, v, scale, prec, cuda_device):
+    """One chain on ragged shapes (T, V off the 128 tiles; D = 13 takes the
+    scalar loads) and at extreme logits (30x scale), fp32 and bf16 inputs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(t * 7 + d)
+    dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+    h, table, targets = _ce_inputs(gen, cuda_device, 1, t, d, v, scale, dtype=dtype)
+    ops.reset_launches()
+    got = ops.fused_ce(h[0], table, targets[0], mode="always")
+    want = ops.fused_ce(h[0], table, targets[0], mode="never")
+    assert got.shape == (t,) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=_ce_tol(want, v))
+    assert ops.launches["fused_ce"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_chain", [False, True])
+def test_batched_and_gather_fused_ce_match_plain(per_chain, cuda_device):
+    """K chains with a shared or per-chain table, pre-gathered rows and rows
+    read through idx from a shared pool; each chain's row equals the
+    single-chain kernel on its slice; precision="bf16" rounds fp32 operands
+    in the kernel as the plain route's bf16 copy does."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    k, t, d, v, n = 3, 19, 64, 1000, 500
+    h, table, targets = _ce_inputs(gen, cuda_device, k, t, d, v, per_chain=per_chain)
+    ops.reset_launches()
+    got = ops.batched_fused_ce(h, table, targets, mode="always")
+    want = ops.batched_fused_ce(h, table, targets, mode="never")
+    tol = _ce_tol(want, v)
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    for c in range(k):
+        tab_c = table[c] if per_chain else table
+        torch.testing.assert_close(got[c], ops.fused_ce(h[c], tab_c, targets[c], mode="always"),
+                                   rtol=0, atol=tol)
+    pool = torch.randn(n, d, generator=gen, device=cuda_device) * 0.5
+    pool_t = torch.randint(0, v, (n,), generator=gen, device=cuda_device, dtype=torch.int32)
+    idx = torch.randint(0, n, (k, 33), generator=gen, device=cuda_device, dtype=torch.int32)
+    for prec in ("fp32", "bf16"):
+        run = lambda mode: ops.gather_fused_ce(pool, pool_t, idx, table, mode=mode, precision=prec)
+        torch.testing.assert_close(run("always"), run("never"), rtol=0, atol=tol)
+    assert ops.launches["batched_fused_ce"] == 3 and ops.launches["fused_ce"] == k
+
+
+@pytest.mark.cuda
+def test_fused_ce_kernel_at_chatglm3_width(cuda_device):
+    """The ce family's round at chatglm3-6b's width: m=100 bf16 rows of a
+    pool, the fp32 unembedding table (65024 x 4096), one chain through idx."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    n, d, v, m = 2000, 4096, 65024, 100
+    pool = torch.randn(n, d, generator=gen, device=cuda_device).to(torch.bfloat16)
+    pool_t = torch.randint(0, v, (n,), generator=gen, device=cuda_device, dtype=torch.int32)
+    table = 0.02 * torch.randn(v, d, generator=gen, device=cuda_device)
+    idx = torch.randint(0, n, (m,), generator=gen, device=cuda_device, dtype=torch.int32)
+    got = ops.fused_ce(pool, table, pool_t, idx=idx, mode="always")
+    want = ops.fused_ce(pool, table, pool_t, idx=idx, mode="never")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(np.log(v)))
