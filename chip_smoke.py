@@ -52,6 +52,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -60,6 +61,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 SF_ITER_FLOPS = 20  # flops of one continued-fraction step of the t-test
 
 
@@ -270,14 +272,25 @@ def phase_a(report):
 
 
 def record(report, name, label, err, ms, plain_ms, byts, ops_, host_ms, plain_host_ms,
-           main_shape, library_ms=None, **extra):
+           main_shape, library_ms=None, tc_flops=None, **extra):
     """Print one kernel case and keep it; the main path's shape also fills the
-    kernel's line."""
+    kernel's line. The bound is the larger of the bytes over the memory rate
+    and ``ops_`` over the fp32 rate of the CUDA cores; for a tensor-core
+    kernel (``tc_flops``: its bf16 products' flops) the line's bound is the
+    larger of the bytes and ``tc_flops`` over the bf16 tensor-core rate, with
+    the CUDA-core bound kept beside it as ``bound_fp32_ms``."""
     bound = max(byts / HBM_BYTES_PER_S, ops_ / FP32_FLOPS) * 1e3
     bound_by = "bytes" if byts / HBM_BYTES_PER_S >= ops_ / FP32_FLOPS else "operations"
+    both = ""
+    if tc_flops is not None:
+        extra["bound_fp32_ms"], extra["bound_fp32_by"] = bound, bound_by
+        bound = max(byts / HBM_BYTES_PER_S, tc_flops / BF16_TC_FLOPS) * 1e3
+        bound_by = "bytes" if byts / HBM_BYTES_PER_S >= tc_flops / BF16_TC_FLOPS else "operations"
+        both = (f" (tensor cores; fp32 CUDA cores {extra['bound_fp32_ms'] * 1e3:.3f}us "
+                f"{extra['bound_fp32_by']}) at {bound / ms:.1%} of the bound")
     lib = "" if library_ms is None else f" library={library_ms * 1e3:9.2f}us"
     print(f"  {name:20s} {label:38s} err={err:.2e} kernel={ms * 1e3:9.2f}us "
-          f"plain={plain_ms * 1e3:10.2f}us bound={bound * 1e3:8.3f}us ({bound_by}){lib} "
+          f"plain={plain_ms * 1e3:10.2f}us bound={bound * 1e3:8.3f}us ({bound_by}){both}{lib} "
           f"host/call: kernel {host_ms * 1e3:6.1f}us plain {plain_host_ms * 1e3:8.1f}us")
     e = report["kernels"][name]
     e["max_abs_err"] = max(e["max_abs_err"], err)
@@ -448,7 +461,7 @@ def phase_a_ce(report):
         return -F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long(),
                                 reduction="none").reshape(targets.shape)
 
-    def case(name, label, prec, run, plain, lib, byts, flops, main_shape, v, reps):
+    def case(name, label, prec, run, plain, lib, byts, flops, tc_flops, main_shape, v, reps):
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -460,16 +473,18 @@ def phase_a_ce(report):
         (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, reps), time_ms(plain, reps)
         lib_ms, _ = time_ms(lib, reps)
         record(report, name, label, err, ms, plain_ms, byts, flops, host_ms, plain_host_ms,
-               main_shape, library_ms=lib_ms)
+               main_shape, library_ms=lib_ms, tc_flops=tc_flops)
 
-    def ce_cost(k, t, v, d, tables, eh, et):
+    def ce_cost(k, t, v, d, tables, eh, et, products):
         """Bytes: the tables and h rows once, targets (and indices) and the
         output; operations: 2 T V D per chain for the logits and ~4 per logit
-        for the online max, exp and sum."""
+        for the online max, exp and sum; and the tensor cores' flops: 2 T V D
+        per chain for each bf16 product the dtypes need (6 for fp32 x fp32,
+        3 for bf16 x fp32, 1 for bf16 x bf16 or precision="bf16")."""
         byts = tables * v * d * et + k * t * d * eh + k * t * 12
-        return byts, k * t * v * (2 * d + 4)
+        return byts, k * t * v * (2 * d + 4), products * k * t * v * 2 * d
 
-    # ragged one-chain shapes (T, V off the tiles; D = 13 takes the scalar
+    # ragged one-chain shapes (T, V off the tiles; D = 13 takes the plain
     # loads) and 30x extreme logits, fp32 and bf16
     for (t, d, v, scale) in [(37, 16, 129, 0.5), (5, 13, 1000, 0.5), (16, 8, 64, 30.0)]:
         for prec in ("fp32", "bf16"):
@@ -482,7 +497,7 @@ def phase_a_ce(report):
                  lambda h=h, tab=tab, tg=tg: ops.fused_ce(h, tab, tg, mode="always"),
                  lambda h=h, tab=tab, tg=tg: ops.fused_ce(h, tab, tg, mode="never"),
                  lambda h=h, tab=tab, tg=tg: library(h, tab, tg),
-                 *ce_cost(1, t, v, d, 1, e, e), False, v, 20)
+                 *ce_cost(1, t, v, d, 1, e, e, 6 if prec == "fp32" else 1), False, v, 20)
     # K chains: shared and per-chain tables, pre-gathered rows and the gather form
     k, t, d, v, n = 4, 33, 64, 1000, 500
     pool = 0.5 * torch.randn(n, d, generator=gen, device=dev)
@@ -492,7 +507,7 @@ def phase_a_ce(report):
         tab = 0.5 * torch.randn((k, v, d) if per_chain else (v, d), generator=gen, device=dev)
         hk, tk = pool[idx.long()].contiguous(), pool_t[idx.long()].contiguous()
         kind = "per-chain" if per_chain else "shared"
-        cost = ce_cost(k, t, v, d, k if per_chain else 1, 4, 4)
+        cost = ce_cost(k, t, v, d, k if per_chain else 1, 4, 4, 6)
         case("batched_fused_ce", f"K={k} T={t} D={d} V={v} {kind}", "fp32",
              lambda hk=hk, tab=tab, tk=tk: ops.batched_fused_ce(hk, tab, tk, mode="always"),
              lambda hk=hk, tab=tab, tk=tk: ops.batched_fused_ce(hk, tab, tk, mode="never"),
@@ -503,7 +518,8 @@ def phase_a_ce(report):
                                                              mode="always", precision=p),
                  lambda tab=tab, p=prec: ops.gather_fused_ce(pool, pool_t, idx, tab,
                                                              mode="never", precision=p),
-                 lambda tab=tab: library(pool, tab, pool_t, idx), *cost, False, v, 20)
+                 lambda tab=tab: library(pool, tab, pool_t, idx),
+                 *cost[:2], cost[2] // (6 if prec == "bf16" else 1), False, v, 20)
 
     # the path's shapes: bf16 hidden states (as forward_hidden gives them),
     # fp32 tables at chatglm3-6b's width
@@ -515,7 +531,7 @@ def phase_a_ce(report):
          lambda: ops.fused_ce(h, table, tg, idx=idx1, mode="always"),
          lambda: ops.fused_ce(h, table, tg, idx=idx1, mode="never"),
          lambda: library(h, table, tg, idx1),
-         *ce_cost(1, CE_M, CE_V, CE_D, 1, 2, 4), True, CE_V, 20)
+         *ce_cost(1, CE_M, CE_V, CE_D, 1, 2, 4, 3), True, CE_V, 20)
     tables = table[None].repeat(CE_K, 1, 1)
     tables.add_(0.02 * torch.randn(tables.shape, generator=gen, device=dev))
     idxk = torch.randint(0, CE_N, (CE_K, CE_M), generator=gen, device=dev, dtype=torch.int32)
@@ -523,12 +539,12 @@ def phase_a_ce(report):
          lambda: ops.gather_fused_ce(h, tg, idxk, tables, mode="always"),
          lambda: ops.gather_fused_ce(h, tg, idxk, tables, mode="never"),
          lambda: library(h, tables, tg, idxk),
-         *ce_cost(CE_K, CE_M, CE_V, CE_D, CE_K, 2, 4), True, CE_V, 5)
+         *ce_cost(CE_K, CE_M, CE_V, CE_D, CE_K, 2, 4, 3), True, CE_V, 5)
     case("batched_fused_ce", f"gather K={CE_K} m={CE_M} of N={CE_N} shared table", "fp32",
          lambda: ops.gather_fused_ce(h, tg, idxk, table, mode="always"),
          lambda: ops.gather_fused_ce(h, tg, idxk, table, mode="never"),
          lambda: library(h, table, tg, idxk),
-         *ce_cost(CE_K, CE_M, CE_V, CE_D, 1, 2, 4), False, CE_V, 5)
+         *ce_cost(CE_K, CE_M, CE_V, CE_D, 1, 2, 4, 3), False, CE_V, 5)
     del tables, table
     torch.cuda.empty_cache()
 
@@ -1299,9 +1315,21 @@ def main() -> int:
     lib_dir = _build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.2f}s into {lib_dir}")
     for src, log in _build.build_log.items():
+        entry = ""
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                m = re.search(r"(\w+_kernel)(I\w+?E)?Ev", line)
+                entry = "".join(g or "" for g in m.groups()) if m else ""
+            elif "Used" in line or "spill" in line:
+                print(f"  {src}: {entry} {line.strip()}")
+    from repro_torch.kernels import fused_ce
+
+    f32, b16 = torch.float32, torch.bfloat16
+    print("  fused_ce.cu dynamic shared memory (bytes): " + ", ".join(
+        f"{label} {fused_ce.smem_bytes(hd, td, rnd)}" for label, hd, td, rnd in (
+            ("bf16 h x fp32 table", b16, f32, False), ("fp32 x fp32", f32, f32, False),
+            ("bf16 x bf16", b16, b16, False), ("fp32 h x bf16 table", f32, b16, False),
+            ("precision=bf16", f32, f32, True))))
     if "--profile" in sys.argv[1:]:
         print("device idle share under torch.profiler (no checks; not the default run)")
         prof = profile_idle_share()

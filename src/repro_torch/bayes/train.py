@@ -129,30 +129,27 @@ def _rebuild(tree: Params, flat: dict, prefix: str = "") -> Params:
     return flat[prefix]
 
 
-def _sq_delta(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum(b^2) - sum(a^2) as sum((b - a)(b + a)), in float32, by chunks."""
-    total = torch.zeros((), dtype=F32, device=a.device)
-    for ra, rb in zip(row_chunks(a, _CHUNK), row_chunks(b, _CHUNK)):
-        af = ra.to(F32)
-        total = total + torch.dot(torch.sub(rb, af).reshape(-1), torch.add(rb, af).reshape(-1))
+def _sq_total(tree: Params) -> torch.Tensor:
+    """The reference's float32 total of squares: over every leaf in its
+    flattening order (sorted paths), each leaf's float32 sum of squares
+    (by chunks, summed in float32), the leaves' sums added in float32."""
+    total = None
+    for _, leaf in _flat_paths(tree):
+        s = torch.zeros((), dtype=F32, device=leaf.device)
+        for row in row_chunks(leaf, _CHUNK):
+            r = row.to(F32).reshape(-1)
+            s = s + torch.dot(r, r)
+        total = s if total is None else total + s
     return total
 
 
 def _prior_delta(theta: Params, theta_p: Params, prior_var: float) -> torch.Tensor:
-    """log p(theta') - log p(theta) under N(0, prior_var I), in float32.
-
-    The reference differences two float32 totals, sum(theta'^2) -
-    sum(theta^2). At chatglm3-6b's 6e9 parameters each total is ~1e6, and
-    its float32 rounding alone (~0.06) is a large part of a difference of
-    order 0.1-1. The port sums (theta' - theta)(theta' + theta) leaf by leaf
-    instead: the same quantity without the cancellation (at the CPU tests'
-    sizes the two agree to float32 rounding). Leaves that theta' shares with
-    theta contribute 0 and are skipped."""
-    total = torch.zeros((), dtype=F32, device=tree_leaves(theta)[0].device)
-    for a, b in zip(tree_leaves(theta), tree_leaves(theta_p)):
-        if a is not b:
-            total = total + _sq_delta(a, b)
-    return (-0.5 / prior_var) * total
+    """log p(theta') - log p(theta) under N(0, prior_var I), as the
+    reference computes it: the difference of two float32 totals,
+    sum(theta'^2) - sum(theta^2), every leaf in both (those theta' shares
+    with theta too). The totals' rounding is the reference's own error,
+    which the port replicates (ROADMAP, Faults 2)."""
+    return (-0.5 / prior_var) * (_sq_total(theta_p) - _sq_total(theta))
 
 
 def propose(gen: torch.Generator, params: Params, tc: TrainConfig):

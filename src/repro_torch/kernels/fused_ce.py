@@ -23,10 +23,14 @@ are :func:`repro_torch.kernels.ref.fused_ce_ref`,
 :func:`~repro_torch.kernels.ref.gather_fused_ce_ref`.
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
-launch the kernel or raise. The block is 128 tokens by 128 vocabulary
-columns (compiled in); ``tile_v`` sets how many vocabulary columns one block
-walks (a multiple of 128), by default enough splits of the vocabulary to
-give every SM about four blocks.
+launch the kernel or raise. The kernel computes the logits on the tensor
+cores (bf16 ``wgmma``, fp32 operands split into exact bf16 terms, fp32
+accumulators; see the source's note). A block is 104 tokens by 128
+vocabulary rows (compiled in); ``tile_v`` sets how many vocabulary rows one
+block walks (a multiple of 128), by default enough splits of the vocabulary
+to fill every SM once. The table streams through TMA where its base is
+16-byte aligned and a row is a multiple of 16 bytes (else plain loads);
+bf16 h rows through ``cp.async`` where they are 16-byte aligned.
 """
 from __future__ import annotations
 
@@ -42,9 +46,8 @@ from .ref import batched_fused_ce_ref, fused_ce_ref, gather_fused_ce_ref
 __all__ = ["fused_ce", "batched_fused_ce", "gather_fused_ce", "fused_ce_ref",
            "batched_fused_ce_ref", "gather_fused_ce_ref", "TILE_T", "TILE_V"]
 
-TILE_T = 128  # tokens per block (compiled into csrc/fused_ce.cu)
-TILE_V = 128  # vocabulary columns per inner tile (compiled in)
-BLOCKS_PER_SM = 4
+TILE_T = 104  # tokens per block: wgmma's N (compiled into csrc/fused_ce.cu)
+TILE_V = 128  # vocabulary rows per tile: two m64 warpgroups (compiled in)
 _TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -52,9 +55,17 @@ _TYPES = (torch.float32, torch.bfloat16)
 def _bind():
     fn = _build.load("fused_ce").fused_ce_launch
     P, I = _build.P, _build.I
-    fn.argtypes = [P, I, P, I, P, P, ctypes.c_longlong, P, P, I, I, I, I, I, I, I, I, P]
+    fn.argtypes = [P, I, P, I, P, P, ctypes.c_longlong, P, P, I, I, I, I, I, I, I, I, I, P]
     fn.restype = I
     return fn
+
+
+def smem_bytes(h_dtype, table_dtype, round_bf16: bool = False) -> int:
+    """The partial kernel's dynamic shared memory for a dtype pair (builds
+    the kernel)."""
+    fn = _build.load("fused_ce").fused_ce_smem_bytes
+    fn.argtypes, fn.restype = [_build.I] * 3, _build.I
+    return fn(int(h_dtype == torch.bfloat16), int(table_dtype == torch.bfloat16), int(round_bf16))
 
 
 @functools.cache
@@ -63,9 +74,11 @@ def _num_sms(index: int) -> int:
 
 
 def _splits(dev, n_vtiles: int, blocks: int, tile_v: int | None) -> tuple[int, int]:
-    """(vocabulary tiles per block, number of vocabulary splits)."""
+    """(vocabulary tiles per block, number of vocabulary splits). By default
+    the splits times ``blocks`` (token tiles x chains) fill the SMs once,
+    one block an SM (its shared memory holds a deep ring)."""
     if tile_v is None:
-        wanted = -(-BLOCKS_PER_SM * _num_sms(dev.index or 0) // blocks)
+        wanted = max(1, _num_sms(dev.index or 0) // blocks)
         per = -(-n_vtiles // max(1, min(n_vtiles, wanted)))
     else:
         if tile_v <= 0 or tile_v % TILE_V:
@@ -74,8 +87,9 @@ def _splits(dev, n_vtiles: int, blocks: int, tile_v: int | None) -> tuple[int, i
     return per, -(-n_vtiles // per)
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    return t.data_ptr() % (16 if t.dtype == torch.float32 else 8) == 0
+def _aligned(t: torch.Tensor, d: int) -> bool:
+    """Rows that start on 16 bytes: what TMA and cp.async need."""
+    return t.data_ptr() % 16 == 0 and (d * t.element_size()) % 16 == 0
 
 
 def _launch(h, table, targets, idx, k: int, t: int, name: str, *, round_bf16: bool,
@@ -102,12 +116,11 @@ def _launch(h, table, targets, idx, k: int, t: int, name: str, *, round_bf16: bo
     per, n_split = _splits(dev, -(-v // TILE_V), n_t * k, tile_v)
     part = torch.empty(3 * k * t * n_split, dtype=torch.float32, device=dev)
     out = torch.empty((k, t), dtype=torch.float32, device=dev)
-    vec = d % 4 == 0 and _aligned(h) and _aligned(table)
+    h_bf16 = h.dtype == torch.bfloat16
     p = _build.ptr
-    err = _bind()(p(h), int(h.dtype == torch.bfloat16), p(table),
-                  int(table.dtype == torch.bfloat16), p(targets), p(idx), stride, p(part),
-                  p(out), k, t, d, v, per, n_split, int(round_bf16), int(vec),
-                  _build.stream_of(h))
+    err = _bind()(p(h), int(h_bf16), p(table), int(table.dtype == torch.bfloat16), p(targets),
+                  p(idx), stride, p(part), p(out), k, t, d, v, per, n_split, int(round_bf16),
+                  int(_aligned(table, d)), int(h_bf16 and _aligned(h, d)), _build.stream_of(h))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

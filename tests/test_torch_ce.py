@@ -125,6 +125,42 @@ def test_always_on_cpu_raises_and_plain_versions_are_the_cpu_route():
     assert sum(ops.launches.values()) == 0
 
 
+def _bf16_terms(w, n):
+    """The first n exact bf16 terms of fp32 w: hi, mid, lo (as the CUDA
+    kernel splits the table on the tensor cores' way in)."""
+    terms, rest = [], w.clone()
+    for _ in range(n):
+        t = rest.to(torch.bfloat16)
+        terms.append(t)
+        rest = rest - t.float()
+    return terms
+
+
+def test_bf16_split_of_the_table_matches_pallas():
+    """The CUDA kernel's arithmetic, here where no kernel runs: at the path's
+    width (T = 100 bf16 rows, D = 4096, table 0.02 N(0, 1)) the logits summed
+    from the bf16 products of h with the three terms of the fp32 table
+    (hi, mid, lo; each product exact in fp32, fp32 sums) give per-token
+    values within the card's tolerance, 1e-4 log V, of the JAX ``fused_ce``
+    in interpret mode; the hi term alone (one bf16 pass) does not."""
+    rng = np.random.default_rng(14)
+    t, d, v = 100, 4096, 1024
+    h = torch.tensor(rng.standard_normal((t, d)), dtype=torch.float32).to(torch.bfloat16)
+    table = torch.tensor(0.02 * rng.standard_normal((v, d)), dtype=torch.float32)
+    targets = rng.integers(0, v, t).astype(np.int32)
+    want = _jax(j_fused, h.float().numpy(), table.numpy(), targets, tile_t=104, tile_v=256)
+    tol = 1e-4 * np.log(v)
+    hf = h.float()
+
+    def per_token(n_terms):
+        logits = sum(hf @ term.float().T for term in _bf16_terms(table, n_terms))
+        return torch.log_softmax(logits, -1)[torch.arange(t), torch.tensor(targets).long()]
+
+    three = per_token(3).numpy()
+    np.testing.assert_allclose(three, want, rtol=0, atol=tol)
+    assert np.abs(per_token(1).numpy() - want).max() > tol
+
+
 # ---------------------------------------------------------------------------
 # the ce family
 # ---------------------------------------------------------------------------

@@ -196,19 +196,46 @@ def _ce_tol(want, v):
     return 1e-4 * max(float(np.log(v)), float(want.abs().max()))
 
 
+# h and table dtypes by route: "fp32" (6 bf16 products), "bf16" (1),
+# "bf16 h" (bf16 h, fp32 table: 3, the path's), "bf16 table" (fp32 h: 3) and
+# "round" (fp32 operands, precision="bf16": 1)
+_CE_DTYPES = {"fp32": (torch.float32, torch.float32), "bf16": (torch.bfloat16, torch.bfloat16),
+              "bf16 h": (torch.bfloat16, torch.float32),
+              "bf16 table": (torch.float32, torch.bfloat16), "round": (torch.float32, torch.float32)}
+
+
+def _offset_copy(table):
+    """The same values 4 bytes past a 16-byte boundary: no TMA map, so the
+    kernel's plain-load route."""
+    flat = torch.empty(table.numel() + 1, dtype=table.dtype, device=table.device)
+    out = flat[1:].view(table.shape)
+    out.copy_(table)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("prec", ["fp32", "bf16"])
-@pytest.mark.parametrize("t,d,v,scale", [(37, 16, 129, 0.5), (100, 48, 300, 0.5),
-                                         (5, 13, 1000, 0.5), (16, 8, 64, 30.0)])
-def test_fused_ce_kernel_matches_plain(t, d, v, scale, prec, cuda_device):
-    """One chain on ragged shapes (T, V off the 128 tiles; D = 13 takes the
-    scalar loads) and at extreme logits (30x scale), fp32 and bf16 inputs."""
+@pytest.mark.parametrize("prec", list(_CE_DTYPES))
+@pytest.mark.parametrize("t,d,v,scale,layout", [
+    (8, 16, 64, 0.5, "contiguous"),  # the smallest tile: layouts and descriptors first
+    (37, 16, 129, 0.5, "contiguous"), (100, 48, 300, 0.5, "contiguous"),
+    (5, 13, 1000, 0.5, "contiguous"), (16, 8, 64, 30.0, "contiguous"),
+    (1, 64, 300, 0.5, "contiguous"), (300, 64, 1000, 0.5, "contiguous"),
+    (100, 64, 300, 0.5, "offset")])
+def test_fused_ce_kernel_matches_plain(t, d, v, scale, layout, prec, cuda_device):
+    """One chain on ragged shapes (T, V off the tiles; m = 1 and m = 300
+    across the 104-token tile; D = 13 and a table 4 bytes off its alignment
+    take the plain loads) and at extreme logits (30x scale), for every dtype
+    route of the tensor-core products."""
     gen = torch.Generator(device=cuda_device).manual_seed(t * 7 + d)
-    dtype = torch.bfloat16 if prec == "bf16" else torch.float32
-    h, table, targets = _ce_inputs(gen, cuda_device, 1, t, d, v, scale, dtype=dtype)
+    h_dtype, tab_dtype = _CE_DTYPES[prec]
+    h, table, targets = _ce_inputs(gen, cuda_device, 1, t, d, v, scale)
+    h, table = h.to(h_dtype), table.to(tab_dtype)
+    if layout == "offset":
+        table = _offset_copy(table)
+    precision = "bf16" if prec == "round" else "auto"
     ops.reset_launches()
-    got = ops.fused_ce(h[0], table, targets[0], mode="always")
-    want = ops.fused_ce(h[0], table, targets[0], mode="never")
+    got = ops.fused_ce(h[0], table, targets[0], mode="always", precision=precision)
+    want = ops.fused_ce(h[0], table, targets[0], mode="never", precision=precision)
     assert got.shape == (t,) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=0, atol=_ce_tol(want, v))
     assert ops.launches["fused_ce"] == 1
@@ -243,15 +270,29 @@ def test_batched_and_gather_fused_ce_match_plain(per_chain, cuda_device):
 
 
 @pytest.mark.cuda
-def test_fused_ce_kernel_at_chatglm3_width(cuda_device):
+@pytest.mark.parametrize("k", [1, 8])
+def test_fused_ce_kernel_at_chatglm3_width(k, cuda_device):
     """The ce family's round at chatglm3-6b's width: m=100 bf16 rows of a
-    pool, the fp32 unembedding table (65024 x 4096), one chain through idx."""
+    pool against fp32 (V, D) tables, one chain through idx (V = 65024) and
+    K=8 per-chain tables through the gather form with V = 64987, off the
+    128-row tile. Chain c's table is 0.1 c + small noise (logits ~6 c apart
+    from chain to chain, while the tolerance stays that of fp32 sums), so a
+    tile that read the next chain's rows past V would show."""
     gen = torch.Generator(device=cuda_device).manual_seed(4)
-    n, d, v, m = 2000, 4096, 65024, 100
+    n, d, m = 2000, 4096, 100
+    v = 65024 if k == 1 else 65024 - 37
     pool = torch.randn(n, d, generator=gen, device=cuda_device).to(torch.bfloat16)
     pool_t = torch.randint(0, v, (n,), generator=gen, device=cuda_device, dtype=torch.int32)
-    table = 0.02 * torch.randn(v, d, generator=gen, device=cuda_device)
-    idx = torch.randint(0, n, (m,), generator=gen, device=cuda_device, dtype=torch.int32)
-    got = ops.fused_ce(pool, table, pool_t, idx=idx, mode="always")
-    want = ops.fused_ce(pool, table, pool_t, idx=idx, mode="never")
+    ops.reset_launches()
+    if k == 1:
+        table = 0.02 * torch.randn(v, d, generator=gen, device=cuda_device)
+        idx = torch.randint(0, n, (m,), generator=gen, device=cuda_device, dtype=torch.int32)
+        run = lambda mode: ops.fused_ce(pool, table, pool_t, idx=idx, mode=mode)
+    else:
+        table = 0.02 * torch.randn(k, v, d, generator=gen, device=cuda_device)
+        table += 0.1 * torch.arange(k, device=cuda_device, dtype=torch.float32)[:, None, None]
+        idx = torch.randint(0, n, (k, m), generator=gen, device=cuda_device, dtype=torch.int32)
+        run = lambda mode: ops.gather_fused_ce(pool, pool_t, idx, table, mode=mode)
+    got, want = run("always"), run("never")
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(np.log(v)))
+    assert ops.launches["fused_ce" if k == 1 else "batched_fused_ce"] == 1
