@@ -8,7 +8,9 @@ toolkit (``nvcc``). The hand kernels build from ``src/repro_torch/kernels/csrc``
 into ``build/repro_torch_kernels/`` at first use. Phases:
 
   A  every kernel against its plain PyTorch version (fp32 and bf16) at the
-     main path's shapes, with kernel, plain and bound times;
+     main path's shapes, with kernel, plain and bound times; the
+     Fisher–Yates draw's and the round op's edge cases; the launch floor
+     (``torch.cuda._sleep(0)`` in the same timing harness);
   B  one chain: BayesLR at N=12214, D=50, 1000 subsampled transitions and
      20 exact ones;
   C  K=32 chains in lock-step (``run_posterior_ensemble``), then the fused
@@ -240,15 +242,38 @@ def phase_a(report):
           f"exhausted lane done={bool(sk[6][3])}, s==0 lane pval={float(sk[8][2])}")
     check(df.min() == 1 and df.max() >= 1e5, "t_test_round case spans df 1 .. 1e5")
     check(bool(sk[6][3]) and float(sk[8][2]) == 0.0, "exhausted and s == 0 lanes take their guards")
-    for i in (5, 6, 7):  # rounds, done, decision: exact
-        check(torch.equal(sk[i], sp[i]), f"t_test_round {('rounds', 'done', 'decision')[i - 5]} equal")
-    errs = {name: float((sk[i] - sp[i]).abs().max()) for i, name in
-            ((0, "count"), (1, "mean"), (2, "m2"), (8, "pval"))}
-    rel_p = float(((sk[8] - sp[8]).abs() / sp[8].abs().clamp_min(1e-30)).max())
-    print(f"  t_test_round errors {errs} pval max rel {rel_p:.3e}")
-    check(errs["count"] == 0 and errs["mean"] <= 1e-5 and errs["m2"] <= 1e-6 * float(sp[2].abs().max())
-          and rel_p <= 1e-4, "t_test_round within tolerance (count exact, mean 1e-5, m2 1e-6 of max, "
-          "pval 1e-4 relative: the merge sums in another order)")
+    errs, rel_p = compare_round(sk, sp, f"K={k} m={m} df 1..1e5")
+    # other (K, m): lanes without a value (m = 4), several values in a
+    # lane's partial (m = 37, 512), warps of the last block without a chain
+    # (K = 1, 5, 33), random states; and 8 chains whose deltas equal their
+    # mean (multiples of 2^-10, so the sums are exact): s ~ 1e-14 and
+    # x < 2^-60, where the kernel's divisions leave their fast form's range
+    for (k2, m2_, near_constant) in [(1, 4, False), (5, 37, False), (32, 100, False),
+                                     (33, 512, False), (8, 100, True)]:
+        r2 = np.random.default_rng(k2 * 1000 + m2_)
+        cnt = r2.integers(100 if near_constant else 0, 5000, k2).astype(np.float32)
+        mn = r2.normal(0, 0.05, k2).astype(np.float32)
+        if near_constant:
+            mn = (np.round(mn * 1024) / 1024).astype(np.float32)
+            m2v, l2 = (cnt - 1) * 1e-24, np.repeat(mn[:, None], m2_, axis=1)
+        else:
+            m2v = np.maximum(cnt - 1, 0) * r2.uniform(0.5, 2.0, k2)
+            l2 = mn[:, None] + r2.standard_normal((k2, m2_))
+        state = [t(cnt), t(mn), t(m2v), t(r2.normal(0, 0.05, k2)), t(np.full(k2, 0.05, np.float32)),
+                 t(np.zeros(k2), torch.int32), t(np.zeros(k2), torch.bool),
+                 t(np.zeros(k2), torch.bool), t(np.ones(k2))]
+        v2 = t(r2.uniform(size=(k2, m2_)) < (2.0 if near_constant else 0.9), torch.bool)
+        l2 = t(l2)
+        s2k, s2p = [b.clone() for b in state], [b.clone() for b in state]
+        t_test_round(l2, v2, *s2k[:5], 12214, 123, *s2k[5:])
+        t_test_round_ref(l2, v2, *s2p[:5], 12214, 123, *s2p[5:])
+        torch.cuda.synchronize()
+        label = f"K={k2} m={m2_}" + (" deltas equal to their mean" if near_constant else "")
+        e2, rel2 = compare_round(s2k, s2p, label)
+        kern["t_test_round"]["cases"].append({"case": label, **e2, "pval_rel": rel2})
+    launch_floor, _ = time_ms(lambda: torch.cuda._sleep(0), 60)
+    report["launch_floor_ms"] = launch_floor
+    print(f"  launch floor: torch.cuda._sleep(0) in the same harness {launch_floor * 1e3:.2f}us a call")
     # the state reset (9 copies) runs inside the timed window: measure it
     # alone and take it off; the plain version is ~5000 launches a call
     (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 30, reset_k), \
@@ -269,6 +294,25 @@ def phase_a(report):
                                           "pval_rel": rel_p, "ms": ms, "plain_ms": plain_ms,
                                           "bound_ms": bound, "host_ms": host_ms,
                                           "plain_host_ms": plain_host_ms})
+
+
+def compare_round(sk, sp, label):
+    """Check the round op's state after a kernel round (``sk``) against the
+    plain version's (``sp``): rounds, done and decision exact, count exact,
+    mean 1e-5, m2 1e-6 of the largest, p-value 1e-4 relative (the merge sums
+    in another order). Returns the errors and the p-value's relative error."""
+    import torch
+
+    for i in (5, 6, 7):  # rounds, done, decision: exact
+        check(torch.equal(sk[i], sp[i]), f"t_test_round {label}: {('rounds', 'done', 'decision')[i - 5]} equal")
+    errs = {name: float((sk[i] - sp[i]).abs().max()) for i, name in
+            ((0, "count"), (1, "mean"), (2, "m2"), (8, "pval"))}
+    rel_p = float(((sk[8] - sp[8]).abs() / sp[8].abs().clamp_min(1e-30)).max())
+    print(f"  t_test_round {label} errors {errs} pval max rel {rel_p:.3e}")
+    check(errs["count"] == 0 and errs["mean"] <= 1e-5 and errs["m2"] <= 1e-6 * float(sp[2].abs().max())
+          and rel_p <= 1e-4, f"t_test_round {label} within tolerance (count exact, mean 1e-5, m2 1e-6 "
+          "of max, pval 1e-4 relative: the merge sums in another order)")
+    return errs, rel_p
 
 
 def record(report, name, label, err, ms, plain_ms, byts, ops_, host_ms, plain_host_ms,
@@ -369,6 +413,38 @@ def phase_a_sv(report):
         rounds += 1
     check(all(torch.equal(row.sort().values, torch.arange(n, dtype=torch.int32, device=dev))
               for row in bufs[0]), f"fy_draw: every buffer still a permutation after {rounds} rounds")
+    # edge cases, each from permuted buffers, kernel and plain version on
+    # copies with the same uniforms (a number: every step's uniform):
+    # (label, K, capacity, size, pos, m, uniforms, inactive share, rounds)
+    for (label, k, cap, sz, p_, m_, uni, inactive, nr) in [
+            ("duplicate targets (equal uniforms near 1)", 4, 1000, 1000, 0, 100, 1 - 2 ** -30, 0.0, 1),
+            ("targets inside the window ahead (u = 0.05)", 4, 1000, 1000, 0, 100, 0.05, 0.0, 1),
+            ("pos + m past the capacity", 4, 1000, 1000, 950, 100, None, 0.0, 2),
+            ("exhausted pool", 4, 1000, 1000, 1000, 100, None, 0.0, 1),
+            ("size below capacity", 4, 1000, 600, 550, 100, None, 0.0, 2),
+            ("m above size", 4, 64, 40, 0, 100, None, 0.0, 1),
+            ("K=1", 1, 1000, 1000, 0, 100, None, 0.0, 3),
+            ("K=5, inactive chains", 5, 1000, 1000, 0, 100, None, 0.2, 3),
+            ("K=33, inactive chains", 33, 1000, 1000, 0, 100, None, 0.2, 3),
+            ("K=1 of N=1e5", 1, 100_000, 100_000, 0, 100, None, 0.0, 3),
+            ("m=300: three chunks of steps", 3, 1000, 1000, 0, 300, None, 0.0, 4)]:
+        start = torch.argsort(torch.rand(k, cap, generator=gen, device=dev), dim=1).int()
+        bufs = [start.clone(), start.clone()]
+        sizes = torch.full((k,), sz, dtype=torch.int32, device=dev)
+        pos = [torch.clamp_max(torch.full_like(sizes, p_), sizes) for _ in range(2)]
+        same = True
+        for _ in range(nr):
+            u = torch.rand((k, m_), generator=gen, dtype=torch.float64, device=dev)
+            if uni is not None:
+                u.fill_(uni)
+            active = torch.rand(k, generator=gen, device=dev) >= inactive
+            outs = [ops.fy_draw(u, bufs[i], pos[i], sizes, m_, active, mode=mode)
+                    for i, mode in enumerate(("always", "never"))]
+            same &= all(torch.equal(a, b) for a, b in zip(*outs)) and torch.equal(*bufs)
+            pos = [outs[0][2], outs[1][2]]
+        check(same, f"fy_draw {label}, {nr} round(s): indices, valid flags, positions and "
+                    "buffers identical")
+        report["kernels"]["fy_draw"]["cases"].append({"case": label, "max_abs_err": 0.0 if same else None})
     # the timed shapes, the one chain of phase E among them: one round from
     # a fresh buffer, kernel and plain version on copies with the same
     # uniforms; the error is the largest difference of any output or buffer

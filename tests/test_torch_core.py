@@ -16,6 +16,7 @@ import torch
 from scipy.special import gammaln
 
 import repro.core as J
+from repro.core import samplers as jsamplers
 from repro.core import stats as jstats
 from repro.core.ensemble import _make_batched_transition
 from repro_torch import convert
@@ -36,6 +37,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.samplers import sampler_fns, stream_init
 from repro_torch.kernels import ref
+from repro_torch.kernels.fy_draw import fy_draw_ref
 
 torch.set_num_threads(1)
 EPS32 = float(np.finfo(np.float32).eps)
@@ -150,6 +152,68 @@ def test_fisher_yates_draws_without_replacement():
     expected = 400 * 5 / n
     chi2 = ((counts - expected) ** 2 / expected).sum()
     assert chi2 < 100  # chi-square, 49 dof: p ~ 3e-5 at 100
+
+
+# (capacity, size, pos, m, rounds): `rounds` draws in a row from a permuted
+# buffer, the state carried from one draw to the next
+_FY_JAX_CASES = {
+    "fresh_pool": (1000, 1000, 0, 100, 1),
+    "rounds_to_exhaustion": (300, 257, 0, 100, 4),
+    "pos_plus_m_past_capacity": (1000, 1000, 950, 100, 1),
+    "exhausted_pool": (50, 50, 50, 10, 1),
+    "size_below_capacity": (64, 40, 30, 20, 1),
+    "m_above_size": (16, 9, 0, 30, 1),
+}
+
+
+@pytest.mark.parametrize("case", list(_FY_JAX_CASES))
+def test_plain_fisher_yates_draw_matches_jax(case):
+    """The plain draw against ``repro.core.samplers.fy_draw``, exactly. The
+    reference's swap draws are r_s = randint(keys[s], 0, span_s) with keys =
+    split(key, m); the port's uniform u_s = (r_s + 0.5) / span_s (float64)
+    truncates back to r_s, so indices, valid flags, positions and buffers
+    must be identical. Each case also reports which edge cases its draws
+    hit: several steps on one target, a target inside the window ahead of
+    its step, self-swaps of the clamped or exhausted tail."""
+    cap, size, pos, m, rounds = _FY_JAX_CASES[case]
+    seed = list(_FY_JAX_CASES).index(case)
+    buf = np.random.default_rng(seed).permutation(cap).astype(np.int32)
+    jstate = jsamplers.fy_from_buffer(jnp.asarray(buf), size)._replace(
+        pos=jnp.asarray(pos, jnp.int32))
+    tbuf = torch.tensor(buf)[None].clone()
+    tpos, tsize = (torch.tensor([v], dtype=torch.int32) for v in (pos, size))
+    randint = jax.vmap(lambda k, span: jax.random.randint(k, (), 0, span, dtype=jnp.int32))
+    hits = set()
+    for r in range(rounds):
+        key = jax.random.fold_in(jax.random.key(seed), r)
+        p = np.minimum(int(jstate.pos) + np.arange(m), cap - 1)
+        span = np.maximum(size - p, 1).astype(np.int32)
+        draws = np.asarray(randint(jax.random.split(key, m), jnp.asarray(span)))
+        u = (draws.astype(np.float64) + 0.5) / span
+        assert np.array_equal(np.minimum((u * span).astype(np.int32), span - 1), draws)
+        j = np.minimum(p + draws, cap - 1)
+        moved = j[j != p]
+        if len(np.unique(moved)) < len(moved):
+            hits.add("duplicate targets")
+        if np.any((j > p) & (j < int(jstate.pos) + m)):
+            hits.add("target in the window ahead")
+        if np.any(j == p):
+            hits.add("self-swaps")
+
+        jstate, jout, jvalid = jsamplers.fy_draw(key, jstate, m)
+        out, valid, new_pos = fy_draw_ref(torch.tensor(u)[None], tbuf, tpos, tsize, m)
+        np.testing.assert_array_equal(out[0].numpy(), np.asarray(jout))
+        np.testing.assert_array_equal(valid[0].numpy(), np.asarray(jvalid))
+        assert int(new_pos[0]) == int(jstate.pos)
+        np.testing.assert_array_equal(tbuf[0].numpy(), np.asarray(jstate.idx))
+        tpos = new_pos
+    expected = {"fresh_pool": {"duplicate targets", "target in the window ahead"},
+                "rounds_to_exhaustion": {"duplicate targets", "self-swaps"},
+                "pos_plus_m_past_capacity": {"self-swaps"},
+                "exhausted_pool": {"self-swaps"},
+                "size_below_capacity": {"self-swaps"},
+                "m_above_size": {"duplicate targets", "self-swaps"}}[case]
+    assert expected <= hits, f"{case} hit only {sorted(hits)}"
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@ machine with a card and no JAX:
 
 Without a card every test skips (the CUDA kernels have no CPU mode).
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -30,11 +32,97 @@ def _round_state(rng, k, m, max_count):
     m2 = (np.maximum(count - 1, 0) * rng.uniform(0.5, 2.0, k)).astype(np.float32)
     l = (mean[:, None] + rng.standard_normal((k, m))).astype(np.float32)
     valid = rng.uniform(size=(k, m)) < 0.9
-    valid[1] = False  # an empty batch keeps its state
-    l[2] = 0.125  # a constant batch into an empty accumulator: s == 0
-    count[2] = mean[2] = m2[2] = 0
+    if k > 2:
+        valid[1] = False  # an empty batch keeps its state
+        l[2] = 0.125  # a constant batch into an empty accumulator: s == 0
+        count[2] = mean[2] = m2[2] = 0
     mu0 = rng.normal(0, 0.05, k).astype(np.float32)
     return count, mean, m2, l, valid, mu0
+
+
+def _df_span_state():
+    """32 chains whose df spans 1 .. 1e5 after the merge, with an s == 0
+    chain and an exhausted one (``chip_smoke.py``'s phase A case)."""
+    k, m, n_total = 32, 100, 100_200
+    rng = np.random.default_rng(0)
+    prior_n = np.floor(np.logspace(1, 5, k)).astype(np.float32)
+    nvalid = np.full(k, m)
+    prior_n[:3] = 0
+    nvalid[0], nvalid[1] = 2, 3
+    prior_n[3] = n_total - m
+    mu0 = rng.normal(0, 0.1, k).astype(np.float32)
+    mean0 = (mu0 + rng.uniform(0.0, 4.0, k) / np.sqrt(np.maximum(prior_n + nvalid, 1))
+             ).astype(np.float32)
+    l = (mean0[:, None] + rng.standard_normal((k, m))).astype(np.float32)
+    l[2] = 0.25
+    valid = np.arange(m)[None, :] < nvalid[:, None]
+    m2 = np.maximum(prior_n - 1, 0).astype(np.float32)
+    return prior_n, mean0, m2, l, valid, mu0, n_total
+
+
+# (K, m) of the round op's card cases, the df 1 .. 1e5 state, and chains
+# whose deltas equal their mean (s ~ 1e-14, t ~ 1e12, x ~ 1e-21 < 2^-60:
+# the kernel's divisions leave the range of its fast form)
+_ROUND_CASES = ["K1_m4", "K5_m37", "K32_m100", "K33_m512", "df_1_to_1e5", "near_constant"]
+
+
+def _round_inputs(case):
+    """Numpy inputs of one case: the initial state, (mu0, eps, n_total,
+    max_rounds) and three rounds of (l, valid), the later two drawn like
+    the first (the near-constant case repeats its one batch)."""
+    if case == "df_1_to_1e5":
+        count, mean, m2, l, valid, mu0, n_total = _df_span_state()
+        rng = np.random.default_rng(10)
+        max_rounds = 10_000
+    elif case == "near_constant":
+        rng = np.random.default_rng(11)
+        k, m = 8, 100
+        count = rng.integers(100, 5000, size=k).astype(np.float32)
+        # multiples of 2^-10: the sums of the batch are exact, delta is 0
+        mean = (np.round(rng.normal(0, 0.05, k) * 1024) / 1024).astype(np.float32)
+        m2 = ((count - 1) * 1e-24).astype(np.float32)
+        mu0 = rng.normal(0, 0.05, k).astype(np.float32)
+        l = np.repeat(mean[:, None], m, axis=1)
+        valid = np.ones((k, m), bool)
+        eps = np.full(k, 0.05, np.float32)
+        return (count, mean, m2), (mu0, eps, 12214, 123), [(l, valid)] * 3
+    else:
+        k, m = (int(v[1:]) for v in case.split("_"))
+        rng = np.random.default_rng(k * 1000 + m)
+        count, mean, m2, l, valid, mu0 = _round_state(rng, k, m, 5000)
+        n_total, max_rounds = 12214, 123
+    k, m = l.shape
+    batches = [(l, valid)] + [((mean[:, None] + rng.standard_normal((k, m))).astype(np.float32),
+                               rng.uniform(size=(k, m)) < 0.9) for _ in range(2)]
+    eps = np.full(k, 0.05, np.float32)
+    return (count, mean, m2), (mu0, eps, n_total, max_rounds), batches
+
+
+def _run_rounds(case, dev, round_fn):
+    """Run the case's three rounds through ``round_fn`` (``ops.t_test_round``
+    with a mode, or any function of its arguments); the state after each."""
+    (count, mean, m2), (mu0, eps, n_total, max_rounds), batches = _round_inputs(case)
+    k = len(count)
+    st = [torch.tensor(a, device=dev) for a in (count, mean, m2)]
+    rest = [torch.zeros(k, dtype=torch.int32, device=dev), torch.zeros(k, dtype=torch.bool, device=dev),
+            torch.zeros(k, dtype=torch.bool, device=dev), torch.ones(k, device=dev)]
+    mu0_t, eps_t = torch.tensor(mu0, device=dev), torch.tensor(eps, device=dev)
+    after = []
+    for l, valid in batches:
+        round_fn(torch.tensor(l, device=dev), torch.tensor(valid, device=dev), *st, mu0_t, eps_t,
+                 n_total, max_rounds, *rest)
+        after.append([t.clone() for t in st + rest])
+    return after
+
+
+def _digest(after) -> str:
+    """sha256 (first 16 hex digits) of every state tensor after every round:
+    count, mean, m2, rounds, done, decision, pval."""
+    h = hashlib.sha256()
+    for state in after:
+        for t in state:
+            h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 @pytest.mark.cuda
@@ -61,30 +149,45 @@ def test_pair_delta_kernel_matches_plain(prec, cuda_device):
 
 
 @pytest.mark.cuda
-def test_round_kernel_matches_plain(cuda_device):
-    """The round op: counts, rounds, done flags and decisions identical;
-    mean, m2 and p-value within 1e-4 relative (the merge sums in another
-    order)."""
-    k, m = 32, 100
-    count, mean, m2, l, valid, mu0 = _round_state(np.random.default_rng(1), k, m, 5000)
-    states = []
-    for mode in ("always", "never"):
-        st = [torch.tensor(a, device=cuda_device) for a in (count, mean, m2)]
-        rest = [torch.zeros(k, dtype=torch.int32, device=cuda_device),
-                torch.zeros(k, dtype=torch.bool, device=cuda_device),
-                torch.zeros(k, dtype=torch.bool, device=cuda_device),
-                torch.ones(k, device=cuda_device)]
-        ops.t_test_round(torch.tensor(l, device=cuda_device),
-                         torch.tensor(valid, device=cuda_device), *st,
-                         torch.tensor(mu0, device=cuda_device),
-                         torch.full((k,), 0.05, device=cuda_device), 12214, 123, *rest,
-                         mode=mode)
-        states.append(st + rest)
-    got, want = states
-    for i in (0, 3, 4, 5):  # count, rounds, done, decision
-        assert torch.equal(got[i], want[i])
-    for i in (1, 2, 6):  # mean, m2, pval
-        torch.testing.assert_close(got[i], want[i], rtol=1e-4, atol=1e-7)
+@pytest.mark.parametrize("case", _ROUND_CASES)
+def test_round_kernel_matches_plain(case, cuda_device):
+    """The round op over three rounds: counts, rounds, done flags and
+    decisions identical; mean, m2 and p-value within 1e-4 relative (the
+    merge sums in another order). m = 4, 37 and 512 leave lanes idle or
+    give a lane several values per partial; K = 1, 5 and 33 leave warps of
+    the last block without a chain."""
+    ops.reset_launches()
+    got, want = (_run_rounds(case, cuda_device, lambda *a, mode=mode: ops.t_test_round(*a, mode=mode))
+                 for mode in ("always", "never"))
+    assert ops.launches["t_test_round"] == 3
+    for g, w in zip(got, want):
+        for i in (0, 3, 4, 5):  # count, rounds, done, decision
+            assert torch.equal(g[i], w[i])
+        for i in (1, 2, 6):  # mean, m2, pval
+            torch.testing.assert_close(g[i], w[i], rtol=1e-4, atol=1e-7)
+
+
+# _digest of each case's outputs from the block-per-chain form of the round
+# kernel (128 threads a chain, one thread on the p-value), which the
+# warp-per-chain form must reproduce bit for bit
+_ROUND_DIGESTS = {
+    "K1_m4": "0e0cecfdac8629f0",
+    "K5_m37": "61e7fd8a92d8549d",
+    "K32_m100": "969322a10997d85d",
+    "K33_m512": "76e281a9ba7e6b8d",
+    "df_1_to_1e5": "01c463f292f535ce",
+    "near_constant": "71e7d08ec4d958d6",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _ROUND_CASES)
+def test_round_kernel_reproduces_block_kernel_bits(case, cuda_device):
+    """Every output of every round equals, bit for bit, what the earlier
+    block-per-chain kernel gave on the same inputs: the same float32
+    operations in the same order, the sums in that block's order."""
+    after = _run_rounds(case, cuda_device, lambda *a: ops.t_test_round(*a, mode="always"))
+    assert _digest(after) == _ROUND_DIGESTS[case]
 
 
 @pytest.mark.cuda
@@ -112,30 +215,71 @@ def test_ar1_delta_kernel_matches_plain(prec, cuda_device):
     assert ops.launches["gaussian_ar1_delta"] == 3
 
 
+# name: (K, capacity, size, pos, m, uniforms, inactive share, rounds). A
+# number as the uniforms gives every step that uniform; chain 3, where there
+# is one, has a pool 5% smaller than the others' (pos clamped to it).
+_FY_CASES = {
+    "rounds_to_exhaustion": (32, 1000, 1000, 0, 100, None, 0.2, 12),
+    "duplicate_targets": (4, 1000, 1000, 0, 100, 1.0 - 2.0 ** -30, 0.0, 1),
+    "target_in_window_ahead": (4, 1000, 1000, 0, 100, 0.05, 0.0, 1),
+    "pos_plus_m_past_capacity": (4, 1000, 1000, 950, 100, None, 0.0, 2),
+    "exhausted_pool": (4, 1000, 1000, 1000, 100, None, 0.0, 1),
+    "size_below_capacity": (4, 1000, 600, 550, 100, None, 0.0, 2),
+    "m_above_size": (4, 64, 40, 0, 100, None, 0.0, 1),
+    "K1": (1, 1000, 1000, 0, 100, None, 0.0, 3),
+    "K5": (5, 1000, 1000, 0, 100, None, 0.2, 3),
+    "K33": (33, 1000, 1000, 0, 100, None, 0.2, 3),
+    "K1_N1e5": (1, 100_000, 100_000, 0, 100, None, 0.0, 3),
+    "m300_three_chunks": (3, 1000, 1000, 0, 300, None, 0.0, 4),
+}
+
+
+def _swap_pairs(u, pos, size, m, cap):
+    """Host copy of every step's (p, j) for all-active chains."""
+    p = np.minimum(pos[:, None] + np.arange(m), cap - 1)
+    span = np.maximum(size[:, None] - p, 1)
+    return p, np.minimum(p + np.minimum((u * span).astype(np.int64), span - 1), cap - 1)
+
+
 @pytest.mark.cuda
-def test_fy_draw_kernel_matches_plain(cuda_device):
-    """Identical indices, valid flags, positions and buffers over rounds to
-    exhaustion, with some chains inactive: the same swaps from the same
-    float64 uniforms."""
-    gen = torch.Generator(device=cuda_device).manual_seed(2)
-    k, n, m = 32, 1000, 100
-    bufs = [torch.arange(n, dtype=torch.int32, device=cuda_device).repeat(k, 1) for _ in range(2)]
-    pos = [torch.zeros(k, dtype=torch.int32, device=cuda_device) for _ in range(2)]
-    size = torch.full((k,), n, dtype=torch.int32, device=cuda_device)
-    size[3] = 950  # a logical pool smaller than the buffer
+@pytest.mark.parametrize("case", list(_FY_CASES))
+def test_fy_draw_kernel_matches_plain(case, cuda_device):
+    """Identical indices, valid flags, positions and buffers, round after
+    round: the same swaps from the same float64 uniforms, from permuted
+    buffers, with some chains inactive where the case says so."""
+    k, cap, size, pos, m, uni, inactive, rounds = _FY_CASES[case]
+    seed = list(_FY_CASES).index(case)
+    gen = torch.Generator(device=cuda_device).manual_seed(seed)
+    sizes = np.full(k, size, np.int32)
+    if k > 3:
+        sizes[3] = size * 19 // 20
+    size_t = torch.tensor(sizes, device=cuda_device)
+    start = torch.argsort(torch.rand(k, cap, generator=gen, device=cuda_device), dim=1).int()
+    bufs = [start.clone(), start.clone()]
+    p0 = torch.tensor(np.minimum(pos, sizes), dtype=torch.int32, device=cuda_device)
+    pos_ = [p0, p0.clone()]
     ops.reset_launches()
-    for r in range(12):
+    for r in range(rounds):
         u = torch.rand((k, m), generator=gen, dtype=torch.float64, device=cuda_device)
-        active = torch.rand(k, generator=gen, device=cuda_device) < 0.8
-        outs = [ops.fy_draw(u, bufs[i], pos[i], size, m, active, mode=mode)
+        if uni is not None:
+            u.fill_(uni)
+        active = torch.rand(k, generator=gen, device=cuda_device) >= inactive
+        if r == 0 and case in ("duplicate_targets", "target_in_window_ahead"):
+            p, j = _swap_pairs(u.cpu().numpy(), pos_[0].cpu().numpy(), sizes, m, cap)
+            moved = j[0][j[0] != p[0]]
+            if case == "duplicate_targets":
+                assert len(np.unique(moved)) < len(moved)
+            else:
+                assert np.any((j[0] > p[0]) & (j[0] < int(pos_[0][0]) + m))
+        outs = [ops.fy_draw(u, bufs[i], pos_[i], size_t, m, active, mode=mode)
                 for i, mode in enumerate(("always", "never"))]
         for a, b in zip(*outs):
             assert torch.equal(a, b)
-        pos = [outs[0][2], outs[1][2]]
         assert torch.equal(bufs[0], bufs[1])
-    assert bool((pos[0] <= size).all()) and ops.launches["fy_draw"] == 12
-    for row in bufs[0]:  # still a permutation
-        assert torch.equal(row.sort().values, torch.arange(n, dtype=torch.int32, device=cuda_device))
+        pos_ = [outs[0][2], outs[1][2]]
+    assert bool((pos_[0] <= size_t).all()) and ops.launches["fy_draw"] == rounds
+    ref = torch.arange(cap, dtype=torch.int32, device=cuda_device)
+    assert all(torch.equal(row.sort().values, ref) for row in bufs[0])  # still permutations
 
 
 @pytest.mark.cuda
