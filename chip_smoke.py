@@ -8,9 +8,10 @@ toolkit (``nvcc``). The hand kernels build from ``src/repro_torch/kernels/csrc``
 into ``build/repro_torch_kernels/`` at first use. Phases:
 
   A  every kernel against its plain PyTorch version (fp32 and bf16) at the
-     main path's shapes, with kernel, plain and bound times; the
-     Fisher–Yates draw's and the round op's edge cases; the launch floor
-     (``torch.cuda._sleep(0)`` in the same timing harness);
+     main path's shapes, with kernel, plain and bound times (and the library
+     composite's for the logit and CE kernels); the Fisher–Yates draw's and
+     the round op's edge cases; the launch floor (``torch.cuda._sleep(0)``
+     in the same timing harness);
   B  one chain: BayesLR at N=12214, D=50, 1000 subsampled transitions and
      20 exact ones;
   C  K=32 chains in lock-step (``run_posterior_ensemble``), then the fused
@@ -65,6 +66,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_TC_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 SF_ITER_FLOPS = 20  # flops of one continued-fraction step of the t-test
+COLD_BYTES = 200_000_000  # four times the H100's 50 MB L2
 
 
 class CheckFailed(RuntimeError):
@@ -139,16 +141,49 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def phase_a(report):
+def logit_library(x, y, w, wp, idx=None, rows=None):
+    """The library composite of the pair delta (the yardstick the port never
+    calls): the rows (``index_select`` of ``idx`` (K, m), a slice ``rows``,
+    or the (K, m, D) slab as it is), one product against the stacked (D, 2)
+    pair (``bmm``/``matmul``), ``softplus`` and the difference. bf16 rows
+    multiply a bf16 pair and round z to bf16, the library's own bf16 route."""
+    import torch
+    import torch.nn.functional as F
+
+    w2 = torch.stack([w, wp], -1).to(x.dtype)  # (K, D, 2)
+    if idx is not None:
+        k, m = idx.shape
+        flat = idx.reshape(-1)
+        z = torch.bmm(x.index_select(0, flat).view(k, m, -1), w2)
+        yy = y.index_select(0, flat).view(k, m, 1)
+    elif x.ndim == 3:
+        z, yy = torch.bmm(x, w2), y[..., None]
+    else:
+        xs, yy = (x, y[:, None]) if rows is None else (x[rows.start:rows.stop],
+                                                       y[rows.start:rows.stop, None])
+        z = torch.matmul(xs, w2[0])
+    a = F.softplus(-yy * z.float())
+    return a[..., 0] - a[..., 1]
+
+
+def phase_a_logit(report):
+    """The pair-delta kernel (``logit_delta``, ``batched_logit_delta``)
+    against its plain version and the library composite, at the main path's
+    shapes: the rounds of B (m=100 of N=12214, D=50) and D (m=100 of N=1e4,
+    1e5, 1e6, D=2), C's gathered K=32 round, and the exact transition's full
+    pass in the form ``exact_decide`` takes (a ``range`` of the pool: B's
+    N=12214 at D=50, D's N=1e4..1e6 at D=2), with the full pool at N=1e6,
+    D=50 beside them. A pool smaller than the card's L2 (50 MB) stays there
+    across back-to-back calls, so each full pass of one is also timed cold:
+    the calls cycle through copies of the pool that hold ``COLD_BYTES`` in
+    all, and each call reads a copy that later ones pushed out of L2."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.t_test_round import t_test_round, t_test_round_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    kern = report["kernels"]
     tol = {"fp32": 1e-5, "bf16": 1e-5}  # both compare fp32 sums of the same products
 
     def pool(n, d):
@@ -160,53 +195,123 @@ def phase_a(report):
         w = 2.0 * torch.randn(k, d, generator=gen, device=dev)
         return w, w + 0.05 * torch.randn(k, d, generator=gen, device=dev)
 
-    print("phase A: kernels against their plain versions")
+    print("phase A: the pair-delta kernel against its plain version and the library composite")
     cases = []
-    # logit_delta: the single-chain rounds (m rows of the pool) and the full pass
-    for (n, d, m) in [(12214, 50, 100), (12214, 50, None), (1_000_000, 50, None)]:
-        x, y = pool(n, d)
+    pools = {}
+    # logit_delta: rows of the pool (B's and D's rounds), the exact pass over
+    # a range of it, and the full pool; "main" marks the kernel line's shape
+    for (n, d, form, precs) in [(12214, 50, "rounds", ("fp32", "bf16")),
+                                (10_000, 2, "rounds", ("fp32",)),
+                                (100_000, 2, "rounds", ("fp32",)),
+                                (1_000_000, 2, "rounds", ("fp32",)),
+                                (12214, 50, "range", ("fp32", "bf16")),
+                                (10_000, 2, "range", ("fp32",)),
+                                (100_000, 2, "range", ("fp32",)),
+                                (1_000_000, 2, "range", ("fp32",)),
+                                (1_000_000, 50, "range", ("fp32", "bf16")),
+                                (12214, 50, "pool", ("fp32", "bf16")),
+                                (1_000_000, 50, "pool", ("fp32", "bf16"))]:
+        if (n, d) not in pools:
+            pools[n, d] = pool(n, d)
+        x, y = pools[n, d]
         w, wp = weights(1, d)
-        idx = None if m is None else torch.randint(0, n, (m,), generator=gen, device=dev,
-                                                    dtype=torch.int32)
-        rows = n if m is None else m
-        for prec in ("fp32", "bf16"):
+        lib_idx = lib_rows = None
+        if form == "rounds":
+            idx = torch.randint(0, n, (100,), generator=gen, device=dev, dtype=torch.int32)
+            lib_idx, what = idx[None], f"rounds: m=100 of N={n} D={d}"
+        elif form == "range":
+            idx = lib_rows = range(0, n)
+            what = f"full pass (range): N={n} D={d}"
+        else:
+            idx, what = None, f"full pool: N={n} D={d}"
+        rows = n if idx is None or isinstance(idx, range) else idx.shape[0]
+        reads_idx = idx is not None and not isinstance(idx, range)
+        for prec in precs:
             xx = x.to(torch.bfloat16) if prec == "bf16" else x
             bx = 2 if prec == "bf16" else 4
             run = lambda xx=xx, y=y, w=w, wp=wp, idx=idx, p=prec: ops.logit_delta(
                 xx, y, w[0], wp[0], idx=idx, precision=p)
             plain = lambda xx=xx, y=y, w=w, wp=wp, idx=idx, p=prec: ops.logit_delta(
                 xx, y, w[0], wp[0], idx=idx, precision=p, mode="never")
-            byts = rows * (d * bx + 4 + 4 + (4 if idx is not None else 0)) + 2 * d * 4
-            cases.append(("logit_delta", f"N={n} D={d} rows={rows} {prec}", prec, run, plain,
-                          byts, rows * (4 * d + 30), (m == 100 and prec == "fp32")))
-    # batched (pre-gathered) and gathered forms of the pair-delta kernel
-    x, y = pool(12214, 50)
+            lib = lambda xx=xx, y=y, w=w, wp=wp, i=lib_idx, r=lib_rows: logit_library(
+                xx, y, w, wp, idx=i, rows=r)
+            byts = rows * (d * bx + 4 + 4 + (4 if reads_idx else 0)) + 2 * d * 4
+            cold = (xx, y, w, wp, idx, prec) if form != "rounds" and byts < COLD_BYTES else None
+            cases.append(("logit_delta", f"{what} {prec}", prec, run, plain, lib, byts,
+                          rows * (4 * d + 30), (form, n, d, prec) == ("rounds", 12214, 50, "fp32"),
+                          cold))
+    # batched (pre-gathered) and gathered forms; "fp32 x, precision bf16"
+    # rounds the rows and the pair in the kernel
+    x, y = pools[12214, 50]
     for (k, m, d) in [(32, 100, 50), (32, 1000, 50), (1, 7, 50)]:
         w, wp = weights(k, d)
         idx = torch.randint(0, 12214, (k, m), generator=gen, device=dev, dtype=torch.int32)
-        for prec in ("fp32", "bf16"):
+        for prec in ("fp32", "bf16", "fp32 x, precision bf16"):
+            if prec.startswith("fp32 x") and (k, m) != (32, 100):
+                continue
+            p = prec.split()[-1]
             xp = x.to(torch.bfloat16) if prec == "bf16" else x
             xg, yg = xp[idx.long()].contiguous(), y[idx.long()].contiguous()
             bx = 2 if prec == "bf16" else 4
-            cases.append(("batched_logit_delta", f"batched K={k} m={m} D={d} {prec}", prec,
-                          lambda xg=xg, yg=yg, w=w, wp=wp, p=prec: ops.batched_logit_delta(xg, yg, w, wp, precision=p),
-                          lambda xg=xg, yg=yg, w=w, wp=wp, p=prec: ops.batched_logit_delta(xg, yg, w, wp, precision=p, mode="never"),
-                          k * m * (d * bx + 4 + 4) + 2 * k * d * 4, k * m * (4 * d + 30), False))
-            cases.append(("batched_logit_delta", f"gather K={k} m={m} D={d} {prec}", prec,
-                          lambda xp=xp, y=y, idx=idx, w=w, wp=wp, p=prec: ops.gather_and_delta(xp, y, idx, w, wp, precision=p),
-                          lambda xp=xp, y=y, idx=idx, w=w, wp=wp, p=prec: ops.gather_and_delta(xp, y, idx, w, wp, precision=p, mode="never"),
+            cases.append(("batched_logit_delta", f"batched K={k} m={m} D={d} {prec}", p,
+                          lambda xg=xg, yg=yg, w=w, wp=wp, p=p: ops.batched_logit_delta(xg, yg, w, wp, precision=p),
+                          lambda xg=xg, yg=yg, w=w, wp=wp, p=p: ops.batched_logit_delta(xg, yg, w, wp, precision=p, mode="never"),
+                          lambda xg=xg, yg=yg, w=w, wp=wp: logit_library(xg, yg, w, wp),
+                          k * m * (d * bx + 4 + 4) + 2 * k * d * 4, k * m * (4 * d + 30), False,
+                          None))
+            cases.append(("batched_logit_delta", f"gather K={k} m={m} D={d} {prec}", p,
+                          lambda xp=xp, y=y, idx=idx, w=w, wp=wp, p=p: ops.gather_and_delta(xp, y, idx, w, wp, precision=p),
+                          lambda xp=xp, y=y, idx=idx, w=w, wp=wp, p=p: ops.gather_and_delta(xp, y, idx, w, wp, precision=p, mode="never"),
+                          lambda xp=xp, y=y, idx=idx, w=w, wp=wp: logit_library(xp, y, w, wp, idx=idx),
                           k * m * (d * bx + 4 + 4 + 4) + 2 * k * d * 4, k * m * (4 * d + 30),
-                          (k, m, prec) == (32, 100, "fp32")))
-    for name, label, prec, run, plain, byts, flops, main_shape in cases:
+                          (k, m, prec) == (32, 100, "fp32"), None))
+    for name, label, prec, run, plain, lib, byts, flops, main_shape, cold in cases:
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         check(err <= tol[prec], f"{name} {label} within {tol[prec]:g} of its plain version")
-        # at most ~5 launches per kernel call (bf16 rounds the weights first)
-        # and ~25 per plain call: keep each timed queue near 300 launches
+        # one launch per kernel call, ~7 per library call and ~25 per plain
+        # call: keep each timed queue near 300 launches
         (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 10)
+        lib_ms, _ = time_ms(lib, 30)
+        cold_ms = cold and time_cold(cold)
         record(report, name, label, err, ms, plain_ms, byts, flops, host_ms, plain_host_ms,
-               main_shape)
+               main_shape, library_ms=lib_ms, cold_ms=cold_ms)
+        if cold_ms:
+            print(f"    pool out of L2: kernel={cold_ms * 1e3:9.2f}us, "
+                  f"{byts / HBM_BYTES_PER_S * 1e3 / cold_ms:.1%} of the byte bound")
+    del pools
+
+
+def time_cold(case) -> float:
+    """Device ms of one full pass whose pool is not in L2: the calls cycle
+    through copies of the pool that hold ``COLD_BYTES`` in all."""
+    import itertools
+
+    from repro_torch.kernels import ops
+
+    x, y, w, wp, idx, prec = case
+    copies = itertools.cycle([(x.clone(), y.clone())
+                              for _ in range(-(-COLD_BYTES // (x.nbytes + y.nbytes)))])
+
+    def run():
+        cx, cy = next(copies)
+        return ops.logit_delta(cx, cy, w[0], wp[0], idx=idx, precision=prec)
+
+    return time_ms(run, 60)[0]
+
+
+def phase_a(report):
+    """The sequential-test round op against its plain version, its edge
+    cases, and the launch floor."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.t_test_round import t_test_round, t_test_round_ref
+
+    dev = torch.device("cuda")
+    kern = report["kernels"]
+    print("phase A: the round op against its plain version")
 
     # t_test_round: 32 chains whose df spans 1 .. 1e5, with an s == 0 lane
     # and an exhausted lane
@@ -1443,11 +1548,13 @@ def main() -> int:
                                  "bound_by": None, "library_ms": None, "cases": []}
                           for name in replaces}}
     print("library_ms: torch.matmul + F.cross_entropy(reduction='none') for the two CE kernels "
-          "(two calls that build the (T, V) logits); null for the others, which no single "
-          "PyTorch call computes")
+          "(two calls that build the (T, V) logits); index_select + bmm (or matmul) against the "
+          "stacked (D, 2) pair + softplus for the two logit kernels; null for the others, which "
+          "no PyTorch call computes")
 
     from repro_torch.experiments import bayeslr
 
+    phase_a_logit(report)
     phase_a(report)
     phase_a_sv(report)
     data = bayeslr.synth_mnist_like(0)

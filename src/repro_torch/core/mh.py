@@ -30,13 +30,17 @@ def exact_decide(theta: Params, theta_p: Params, g, log_u, target: PartitionedTa
                  chunk_size: int | None = None):
     """Accept or keep ``theta_p`` given the global term ``g`` (log_global plus
     the proposal's correction) and ``log_u``: the full pass over all N
-    sections. Returns (theta_new, MHInfo)."""
+    sections, in chunks of ``chunk_size``. A target with ``range_sections``
+    scores each chunk as a ``range``, with no index tensor. Returns
+    (theta_new, MHInfo)."""
     n = target.num_sections
     dev = tree_leaves(theta)[0].device
     step = n if chunk_size is None or chunk_size >= n else chunk_size
     total = torch.zeros((), dtype=torch.float32, device=dev)
     for start in range(0, n, step):
-        idx = torch.arange(start, min(start + step, n), dtype=torch.int32, device=dev)
+        idx = range(start, min(start + step, n))
+        if not target.range_sections:
+            idx = torch.arange(idx.start, idx.stop, dtype=torch.int32, device=dev)
         total = total + target.log_local(theta, theta_p, idx).sum()
     accept = log_u < g + total
     info = MHInfo(

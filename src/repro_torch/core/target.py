@@ -49,6 +49,12 @@ class PartitionedTarget:
     # evaluator of one transition, with whatever depends on the pair alone
     # (latent-dependent section pools, the family's parameters) computed once.
     bind: Callable[..., Callable[[torch.Tensor], torch.Tensor]] | None = None
+    # True when ``log_local`` also takes ``range(start, stop)`` for ``idx``: a
+    # contiguous run of sections, which the exact transition's full pass then
+    # scores with no index tensor. Derived, not a setting: ``build_target``
+    # sets it from its family's ``takes_range`` when it builds ``log_local``
+    # itself; a target built by hand keeps False.
+    range_sections: bool = False
 
     def local_round(self, theta, theta_p, *, ensemble: bool = False, mode: str = "auto"):
         """``idx -> deltas`` for one transition's pair: (m,) for one chain,

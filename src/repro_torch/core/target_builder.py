@@ -45,12 +45,14 @@ class KernelFamily:
     """A local-likelihood family: ``loglik(data, params, idx) -> (m,)``,
     ``delta(data, params, params_p, idx, mode=) -> (m,)`` for one chain,
     and ``ensemble_delta(data, params, params_p, idx, mode=) -> (K, m)`` for
-    a lock-step round; ``mode`` is the kernel dispatch."""
+    a lock-step round; ``mode`` is the kernel dispatch. ``takes_range``: the
+    one-chain ``delta`` also accepts ``range(start, stop)`` for ``idx``."""
 
     name: str
     loglik: Callable[..., torch.Tensor]
     delta: Callable[..., torch.Tensor]
     ensemble_delta: Callable[..., torch.Tensor]
+    takes_range: bool = False
 
 
 _FAMILIES: dict[str, KernelFamily] = {}
@@ -135,7 +137,8 @@ def _ce_ensemble_delta(data, table, table_p, idx, mode: str = "auto"):
             - ops.gather_fused_ce(h, targets, idx, table, mode=mode))
 
 
-register_family(KernelFamily("logit", _logit_loglik, _logit_delta, _logit_ensemble_delta))
+register_family(KernelFamily("logit", _logit_loglik, _logit_delta, _logit_ensemble_delta,
+                             takes_range=True))
 register_family(KernelFamily("gaussian_ar1", _ar1_loglik, _ar1_delta, _ar1_ensemble_delta))
 register_family(KernelFamily("ce", _ce_loglik, _ce_delta, _ce_ensemble_delta))
 
@@ -243,6 +246,7 @@ def build_target(
         family=fam.name,
         device=device,
         bind=bind,
+        range_sections=fam.takes_range and user_log_local is None,
     )
 
 

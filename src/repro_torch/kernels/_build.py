@@ -109,6 +109,7 @@ def reset_launches() -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 FL = ctypes.c_float
 
 

@@ -7,6 +7,10 @@ gathered forms in :mod:`repro_torch.kernels.batched_loglik` as well, with the
 chain count K = 1 here. The plain version is
 :func:`repro_torch.kernels.ref.logit_delta_ref`.
 
+Rows are the whole pool, rows ``idx`` of it (an int32 tensor), or a
+contiguous run ``idx=range(start, stop)``: the exact transition's full pass,
+which the kernel reads with no index tensor.
+
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
 """
@@ -19,7 +23,7 @@ import torch
 from . import _build
 from .ref import logit_delta_ref
 
-__all__ = ["logit_delta", "logit_delta_ref", "launch_pair_delta"]
+__all__ = ["logit_delta", "logit_delta_ref", "launch_pair_delta", "select_rows"]
 
 _XTYPES = (torch.float32, torch.bfloat16)
 
@@ -29,15 +33,37 @@ def _bind():
     lib = _build.load("logit_delta")
     fn = lib.logit_pair_delta
     P, I = _build.P, _build.I
-    fn.argtypes = [P, I, P, P, P, P, P, I, I, I, P]
+    fn.argtypes = [P, I, P, P, P, P, P, I, I, I, _build.LL, I, P]
     fn.restype = I
     return fn
 
 
-def launch_pair_delta(x, y, idx, w_cur, w_prop, k: int, m: int, name: str) -> torch.Tensor:
-    """Launch the pair-delta kernel: x is the (N, D) pool when ``idx`` (K, m)
-    is given, else (K, m, D) rows; returns (K, m) fp32. Counts one launch
-    under ``name``."""
+def _check_range(idx: range, n: int) -> None:
+    if idx.step != 1 or not 0 <= idx.start <= idx.stop <= n:
+        raise ValueError(f"idx must be a range of step 1 within [0, {n}), got {idx}")
+
+
+def select_rows(x: torch.Tensor, y: torch.Tensor, idx):
+    """Rows ``idx`` of the pool (x (N, D), y (N,)): an int tensor gathers,
+    a ``range`` slices; ``None`` is the whole pool."""
+    if idx is None:
+        return x, y
+    if isinstance(idx, range):
+        _check_range(idx, x.shape[0])
+        return x[idx.start:idx.stop], y[idx.start:idx.stop]
+    idx = idx.long()
+    return x[idx], y[idx]
+
+
+def launch_pair_delta(x, y, idx, w_cur, w_prop, k: int, m: int, name: str, *,
+                      first: int = 0, round_bf16: bool = False) -> torch.Tensor:
+    """Launch the pair-delta kernel; returns (K, m) fp32 and counts one
+    launch under ``name`` (none for an empty block). With ``idx`` (K, m)
+    int32, x is the (N, D) pool and y (N,). Without it the rows are
+    contiguous: chain k's row r is row ``first + k m + r`` of x, which is
+    the (N, D) pool with y (N,) (K = 1) or the (K, m, D) slab with y (K, m)
+    (``first`` = 0). ``round_bf16`` rounds w, w' and fp32 x to bf16 in the
+    kernel."""
     dev = x.device
     d = x.shape[-1]
     _build.require(w_cur, "w_cur", dev, (torch.float32,), (k, d))
@@ -46,37 +72,44 @@ def launch_pair_delta(x, y, idx, w_cur, w_prop, k: int, m: int, name: str) -> to
         _build.require(x, "x", dev, _XTYPES, (None, d))
         _build.require(y, "y", dev, (torch.float32,), (x.shape[0],))
         _build.require(idx, "idx", dev, (torch.int32,), (k, m))
-    else:
+    elif x.ndim == 3:
         _build.require(x, "x", dev, _XTYPES, (k, m, d))
         _build.require(y, "y", dev, (torch.float32,), (k, m))
+    else:
+        _build.require(x, "x", dev, _XTYPES, (None, d))
+        _build.require(y, "y", dev, (torch.float32,), (x.shape[0],))
+        if k != 1 or not 0 <= first <= first + m <= x.shape[0]:
+            raise ValueError(f"rows [{first}, {first + m}) of one chain must lie in the pool "
+                             f"of {x.shape[0]} rows")
     out = torch.empty((k, m), dtype=torch.float32, device=dev)
+    if k == 0 or m == 0:
+        return out  # no rows: nothing to launch
     fn = _bind()
     err = fn(_build.ptr(x), int(x.dtype == torch.bfloat16), _build.ptr(y),
              _build.ptr(idx), _build.ptr(w_cur), _build.ptr(w_prop), _build.ptr(out),
-             k, m, d, _build.stream_of(x))
+             k, m, d, first, int(round_bf16), _build.stream_of(x))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out
 
 
 def logit_delta(x: torch.Tensor, y: torch.Tensor, w_cur: torch.Tensor,
-                w_prop: torch.Tensor, *, idx: torch.Tensor | None = None) -> torch.Tensor:
+                w_prop: torch.Tensor, *, idx=None, round_bf16: bool = False) -> torch.Tensor:
     """x (N, D) f32 or bf16, y (N,), w_* (D,) f32 -> (N,) f32; with ``idx``
-    (m,) int32, only those rows of the pool -> (m,)."""
+    (m,) int32, or ``range(start, stop)``, only those rows of the pool ->
+    (m,). ``round_bf16`` (kernel only) rounds w, w' and fp32 x to bf16."""
     if x.device.type == "cpu":
-        if idx is not None:
-            idx = idx.long()
-            return logit_delta_ref(x[idx], y[idx], w_cur, w_prop)
-        return logit_delta_ref(x, y, w_cur, w_prop)
+        return logit_delta_ref(*select_rows(x, y, idx), w_cur, w_prop)
     if x.device.type != "cuda":
         raise ValueError(f"logit_delta has no kernel for device {x.device}")
     if x.ndim != 2:
         raise ValueError(f"x must be (N, D), got {tuple(x.shape)}")
-    m = x.shape[0] if idx is None else idx.shape[0]
-    if idx is None:
-        out = launch_pair_delta(x[None], y[None], None, w_cur[None], w_prop[None],
-                                1, m, "logit_delta")
+    first = 0
+    if isinstance(idx, range):
+        _check_range(idx, x.shape[0])
+        first, m, idx = idx.start, len(idx), None
     else:
-        out = launch_pair_delta(x, y, idx[None], w_cur[None], w_prop[None],
-                                1, m, "logit_delta")
+        m = x.shape[0] if idx is None else idx.shape[0]
+    out = launch_pair_delta(x, y, None if idx is None else idx[None], w_cur[None], w_prop[None],
+                            1, m, "logit_delta", first=first, round_bf16=round_bf16)
     return out[0]

@@ -17,10 +17,10 @@ The dispatch vocabulary is the JAX package's (``repro.kernels.ops``):
 ``precision="fp32"`` is float32 end to end; ``precision="bf16"`` reads the
 data rows (and rounds the weight pair) as bfloat16 while every kernel still
 accumulates in float32; ``precision="auto"`` defers to ``REPRO_PRECISION``,
-defaulting to fp32. For the gathered form the pool itself is read in bf16:
-hand a bf16 pool to avoid converting it on every call. The CE kernel
-(``fused_ce``, ``batched_fused_ce``, ``gather_fused_ce``) instead rounds fp32
-operands to bf16 as it loads them, so a (K, V, D) table is never copied.
+defaulting to fp32. The plain route makes bf16 copies; the logit and CE
+kernels round fp32 operands to bf16 as they load them, so a bf16 call is one
+launch and no pool or (K, V, D) table is copied (a bf16 pool halves the
+bytes read). The AR(1) delta reads bf16 copies of its pools.
 
 There is no fallback: a kernel that fails to build or launch raises.
 """
@@ -42,6 +42,7 @@ from .fy_draw import fy_draw_ref
 from .gaussian_ar1 import batched_gaussian_ar1_delta as _ar1_batched_kernel
 from .gaussian_ar1 import gather_ar1_delta as _ar1_gather_kernel
 from .logit_loglik import logit_delta as _logit_kernel
+from .logit_loglik import select_rows
 from .pgibbs import pgibbs_sweep as _pgibbs_kernel
 from .pgibbs import pgibbs_sweep_ref
 from .t_test_round import t_test_round as _t_test_kernel
@@ -118,10 +119,16 @@ def _bf16_round(w: torch.Tensor) -> torch.Tensor:
     return w.to(torch.bfloat16).to(torch.float32)
 
 
-def _prepare(x, w_cur, w_prop, precision):
-    if resolve_precision(precision) == "bf16":
-        return _bf16_rows(x), _bf16_round(w_cur), _bf16_round(w_prop)
-    return x, w_cur.to(torch.float32), w_prop.to(torch.float32)
+def _logit_args(x, w_cur, w_prop, mode, precision):
+    """Dispatch for the logit family: (run the kernel?, x, w, w', round in
+    the kernel?). On the plain route bf16 is a copy of the rows in bf16 and
+    the pair rounded through bf16; the kernel rounds both as it loads them."""
+    kernel = use_kernel(mode, x)
+    bf16 = resolve_precision(precision) == "bf16"
+    w_cur, w_prop = w_cur.to(torch.float32), w_prop.to(torch.float32)
+    if bf16 and not kernel:
+        return False, _bf16_rows(x), _bf16_round(w_cur), _bf16_round(w_prop), False
+    return kernel, x, w_cur.contiguous(), w_prop.contiguous(), bf16 and kernel
 
 
 def dispatch_summary() -> str:
@@ -140,36 +147,35 @@ def dispatch_summary() -> str:
 def logit_delta(x, y, w_cur, w_prop, *, idx=None, mode: str = "auto",
                 precision: str = "auto"):
     """BayesLR pair delta for one chain: x (N, D), y (N,), w_* (D,) -> (N,),
-    or only rows ``idx`` (m,) of the pool -> (m,)."""
-    x, w_cur, w_prop = _prepare(x, w_cur, w_prop, precision)
+    or only rows ``idx`` of the pool -> (m,): an int tensor (m,), or
+    ``range(start, stop)`` for a contiguous run, which the kernel reads with
+    no index tensor (the exact transition's full pass)."""
+    kernel, x, w_cur, w_prop, rnd = _logit_args(x, w_cur, w_prop, mode, precision)
     y = y.to(torch.float32)
-    if not use_kernel(mode, x):
-        if idx is not None:
-            idx = idx.long()
-            x, y = x[idx], y[idx]
-        return ref.logit_delta_ref(x, y, w_cur, w_prop)
-    return _logit_kernel(x, y, w_cur.contiguous(), w_prop.contiguous(), idx=idx)
+    if not kernel:
+        return ref.logit_delta_ref(*select_rows(x, y, idx), w_cur, w_prop)
+    return _logit_kernel(x, y, w_cur, w_prop, idx=idx, round_bf16=rnd)
 
 
 def batched_logit_delta(xg, yg, w_cur, w_prop, *, mode: str = "auto",
                         precision: str = "auto"):
     """Ensemble-batched (K, m) BayesLR delta block on gathered rows."""
-    xg, w_cur, w_prop = _prepare(xg, w_cur, w_prop, precision)
+    kernel, xg, w_cur, w_prop, rnd = _logit_args(xg, w_cur, w_prop, mode, precision)
     yg = yg.to(torch.float32)
-    if not use_kernel(mode, xg):
+    if not kernel:
         return ref.batched_logit_delta_ref(xg, yg, w_cur, w_prop)
-    return _batched_kernel(xg, yg, w_cur.contiguous(), w_prop.contiguous())
+    return _batched_kernel(xg, yg, w_cur, w_prop, round_bf16=rnd)
 
 
 def gather_and_delta(x, y, idx, w_cur, w_prop, *, mode: str = "auto",
                      precision: str = "auto"):
     """(K, m) BayesLR delta block on rows ``idx`` of the shared pool — one
     call per multi-chain sequential-test round."""
-    x, w_cur, w_prop = _prepare(x, w_cur, w_prop, precision)
+    kernel, x, w_cur, w_prop, rnd = _logit_args(x, w_cur, w_prop, mode, precision)
     y = y.to(torch.float32)
-    if not use_kernel(mode, x):
+    if not kernel:
         return ref.gather_and_delta_ref(x, y, idx, w_cur, w_prop)
-    return _gather_kernel(x, y, idx, w_cur.contiguous(), w_prop.contiguous())
+    return _gather_kernel(x, y, idx, w_cur, w_prop, round_bf16=rnd)
 
 
 def _ce_args(h, table, targets, mode, precision):

@@ -294,6 +294,30 @@ def test_exact_mh_step_matches_jax(lr):
     np.testing.assert_allclose(mu_hat, np.asarray(info.mu_hat), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("chunk_size", [None, 256, 77])
+def test_exact_decide_range_form_matches_index_tensor(lr, chunk_size):
+    """The logit family scores the full pass's chunks as ``range``s (no
+    index tensor); a target without that form gets the index tensors the
+    reference's ``arange`` chunks are. Whole and chunked, both reach the
+    same decision, mu_hat and n_evaluated."""
+    tt = lr["tt"]
+    assert tt.range_sections
+    # the same log_local behind a target built by hand, which gets tensors
+    by_index = build_target(None, None, N, log_global=tt.log_global, log_local=tt.log_local)
+    assert not by_index.range_sections
+    rng = np.random.default_rng(9)
+    for _ in range(20):
+        th = _t((0.5 * rng.standard_normal(D)).astype(np.float32))
+        thp = th + _t((0.05 * rng.standard_normal(D)).astype(np.float32))
+        lu = torch.tensor(np.log(rng.uniform()), dtype=torch.float32)
+        g = tt.log_global(th, thp)
+        (a, ia), (b, ib) = (exact_decide(th, thp, g, lu, t, chunk_size=chunk_size)
+                            for t in (tt, by_index))
+        assert torch.equal(a, b) and bool(ia.accepted) == bool(ib.accepted)
+        assert torch.equal(ia.mu_hat, ib.mu_hat) and int(ia.n_evaluated) == int(ib.n_evaluated) == N
+        assert int(ia.rounds) == int(ib.rounds)
+
+
 def test_lockstep_round_matches_jax(lr):
     """A K=4 lock-step ensemble, 50 transitions from the same state: each
     transition's proposals come from the reference, the rounds run in both."""

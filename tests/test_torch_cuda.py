@@ -148,6 +148,128 @@ def test_pair_delta_kernel_matches_plain(prec, cuda_device):
     assert ops.launches["logit_delta"] == 2 and ops.launches["batched_logit_delta"] == 1
 
 
+def _pool(gen, dev, n, d, dtype, offset=0):
+    """An (n, d) pool and its labels; ``offset`` elements into a larger
+    buffer, so that rows start off the 16-byte boundary."""
+    x = torch.empty(n * d + offset, dtype=dtype, device=dev)[offset:].view(n, d)
+    x.copy_(torch.randn(n, d, generator=gen, device=dev) / d ** 0.5)
+    y = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, 1.0, -1.0)
+    return x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+@pytest.mark.parametrize("d", [1, 2, 3, 50, 64, 129])
+def test_pair_delta_kernel_shapes(d, prec, cuda_device):
+    """Every lane width (one row per thread at D <= 2 up to 32 lanes and
+    several vectors a lane at D = 129), vector widths from 2 to 16 bytes
+    (bf16 rows of odd D take 2-byte loads), ragged m and K = 1, 32, 33:
+    gathered, pre-gathered and one-chain forms against the plain version,
+    also on a pool whose rows start 4 (fp32) or 2 (bf16) bytes off the
+    16-byte boundary."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+    n = 3001
+    for offset in (0, 1):
+        x, y = _pool(gen, cuda_device, n, d, dtype, offset)
+        for k in (1, 32, 33):
+            w = torch.randn(k, d, generator=gen, device=cuda_device)
+            wp = w + 0.05 * torch.randn(k, d, generator=gen, device=cuda_device)
+            for m in (1, 7, 100, 1000):
+                idx = torch.randint(0, n, (k, m), generator=gen, device=cuda_device,
+                                    dtype=torch.int32)
+                xg, yg = x[idx.long()].contiguous(), y[idx.long()].contiguous()
+                runs = [lambda mode: ops.gather_and_delta(x, y, idx, w, wp, mode=mode,
+                                                          precision=prec),
+                        lambda mode: ops.batched_logit_delta(xg, yg, w, wp, mode=mode,
+                                                             precision=prec)]
+                if k == 1:
+                    runs.append(lambda mode: ops.logit_delta(x, y, w[0], wp[0], idx=idx[0],
+                                                             mode=mode, precision=prec))
+                for run in runs:
+                    got, want = run("always"), run("never")
+                    assert got.shape == want.shape
+                    torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL,
+                                               msg=f"D={d} {prec} offset={offset} K={k} m={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+@pytest.mark.parametrize("d", [2, 50])
+def test_pair_delta_range_form(d, prec, cuda_device):
+    """The exact pass's contiguous form: runs of a pool of N = 10007 rows
+    (off every tile), starting off the 16-byte boundary, bit-equal to the
+    index-tensor form on the same rows (below the kernel's long-pass length
+    both forms give a row the same lanes and reduction) and within 1e-5 of
+    the plain version; an empty run gives an empty result."""
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + d)
+    dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+    n = 10007
+    x, y = _pool(gen, cuda_device, n, d, dtype)
+    w = torch.randn(d, generator=gen, device=cuda_device)
+    wp = w + 0.05 * torch.randn(d, generator=gen, device=cuda_device)
+    for start, stop in [(0, n), (3, n), (1001, 5000), (n - 1, n), (5, 6), (77, 77 + 1023)]:
+        ops.reset_launches()
+        got = ops.logit_delta(x, y, w, wp, idx=range(start, stop), precision=prec)
+        assert ops.launches["logit_delta"] == 1
+        by_index = ops.logit_delta(x, y, w, wp, precision=prec,
+                                   idx=torch.arange(start, stop, dtype=torch.int32,
+                                                    device=cuda_device))
+        want = ops.logit_delta(x, y, w, wp, idx=range(start, stop), precision=prec, mode="never")
+        assert torch.equal(got, by_index), (start, stop)
+        torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+    assert ops.logit_delta(x, y, w, wp, idx=range(9, 9), precision=prec).shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 50])
+def test_pair_delta_full_pass_at_1e6(d, cuda_device):
+    """The full pass at N = 1e6 (phase D's D = 2; D = 50 at the Sec. 4.1
+    width), as a range and over the whole pool."""
+    gen = torch.Generator(device=cuda_device).manual_seed(200 + d)
+    n = 1_000_000
+    x, y = _pool(gen, cuda_device, n, d, torch.float32)
+    w = torch.randn(d, generator=gen, device=cuda_device)
+    wp = w + 0.05 * torch.randn(d, generator=gen, device=cuda_device)
+    want = ops.logit_delta(x, y, w, wp, mode="never")
+    for idx in (None, range(0, n)):
+        torch.testing.assert_close(ops.logit_delta(x, y, w, wp, idx=idx, mode="always"), want,
+                                   rtol=FP32_TOL, atol=FP32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["fp32", "bf16"])
+def test_bf16_logit_call_is_one_launch(rows, cuda_device):
+    """precision="bf16" rounds the pair (and fp32 rows) in the kernel: each
+    form is one launch on the card, with no cast in front of it, and within
+    1e-5 of the plain route, which rounds copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    n, d, k, m = 12214, 50, 32, 100
+    x, y = _pool(gen, cuda_device, n, d, torch.bfloat16 if rows == "bf16" else torch.float32)
+    w = 2.0 * torch.randn(k, d, generator=gen, device=cuda_device)
+    wp = w + 0.05 * torch.randn(k, d, generator=gen, device=cuda_device)
+    idx = torch.randint(0, n, (k, m), generator=gen, device=cuda_device, dtype=torch.int32)
+    xg, yg = x[idx.long()].contiguous(), y[idx.long()].contiguous()
+    forms = [lambda mode: ops.gather_and_delta(x, y, idx, w, wp, mode=mode, precision="bf16"),
+             lambda mode: ops.batched_logit_delta(xg, yg, w, wp, mode=mode, precision="bf16"),
+             lambda mode: ops.logit_delta(x, y, w[0], wp[0], idx=idx[0], mode=mode,
+                                          precision="bf16"),
+             lambda mode: ops.logit_delta(x, y, w[0], wp[0], idx=range(5, n), mode=mode,
+                                          precision="bf16")]
+    for run in forms:
+        want = run("never")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = run("always")
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "pair_delta_kernel" in kernels[0], kernels
+        torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", _ROUND_CASES)
 def test_round_kernel_matches_plain(case, cuda_device):

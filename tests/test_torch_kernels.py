@@ -57,7 +57,7 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
-@pytest.mark.parametrize("n,d", [(8, 4), (100, 50), (1000, 3)])
+@pytest.mark.parametrize("n,d", [(8, 4), (100, 50), (1000, 3), (64, 1), (300, 2)])
 def test_logit_delta_matches_pallas(n, d):
     rng = np.random.default_rng(n * 7 + d)
     x = rng.standard_normal((n, d)).astype(np.float32)
@@ -78,6 +78,8 @@ def test_logit_delta_matches_pallas(n, d):
     (4, 100, 50, 32),   # ragged tail
     (16, 37, 3, 16),    # ragged, K=16
     (7, 5, 2, 8),       # m smaller than the tile
+    (3, 20, 1, 8),      # D = 1
+    (5, 33, 2, 16),     # D = 2, Fig. 5's width, ragged
 ])
 def test_batched_logit_delta_matches_pallas(k, m, d, tile):
     rng = np.random.default_rng(k * 1000 + m)
@@ -105,6 +107,48 @@ def test_gather_and_delta_matches_pallas():
     # the wrapper of the kernel module takes the same plain version on the CPU
     direct = batched_loglik.gather_and_delta(_t(x), _t(y), _t(idx), _t(w), _t(wp))
     assert torch.equal(direct, got)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_gather_and_delta_narrow_rows_match_pallas(d):
+    """The gathered round at D = 1 and at Fig. 5's D = 2, one row per lane
+    on the card."""
+    rng = np.random.default_rng(40 + d)
+    n, k, m = 300, 4, 37
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = _labels(rng, n)
+    idx = rng.integers(0, n, size=(k, m)).astype(np.int32)
+    w, wp = _pair(rng, k, d)
+    want = np.asarray(j_gather(*(jnp.asarray(a) for a in (x, y, idx, w, wp)),
+                               tile_m=16, interpret=True))
+    got = ops.gather_and_delta(_t(x), _t(y), _t(idx), _t(w), _t(wp))
+    np.testing.assert_allclose(got.numpy(), want, rtol=FP32_TOL, atol=FP32_TOL)
+
+
+@pytest.mark.parametrize("d", [2, 50])
+def test_logit_delta_range_form(d):
+    """The exact pass's contiguous form, ``idx=range(start, stop)``, at an
+    offset that is no multiple of any tile: equal to the index-tensor form
+    on the same rows, and to the Pallas kernel on those rows."""
+    rng = np.random.default_rng(60 + d)
+    n, start, stop = 1000, 37, 338
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = _labels(rng, n)
+    w, wp = _pair(rng, 1, d)
+    want = np.asarray(j_logit(jnp.asarray(x[start:stop]), jnp.asarray(y[start:stop]),
+                              jnp.asarray(w[0]), jnp.asarray(wp[0]), tile_n=64, interpret=True))
+    args = (_t(x), _t(y), _t(w[0]), _t(wp[0]))
+    got = ops.logit_delta(*args, idx=range(start, stop))
+    by_index = ops.logit_delta(*args, idx=torch.arange(start, stop, dtype=torch.int32))
+    assert got.shape == (stop - start,) and torch.equal(got, by_index)
+    np.testing.assert_allclose(got.numpy(), want, rtol=FP32_TOL, atol=FP32_TOL)
+    assert torch.equal(logit_loglik.logit_delta(*args, idx=range(start, stop)), got)
+    for p in ("fp32", "bf16"):
+        assert torch.equal(ops.logit_delta(*args, idx=range(start, stop), precision=p),
+                           ops.logit_delta(*args, idx=torch.arange(start, stop), precision=p))
+    for bad in (range(0, n + 1), range(-1, 5), range(0, 10, 2)):
+        with pytest.raises(ValueError, match="range"):
+            ops.logit_delta(*args, idx=bad)
 
 
 def test_bf16_matches_jax_bf16_paths():
