@@ -236,7 +236,10 @@ def phase_a_logit(report):
             lib = lambda xx=xx, y=y, w=w, wp=wp, i=lib_idx, r=lib_rows: logit_library(
                 xx, y, w, wp, idx=i, rows=r)
             byts = rows * (d * bx + 4 + 4 + (4 if reads_idx else 0)) + 2 * d * 4
-            cold = (xx, y, w, wp, idx, prec) if form != "rounds" and byts < COLD_BYTES else None
+            cold = None
+            if form != "rounds" and byts < COLD_BYTES:
+                cold = ((xx, y), lambda cx, cy, w=w, wp=wp, idx=idx, p=prec: ops.logit_delta(
+                    cx, cy, w[0], wp[0], idx=idx, precision=p))
             cases.append(("logit_delta", f"{what} {prec}", prec, run, plain, lib, byts,
                           rows * (4 * d + 30), (form, n, d, prec) == ("rounds", 12214, 50, "fp32"),
                           cold))
@@ -274,7 +277,7 @@ def phase_a_logit(report):
         # call: keep each timed queue near 300 launches
         (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 10)
         lib_ms, _ = time_ms(lib, 30)
-        cold_ms = cold and time_cold(cold)
+        cold_ms = cold and time_cold(*cold)
         record(report, name, label, err, ms, plain_ms, byts, flops, host_ms, plain_host_ms,
                main_shape, library_ms=lib_ms, cold_ms=cold_ms)
         if cold_ms:
@@ -283,22 +286,16 @@ def phase_a_logit(report):
     del pools
 
 
-def time_cold(case) -> float:
-    """Device ms of one full pass whose pool is not in L2: the calls cycle
-    through copies of the pool that hold ``COLD_BYTES`` in all."""
+def time_cold(pools, fn) -> float:
+    """Device ms of one ``fn(*pools)`` call whose pools are not in L2: the
+    calls cycle through copies of the pools that hold ``COLD_BYTES`` in
+    all, and each call reads a copy that later ones pushed out of L2."""
     import itertools
 
-    from repro_torch.kernels import ops
-
-    x, y, w, wp, idx, prec = case
-    copies = itertools.cycle([(x.clone(), y.clone())
-                              for _ in range(-(-COLD_BYTES // (x.nbytes + y.nbytes)))])
-
-    def run():
-        cx, cy = next(copies)
-        return ops.logit_delta(cx, cy, w[0], wp[0], idx=idx, precision=prec)
-
-    return time_ms(run, 60)[0]
+    size = sum(t.nbytes for t in pools)
+    copies = itertools.cycle([tuple(t.clone() for t in pools)
+                              for _ in range(-(-COLD_BYTES // size))])
+    return time_ms(lambda: fn(*next(copies)), 60)[0]
 
 
 def phase_a(report):
@@ -462,42 +459,80 @@ def phase_a_sv(report):
     gen = torch.Generator(device=dev).manual_seed(1)
     print("phase A (stochvol kernels): AR(1) delta, Fisher-Yates draw, pgibbs sweep")
 
-    # AR(1) pair delta: one chain's round on a shared (N,) pool, K=32 chains'
-    # rounds on per-chain (K, N) pools, and a full pass over 1e5 sections.
-    # ~16 flops a section (two pairs of multiply, subtract, square, divide,
-    # add and the scale; the logs are per chain).
+    # AR(1) pair delta at the main path's shapes: the rounds (m=100) of E
+    # (one chain, shared pools of N=1000), F (K=32, per-chain pools of
+    # N=1000) and G (one chain, shared pools of N = 1e4, 1e5; at N = 1e3 it is
+    # E's shape), G's exact pass over each whole pool (N = 1e3, 1e4, 1e5) as
+    # the range exact_decide passes (warm, and
+    # cold: pools out of L2) and through an index tensor beside it, and the
+    # pre-gathered (K, m) form; E's and F's rounds also on bf16 pools and on
+    # fp32 pools at precision bf16 (rounded in the kernel, one launch). ~16
+    # flops a section (two pairs of multiply, subtract, square, divide, add
+    # and the scale; the logs are per chain).
+    floor, _ = time_ms(lambda: torch.cuda._sleep(0), 60)
+    report["launch_floor_sv_ms"] = floor
+    print(f"  launch floor: torch.cuda._sleep(0) in the same harness {floor * 1e3:.2f}us a call")
     tol = 1e-4  # the same float32 operations; sums of terms up to ~1e3
-    for (k, m, n, gather) in [(1, 100, 1000, True), (32, 100, 1000, True), (1, 100_000, None, False)]:
-        for prec in ("fp32", "bf16"):
-            bx = 2 if prec == "bf16" else 4
-            cols = n if gather else m
-            pools = [0.3 * torch.randn(k, cols, generator=gen, device=dev) for _ in range(2)]
+    ar1 = []
+    for (what, k, n, precs) in [("E's round", 1, 1000, ("fp32", "bf16", "fp32 pools, bf16")),
+                                ("F's round", 32, 1000, ("fp32", "bf16", "fp32 pools, bf16")),
+                                ("G's round", 1, 10_000, ("fp32",)),
+                                ("G's round", 1, 100_000, ("fp32",)),
+                                ("G's exact pass", 1, 1000, ("fp32",)),
+                                ("G's exact pass", 1, 10_000, ("fp32",)),
+                                ("G's exact pass", 1, 100_000,
+                                 ("fp32", "bf16", "fp32 pools, bf16")),
+                                ("pre-gathered", 32, 100, ("fp32",))]:
+        for prec in precs:
+            pools = [0.3 * torch.randn(k, n, generator=gen, device=dev) for _ in range(2)]
             if prec == "bf16":
                 pools = [p.to(torch.bfloat16) for p in pools]
+            bx = 2 if prec == "bf16" else 4
+            precision = "fp32" if prec == "fp32" else "bf16"
             phi = 0.9 + 0.05 * torch.rand(k, generator=gen, device=dev)
             s2 = 0.005 + 0.01 * torch.rand(k, generator=gen, device=dev)
             par = (phi, s2, phi + 0.01, s2 * 1.05)
-            if gather:
-                idx = torch.randint(0, n, (k, m), generator=gen, device=dev, dtype=torch.int32)
-                xt, xp = (p[0] for p in pools) if k == 1 else pools
-                run = lambda xt=xt, xp=xp, idx=idx, par=par, mode="always": ops.gather_ar1_delta(
-                    xt, xp, idx, *par, mode=mode)
-                byts = k * m * (2 * bx + 4 + 4) + k * 16
-                label = f"gather K={k} m={m} of N={n} {'shared' if k == 1 else 'per-chain'} {prec}"
+            if k == 1:
+                pools = [p[0] for p in pools]  # shared (N,) pools
+            if what == "pre-gathered":
+                fn = lambda xt, xp, par=par, mode="always", p=precision: \
+                    ops.batched_gaussian_ar1_delta(xt, xp, *par, mode=mode, precision=p)
+                byts, m = k * n * (2 * bx + 4) + k * 16, n
+                label = f"pre-gathered K={k} m={n} {prec}"
+            elif what == "G's exact pass":
+                fn = lambda xt, xp, par=par, n=n, mode="always", p=precision: ops.gather_ar1_delta(
+                    xt, xp, range(0, n), *par, mode=mode, precision=p)
+                byts, m, label = n * (2 * bx + 4) + 16, n, f"{what} range N={n} {prec}"
             else:
-                run = lambda xt=pools[0], xp=pools[1], par=par, mode="always": \
-                    ops.batched_gaussian_ar1_delta(xt, xp, *par, mode=mode)
-                byts = k * m * (2 * bx + 4) + k * 16
-                label = f"full pass K={k} N={m} {prec}"
-            plain = lambda run=run: run(mode="never")
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            check(err <= tol * max(1.0, float(want.abs().max())),
-                  f"gaussian_ar1_delta {label} within {tol:g} (relative to max |l|) of its plain version")
-            (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 10)
-            record(report, "gaussian_ar1_delta", label, err, ms, plain_ms, byts, k * m * 16,
-                   host_ms, plain_host_ms, (k, m, prec, gather) == (32, 100, "fp32", True))
+                m = 100
+                idx = torch.randint(0, n, (k, m), generator=gen, device=dev, dtype=torch.int32)
+                fn = lambda xt, xp, idx=idx, par=par, mode="always", p=precision: \
+                    ops.gather_ar1_delta(xt, xp, idx, *par, mode=mode, precision=p)
+                byts = k * m * (2 * bx + 4 + 4) + k * 16
+                label = f"{what} K={k} m={m} of N={n} {'shared' if k == 1 else 'per-chain'} {prec}"
+            ar1.append((label, fn, pools, byts, k * m * 16, what == "G's exact pass",
+                        (k, n, prec, what) == (32, 1000, "fp32", "F's round")))
+            if what == "G's exact pass" and prec == "fp32":
+                full = torch.arange(n, dtype=torch.int32, device=dev)[None]
+                fn = lambda xt, xp, idx=full, par=par, mode="always": ops.gather_ar1_delta(
+                    xt, xp, idx, *par, mode=mode)
+                ar1.append((f"{what} index tensor N={n} {prec}", fn, pools,
+                            n * (2 * bx + 4 + 4) + 16, n * 16, False, False))
+    for label, fn, pools, byts, flops, cold, main_shape in ar1:
+        run = lambda fn=fn, pools=pools: fn(*pools)
+        plain = lambda fn=fn, pools=pools: fn(*pools, mode="never")
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= tol * max(1.0, float(want.abs().max())),
+              f"gaussian_ar1_delta {label} within {tol:g} (relative to max |l|) of its plain version")
+        (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 10)
+        cold_ms = cold and time_cold(pools, fn)
+        record(report, "gaussian_ar1_delta", label, err, ms, plain_ms, byts, flops, host_ms,
+               plain_host_ms, main_shape, cold_ms=cold_ms, above_floor_ms=ms - floor)
+        print(f"    above the launch floor: {(ms - floor) * 1e3:.2f}us" + (
+            f"; pools out of L2: kernel={cold_ms * 1e3:.2f}us, "
+            f"{byts / HBM_BYTES_PER_S * 1e3 / cold_ms:.1%} of the byte bound" if cold_ms else ""))
 
     # Fisher-Yates draw: 32 chains over N=1000, m=100, rounds to exhaustion
     # with ~20% of the chains inactive each round: identical everything.
@@ -599,10 +634,14 @@ def phase_a_sv(report):
         check(bool(torch.isfinite(got).all()) and frac <= 0.01,
               f"pgibbs_sweep {label}: finite, paths equal except where a uniform lies within "
               "float32 rounding of a CDF boundary (at most 1% of the paths)")
-        (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 5)
+        # the plain version is ~80 tensor operations a step (its sum and scan follow
+        # the kernel's order): wall time per call
+        (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 3, queued=False)
         byts = 2 * t * k * s * p * 4 + k * s * 4 + s * t * 4 + 2 * k * s * t * 4 + 8 * k
         record(report, "pgibbs_sweep", label, err, ms, plain_ms, byts, t * k * s * p * 25,
-               host_ms, plain_host_ms, (k, s) == (32, 200), paths_differ_frac=frac)
+               host_ms, plain_host_ms, (k, s) == (32, 200), paths_differ_frac=frac,
+               above_floor_ms=ms - floor)
+        print(f"    above the launch floor: {(ms - floor) * 1e3:.2f}us")
 
 
 # the ce family's path shapes: m=100 of N = 64 x 127 next-token sections of
@@ -849,6 +888,9 @@ def phase_f(report):
           "fused and plain routes agree on every proposal whose p-value is not within 0.1% of epsilon")
 
 
+G_EXACT_STEPS = 20  # exact transitions timed at each N: host time varies between them
+
+
 def phase_g(report):
     import torch
 
@@ -863,6 +905,8 @@ def phase_g(report):
             data = stochvol.synth(20, num_series=s, length=5)
             n = data.obs.numel()
             target = stochvol.make_param_target(data.h_true, "phi")
+            check(target.range_sections, f"phase G N={n}: the exact pass reads ranges of the "
+                  "pools, with no index tensor")
             cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="fy")
             rw = stochvol.SingleLeafRW("phi", 0.02)
             state0, step = make_kernel(target, rw, cfg)
@@ -879,10 +923,10 @@ def phase_g(report):
             torch.cuda.synchronize()
             sub_s = (time.perf_counter() - t0) / 50
             t0 = time.perf_counter()
-            for _ in range(3):
+            for _ in range(G_EXACT_STEPS):
                 mh_step(gen, theta, target, rw)
             torch.cuda.synchronize()
-            ex_s = (time.perf_counter() - t0) / 3
+            ex_s = (time.perf_counter() - t0) / G_EXACT_STEPS
             mean_eval = float(torch.stack(evals).float().mean())
             rows.append({"S": s, "N": n, "mean_n_evaluated": mean_eval, "frac": mean_eval / n,
                          "subsampled_us": sub_s * 1e6, "exact_us": ex_s * 1e6})

@@ -107,6 +107,8 @@ def _ar1_loglik(data, params, idx):
 
 def _ar1_delta(data, params, params_p, idx, mode: str = "auto"):
     xt, xp = data
+    if isinstance(idx, range):  # a run of the shared pools, read in place
+        return ops.gather_ar1_delta(xt, xp, idx, *params, *params_p, mode=mode)[0]
     out = ops.gather_ar1_delta(xt, xp, idx.reshape(1, -1), *params, *params_p, mode=mode)
     return out.reshape(idx.shape)
 
@@ -139,7 +141,8 @@ def _ce_ensemble_delta(data, table, table_p, idx, mode: str = "auto"):
 
 register_family(KernelFamily("logit", _logit_loglik, _logit_delta, _logit_ensemble_delta,
                              takes_range=True))
-register_family(KernelFamily("gaussian_ar1", _ar1_loglik, _ar1_delta, _ar1_ensemble_delta))
+register_family(KernelFamily("gaussian_ar1", _ar1_loglik, _ar1_delta, _ar1_ensemble_delta,
+                             takes_range=True))
 register_family(KernelFamily("ce", _ce_loglik, _ce_delta, _ce_ensemble_delta))
 
 _LATER = {"gaussian_mean": "the partition slice"}

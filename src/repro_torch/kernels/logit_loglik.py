@@ -21,7 +21,7 @@ import functools
 import torch
 
 from . import _build
-from .ref import logit_delta_ref
+from .ref import check_range, logit_delta_ref
 
 __all__ = ["logit_delta", "logit_delta_ref", "launch_pair_delta", "select_rows"]
 
@@ -38,18 +38,13 @@ def _bind():
     return fn
 
 
-def _check_range(idx: range, n: int) -> None:
-    if idx.step != 1 or not 0 <= idx.start <= idx.stop <= n:
-        raise ValueError(f"idx must be a range of step 1 within [0, {n}), got {idx}")
-
-
 def select_rows(x: torch.Tensor, y: torch.Tensor, idx):
     """Rows ``idx`` of the pool (x (N, D), y (N,)): an int tensor gathers,
     a ``range`` slices; ``None`` is the whole pool."""
     if idx is None:
         return x, y
     if isinstance(idx, range):
-        _check_range(idx, x.shape[0])
+        check_range(idx, x.shape[0])
         return x[idx.start:idx.stop], y[idx.start:idx.stop]
     idx = idx.long()
     return x[idx], y[idx]
@@ -106,7 +101,7 @@ def logit_delta(x: torch.Tensor, y: torch.Tensor, w_cur: torch.Tensor,
         raise ValueError(f"x must be (N, D), got {tuple(x.shape)}")
     first = 0
     if isinstance(idx, range):
-        _check_range(idx, x.shape[0])
+        check_range(idx, x.shape[0])
         first, m, idx = idx.start, len(idx), None
     else:
         m = x.shape[0] if idx is None else idx.shape[0]

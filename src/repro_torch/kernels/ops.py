@@ -17,10 +17,10 @@ The dispatch vocabulary is the JAX package's (``repro.kernels.ops``):
 ``precision="fp32"`` is float32 end to end; ``precision="bf16"`` reads the
 data rows (and rounds the weight pair) as bfloat16 while every kernel still
 accumulates in float32; ``precision="auto"`` defers to ``REPRO_PRECISION``,
-defaulting to fp32. The plain route makes bf16 copies; the logit and CE
-kernels round fp32 operands to bf16 as they load them, so a bf16 call is one
-launch and no pool or (K, V, D) table is copied (a bf16 pool halves the
-bytes read). The AR(1) delta reads bf16 copies of its pools.
+defaulting to fp32. The plain route makes bf16 copies; the logit, CE and
+AR(1) kernels round fp32 operands to bf16 as they load them, so a bf16 call
+is one launch and no pool or (K, V, D) table is copied (a bf16 pool halves
+the bytes read).
 
 There is no fallback: a kernel that fails to build or launch raises.
 """
@@ -233,29 +233,41 @@ def _chain_params(like: torch.Tensor, *vals) -> list[torch.Tensor]:
             for v in vals]
 
 
+def _ar1_args(xt, xp, mode, precision, *vals):
+    """Dispatch for the AR(1) family: (run the kernel?, xt, xp, the (K,)
+    parameters, round in the kernel?). On the plain route bf16 is a copy of
+    the pools in bf16; the kernel rounds fp32 pools as it loads them."""
+    kernel = use_kernel(mode, xt)
+    bf16 = resolve_precision(precision) == "bf16"
+    params = _chain_params(xt, *vals)
+    if bf16 and not kernel:
+        xt, xp = _bf16_rows(xt), _bf16_rows(xp)
+    return kernel, xt, xp, params, bf16 and kernel and xt.dtype == torch.float32
+
+
 def batched_gaussian_ar1_delta(xt, xp, phi_cur, s2_cur, phi_prop, s2_prop, *,
                                mode: str = "auto", precision: str = "auto"):
     """Ensemble-batched (K, m) AR(1) transition-factor delta block on
     gathered sections (the stochvol sigma^2/phi local sections)."""
-    if resolve_precision(precision) == "bf16":
-        xt, xp = _bf16_rows(xt), _bf16_rows(xp)
-    params = _chain_params(xt, phi_cur, s2_cur, phi_prop, s2_prop)
-    if not use_kernel(mode, xt):
+    kernel, xt, xp, params, rnd = _ar1_args(xt, xp, mode, precision,
+                                            phi_cur, s2_cur, phi_prop, s2_prop)
+    if not kernel:
         return ref.batched_gaussian_ar1_delta_ref(xt, xp, *params)
-    return _ar1_batched_kernel(xt, xp, *params)
+    return _ar1_batched_kernel(xt, xp, *params, round_bf16=rnd)
 
 
 def gather_ar1_delta(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop, *,
                      mode: str = "auto", precision: str = "auto"):
     """(K, m) AR(1) delta block on sections ``idx`` (K, m) of shared (N,) or
     per-chain (K, N) pools — one call per sequential-test round (K = 1 for a
-    single chain)."""
-    if resolve_precision(precision) == "bf16":
-        xt, xp = _bf16_rows(xt), _bf16_rows(xp)
-    params = _chain_params(xt, phi_cur, s2_cur, phi_prop, s2_prop)
-    if not use_kernel(mode, xt):
+    single chain) — or (1, m) on ``range(start, stop)`` of shared pools, the
+    exact transition's full pass, which the kernel reads with no index
+    tensor."""
+    kernel, xt, xp, params, rnd = _ar1_args(xt, xp, mode, precision,
+                                            phi_cur, s2_cur, phi_prop, s2_prop)
+    if not kernel:
         return ref.gather_ar1_delta_ref(xt, xp, idx, *params)
-    return _ar1_gather_kernel(xt, xp, idx, *params)
+    return _ar1_gather_kernel(xt, xp, idx, *params, round_bf16=rnd)
 
 
 def fy_draw(u, idx, pos, size, m: int, active=None, *, mode: str = "auto"):

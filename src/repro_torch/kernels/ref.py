@@ -142,15 +142,28 @@ def batched_gaussian_ar1_delta_ref(xt, xp, phi_cur, s2_cur, phi_prop, s2_prop) -
     return gaussian_ar1_delta_ref(xt, xp, col(phi_cur), col(s2_cur), col(phi_prop), col(s2_prop))
 
 
+def check_range(idx: range, n: int) -> None:
+    """Raise unless ``idx`` is a run of step 1 within a pool of ``n`` rows."""
+    if idx.step != 1 or not 0 <= idx.start <= idx.stop <= n:
+        raise ValueError(f"idx must be a range of step 1 within [0, {n}), got {idx}")
+
+
 def gather_pool(pool, idx) -> torch.Tensor:
-    """Rows ``idx`` (K, m) of a shared (N,) pool or of per-chain (K, N) pools."""
+    """Rows ``idx`` (K, m) of a shared (N,) pool or of per-chain (K, N)
+    pools; ``range(start, stop)`` is a run of a shared pool, (1, m)."""
+    if isinstance(idx, range):
+        if pool.ndim != 1:
+            raise ValueError(f"a range of sections reads a shared (N,) pool, "
+                             f"got {tuple(pool.shape)}")
+        check_range(idx, pool.shape[0])
+        return pool[None, idx.start:idx.stop]
     idx = idx.long()
     return pool[idx] if pool.ndim == 1 else pool.gather(1, idx)
 
 
 def gather_ar1_delta_ref(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop) -> torch.Tensor:
     """Gather each chain's sections ``idx`` (K, m) from the (N,) or (K, N)
-    pools, then the batched delta."""
+    pools (or slice a ``range`` of the (N,) pools), then the batched delta."""
     return batched_gaussian_ar1_delta_ref(gather_pool(xt, idx), gather_pool(xp, idx),
                                           phi_cur, s2_cur, phi_prop, s2_prop)
 

@@ -337,6 +337,161 @@ def test_ar1_delta_kernel_matches_plain(prec, cuda_device):
     assert ops.launches["gaussian_ar1_delta"] == 3
 
 
+# The AR(1) delta's card cases: every (K, m) of K in {1, 32, 33} and m in
+# {1, 100, 129}, on shared (N,) and per-chain (K, N) pools and on
+# pre-gathered (K, m) sections, each also 4 (fp32) or 2 (bf16) bytes off
+# the 16-byte boundary; fp32 pools, bf16 pools, and fp32 pools at precision
+# bf16 (rounded in the kernel)
+_AR1_PRECS = ["fp32", "bf16", "fp32 pools, precision bf16"]
+
+
+def _offset(a: np.ndarray, dtype, dev, offset: int) -> torch.Tensor:
+    """``a`` on the card as ``dtype``, ``offset`` elements into a buffer."""
+    buf = torch.empty(a.size + offset, dtype=dtype, device=dev)[offset:]
+    buf.copy_(torch.tensor(a.ravel()))
+    return buf.view(a.shape)
+
+
+def _ar1_calls(prec, dev):
+    """(label, call(mode)) for every card case of one precision; the inputs
+    come from numpy, so every run sees the same numbers."""
+    dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+    precision = "fp32" if prec == "fp32" else "bf16"
+    n = 1000
+    calls = []
+    for k in (1, 32, 33):
+        rng = np.random.default_rng(k)
+        pools = [(0.3 * rng.standard_normal((k, n))).astype(np.float32) for _ in range(2)]
+        phi = rng.uniform(0.85, 0.99, k).astype(np.float32)
+        s2 = rng.uniform(0.005, 0.02, k).astype(np.float32)
+        par = [torch.tensor(v, device=dev) for v in (phi, s2, phi + 0.01, s2 * 1.1)]
+        for m in (1, 100, 129):
+            idx = torch.tensor(rng.integers(0, n, (k, m)), dtype=torch.int32, device=dev)
+            for offset in (0, 1):
+                per_chain = [_offset(a, dtype, dev, offset) for a in pools]
+                shared = [_offset(a[0], dtype, dev, offset) for a in pools]
+                sections = [_offset(a[:, :m], dtype, dev, offset) for a in pools]
+                where = f"K={k} m={m} offset={offset}"
+                calls += [
+                    (f"shared {where}", lambda mode, x=shared, i=idx, par=par: ops.gather_ar1_delta(
+                        *x, i, *par, mode=mode, precision=precision)),
+                    (f"per-chain {where}", lambda mode, x=per_chain, i=idx, par=par:
+                     ops.gather_ar1_delta(*x, i, *par, mode=mode, precision=precision)),
+                    (f"pre-gathered {where}", lambda mode, x=sections, par=par:
+                     ops.batched_gaussian_ar1_delta(*x, *par, mode=mode, precision=precision))]
+    return calls
+
+
+def _outputs_digest(outs) -> str:
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _ar1_digest(prec, dev) -> str:
+    """sha256 (first 16 hex digits) of the kernel's outputs over every case
+    of ``_ar1_calls``."""
+    return _outputs_digest([call("always") for _, call in _ar1_calls(prec, dev)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", _AR1_PRECS)
+def test_ar1_delta_kernel_shapes(prec, cuda_device):
+    """Every card case against its plain version (the tolerance of
+    test_ar1_delta_kernel_matches_plain), one launch each."""
+    for label, call in _ar1_calls(prec, cuda_device):
+        ops.reset_launches()
+        got = call("always")
+        assert ops.launches["gaussian_ar1_delta"] == 1, label
+        torch.testing.assert_close(got, call("never"), rtol=1e-5, atol=1e-4, msg=label)
+
+
+# _ar1_digest of each precision from the thread-per-section kernel (256
+# threads a block, the pools cast to bf16 in front of it for precision bf16),
+# which every form of the warp-a-block kernel must reproduce bit for bit
+_AR1_DIGESTS = {
+    "fp32": "120014f6e0723192",
+    "bf16": "14cac01f2856a69f",
+    "fp32 pools, precision bf16": "14cac01f2856a69f",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", _AR1_PRECS)
+def test_ar1_delta_reproduces_thread_kernel_bits(prec, cuda_device):
+    """Every output equals, bit for bit, what the earlier thread-per-section
+    kernel gave on the same inputs: the same float32 operations in the same
+    order, and the bf16 rounding of x.to(torch.bfloat16)."""
+    assert _ar1_digest(prec, cuda_device) == _AR1_DIGESTS[prec]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", _AR1_PRECS)
+def test_ar1_delta_range_form(prec, cuda_device):
+    """The exact pass's contiguous form on shared pools of N = 10007
+    sections (off every group of 16 bytes), also 4 or 2 bytes off the
+    16-byte boundary and with xt and xp at different offsets from it:
+    bit-equal to the index form on the same sections, within tolerance of
+    the plain version, one launch a call; an empty run gives (1, 0)."""
+    dtype = torch.bfloat16 if prec == "bf16" else torch.float32
+    precision = "fp32" if prec == "fp32" else "bf16"
+    rng = np.random.default_rng(17)
+    n = 10007
+    a, b = ((0.3 * rng.standard_normal(n)).astype(np.float32) for _ in range(2))
+    par = [torch.tensor([v], dtype=torch.float32, device=cuda_device)
+           for v in (0.95, 0.01, 0.96, 0.011)]
+    for off_t, off_p in ((0, 0), (1, 1), (0, 1), (3, 2)):
+        xt, xp = _offset(a, dtype, cuda_device, off_t), _offset(b, dtype, cuda_device, off_p)
+        for start, stop in [(0, n), (3, n), (1001, 5000), (n - 1, n), (5, 6), (77, 77 + 1023)]:
+            run = lambda idx, mode="always": ops.gather_ar1_delta(xt, xp, idx, *par, mode=mode,
+                                                                  precision=precision)
+            ops.reset_launches()
+            got = run(range(start, stop))
+            assert ops.launches["gaussian_ar1_delta"] == 1 and got.shape == (1, stop - start)
+            by_index = run(torch.arange(start, stop, dtype=torch.int32, device=cuda_device)[None])
+            assert torch.equal(got, by_index), (off_t, off_p, start, stop)
+            torch.testing.assert_close(got, run(range(start, stop), "never"), rtol=1e-5,
+                                       atol=1e-4)
+        assert run(range(9, 9)).shape == (1, 0)
+
+
+@pytest.mark.cuda
+def test_bf16_ar1_call_is_one_launch(cuda_device):
+    """precision="bf16" on fp32 pools rounds them in the kernel: each form
+    is one launch on the card, with no cast in front of it, and its bits are
+    the kernel's on pools cast with x.to(torch.bfloat16)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(5)
+    k, m, n = 32, 100, 1000
+    pools = [torch.tensor((0.3 * rng.standard_normal((k, n))).astype(np.float32),
+                          device=cuda_device) for _ in range(2)]
+    idx = torch.tensor(rng.integers(0, n, (k, m)), dtype=torch.int32, device=cuda_device)
+    par = [torch.tensor(v, device=cuda_device) for v in
+           (rng.uniform(0.85, 0.99, k).astype(np.float32),
+            rng.uniform(0.005, 0.02, k).astype(np.float32))]
+    par += [par[0] + 0.01, par[1] * 1.1]
+    # x: the (K, N) pools and their first m columns as (K, m) sections
+    forms = [lambda x, p: ops.gather_ar1_delta(*x[:2], idx, *par, precision=p),
+             lambda x, p: ops.gather_ar1_delta(x[0][0], x[1][0], idx, *par, precision=p),
+             lambda x, p: ops.batched_gaussian_ar1_delta(*x[2:], *par, precision=p),
+             lambda x, p: ops.gather_ar1_delta(x[0][0], x[1][0], range(7, n),
+                                               *(v[:1] for v in par), precision=p)]
+    pools += [x[:, :m].contiguous() for x in pools]
+    cast = [x.to(torch.bfloat16) for x in pools]
+    for run in forms:
+        want = run(cast, "fp32")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = run(pools, "bf16")
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "ar1_" in kernels[0], kernels
+        assert torch.equal(got, want)
+
+
 # name: (K, capacity, size, pos, m, uniforms, inactive share, rounds). A
 # number as the uniforms gives every step that uniform; chain 3, where there
 # is one, has a pool 5% smaller than the others' (pos clamped to it).
@@ -425,6 +580,72 @@ def test_pgibbs_kernel_matches_plain(cuda_device):
     same = (got == want).all(-1)
     assert float(same.float().mean()) >= 0.99 and ops.launches["pgibbs_sweep"] == 1
     assert bool(torch.isfinite(got).all())
+
+
+# The sweep's card cases: P particles a series in {1, 16, 25, 32, 33, 256}
+# (one or several series a warp, one or several particles a lane), each at
+# a Latin square of (K, S, T) over K in {1, 32, 33}, S in {1, 200, 201} and
+# T in {1, 5, 40} (every pair of sizes meets once) and at the main path's
+# K = 32, S = 200, T = 5
+_SWEEP_PARTICLES = [1, 16, 25, 32, 33, 256]
+_SWEEP_SHAPES = [(k, s, (1, 5, 40)[(i + j) % 3]) for i, k in enumerate((1, 32, 33))
+                 for j, s in enumerate((1, 200, 201))] + [(32, 200, 5)]
+
+
+def _sweep_inputs(k, s, t, p, dev):
+    """obs, h, phi, s2 and the sweep's randomness from numpy."""
+    rng = np.random.default_rng([k, s, t, p])
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    obs = np.exp(0.15 * rng.standard_normal((s, t))) * rng.standard_normal((s, t))
+    h = 0.3 * rng.standard_normal((k, s, t))
+    phi, s2 = rng.uniform(0.85, 0.99, k), rng.uniform(0.005, 0.03, k)
+    noise = rng.standard_normal((t, k, s, p), dtype=np.float32)
+    u = rng.random((t, k, s, p), dtype=np.float32)
+    u_pick = rng.random((k, s), dtype=np.float32)
+    return [f32(a) for a in (noise, u, u_pick, obs, h, phi, s2)]
+
+
+def _sweep_digest(p, dev) -> str:
+    """sha256 (first 16 hex digits) of the kernel's paths at every shape of
+    ``_SWEEP_SHAPES`` for P particles."""
+    outs = []
+    for (k, s, t) in _SWEEP_SHAPES:
+        outs.append(ops.pgibbs_sweep(*_sweep_inputs(k, s, t, p, dev), mode="always"))
+    return _outputs_digest(outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", _SWEEP_PARTICLES)
+def test_pgibbs_kernel_shapes(p, cuda_device):
+    """Every shape against the plain version (at most 1% of the paths
+    differ, each within float32 rounding of a CDF boundary), one launch
+    each; with one particle the retained path comes back unchanged."""
+    for (k, s, t) in _SWEEP_SHAPES:
+        args = _sweep_inputs(k, s, t, p, cuda_device)
+        ops.reset_launches()
+        got = ops.pgibbs_sweep(*args, mode="always")
+        assert ops.launches["pgibbs_sweep"] == 1
+        want = ops.pgibbs_sweep(*args, mode="never")
+        frac = 1.0 - float((got == want).all(-1).float().mean())
+        assert bool(torch.isfinite(got).all()) and frac <= 0.01, (k, s, t, frac)
+        if p == 1:
+            assert torch.equal(got, args[4]), (k, s, t)
+
+
+# _sweep_digest of each P from the warp-per-series kernel (eight series a
+# block, global loads inside the step loop, one full-warp tree per series),
+# which the new kernel must reproduce bit for bit
+_SWEEP_DIGESTS = {1: "0c2fb6a33cdbc4dd", 16: "588c59627aa2c8d3", 25: "fef0ce4eb88a2031",
+                  32: "d6a65edebc73028e", 33: "4ff1b701d083822d", 256: "9004acd1a1dd61dc"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", _SWEEP_PARTICLES)
+def test_pgibbs_kernel_reproduces_warp_kernel_bits(p, cuda_device):
+    """Every path equals, bit for bit, what the earlier warp-per-series
+    kernel gave from the same numbers: the weights, max, sum, division and
+    scan are its float32 operations in its order."""
+    assert _sweep_digest(p, cuda_device) == _SWEEP_DIGESTS[p]
 
 
 def test_cuda_dispatch_refuses_cpu_tensors():

@@ -162,3 +162,55 @@ def test_sweep_plain_version_shapes_and_compat():
     jlp = jsv.exact_state_loglik(jnp.asarray(obs.numpy()), jnp.asarray(h[0].numpy()),
                                  jsv.SVParams(jnp.asarray(0.95), jnp.asarray(0.01)))
     assert math.isclose(float(lp), float(jlp), rel_tol=1e-5)
+
+
+def _lane_order_cdf(e: np.ndarray) -> np.ndarray:
+    """The sweep kernel's resampling CDF for one series, written lane by lane
+    in float32: particle i = g + G r on lane g of G lanes (G the smallest
+    power of two >= P, at most 32); each lane sums its particles, an xor
+    butterfly sums the lanes, each chunk r of G particles is scanned across
+    the lanes (Hillis-Steele) and offset by the chunks before."""
+    f32 = np.float32
+    p = e.size
+    g_n = 1
+    while g_n < min(p, 32):
+        g_n *= 2
+    r_n = -(-p // g_n)
+    val = lambda g, r: e[g + g_n * r] if g + g_n * r < p else f32(0)
+    tot = [f32(0)] * g_n
+    for g in range(g_n):
+        for r in range(r_n):
+            tot[g] = f32(tot[g] + val(g, r))
+    off = g_n // 2
+    while off:
+        tot = [f32(tot[g] + tot[g ^ off]) for g in range(g_n)]
+        off //= 2
+    cdf, carry = np.zeros(p, np.float32), f32(0)
+    for r in range(r_n):
+        v = [f32(val(g, r) / tot[g]) for g in range(g_n)]
+        off = 1
+        while off < g_n:
+            v = [f32(v[g] + v[g - off]) if g >= off else v[g] for g in range(g_n)]
+            off *= 2
+        for g in range(g_n):
+            if g + g_n * r < p:
+                cdf[g + g_n * r] = f32(carry + v[g])
+        carry = f32(carry + v[g_n - 1])
+    return cdf
+
+
+@pytest.mark.parametrize("p", [1, 3, 16, 25, 32, 33, 100, 256])
+def test_plain_resampling_cdf_follows_the_kernel_order(p):
+    """The plain sweep's CDF adds in the kernel's order (so the two resample
+    alike on the card): bit for bit the lane-by-lane transcription above,
+    given the same exponentials, and within rounding of a plain cumsum."""
+    from repro_torch.kernels.pgibbs import _resampling_cdf
+
+    rng = np.random.default_rng(p)
+    for _ in range(5):
+        logw = torch.tensor((3.0 * rng.standard_normal((1, p))).astype(np.float32))
+        got = _resampling_cdf(logw)[0].numpy()
+        e = torch.exp(logw - logw.amax(-1, keepdim=True))[0].numpy()
+        np.testing.assert_array_equal(got, _lane_order_cdf(e))
+        np.testing.assert_allclose(got, np.cumsum(e / e.sum()), rtol=0, atol=1e-6)
+        assert np.all(np.diff(got) >= 0)

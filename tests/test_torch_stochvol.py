@@ -26,7 +26,9 @@ from repro_torch.core import (
     ChainEnsemble,
     SubsampledMHConfig,
     SubsampledMHOp,
+    build_target,
     cycle,
+    exact_decide,
     finish_transition,
     make_sampler,
     subsampled_mh_step,
@@ -214,6 +216,81 @@ def test_gaussian_ar1_family_matches_jax(sv):
     got = tj.log_local_ensemble(th0, th1, _t(idxk))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     assert torch.equal(tj.local_round(th0, th1, ensemble=True)(_t(idxk)), got)
+
+
+@pytest.mark.parametrize("start,stop", [(0, 750), (3, 400), (749, 750)])
+def test_gaussian_ar1_family_range_form(sv, start, stop):
+    """The family's one-chain delta on ``range(start, stop)`` (the exact
+    pass's form, read with no index tensor) equals its index form on the
+    same sections bit for bit, and the JAX family's log_local within the
+    tolerance of test_gaussian_ar1_family_matches_jax, on the closure target
+    and on the joint target."""
+    h = np.asarray(sv["j"].h_true)
+    jt = jsv.make_param_target(sv["j"].h_true, "phi")
+    tt = stochvol.make_param_target(sv["t"].h_true, "phi")
+    tj = stochvol.make_joint_param_target(150, 5, device="cpu")
+    assert tt.range_sections and tj.range_sections
+    want = np.asarray(jt.log_local(_theta(0.9, 0.02, h, "j"), _theta(0.85, 0.03, h, "j"),
+                                   jnp.arange(start, stop, dtype=jnp.int32)))
+    t0, t1 = _theta(0.9, 0.02, h), _theta(0.85, 0.03, h)
+    for target in (tt, tj):
+        got = target.log_local(t0, t1, range(start, stop))
+        by_index = target.log_local(t0, t1, torch.arange(start, stop, dtype=torch.int32))
+        assert got.shape == (stop - start,) and torch.equal(got, by_index)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_ar1_delta_range_on_shared_pools():
+    """ops.gather_ar1_delta and the kernel module's wrapper take a range of
+    shared (N,) pools -> (1, m), equal to the index form in fp32 and bf16;
+    an empty run is (1, 0); runs outside the pool, with a step, or of
+    per-chain (K, N) pools raise."""
+    rng = np.random.default_rng(8)
+    n = 301
+    xt, xp = (_t((0.3 * rng.standard_normal(n)).astype(np.float32)) for _ in range(2))
+    par = [_t(np.asarray([v], np.float32)) for v in (0.95, 0.01, 0.93, 0.012)]
+    for start, stop in [(0, n), (7, 200), (n - 1, n)]:
+        idx = torch.arange(start, stop, dtype=torch.int32)[None]
+        for prec in ("fp32", "bf16"):
+            got = ops.gather_ar1_delta(xt, xp, range(start, stop), *par, precision=prec)
+            assert got.shape == (1, stop - start)
+            assert torch.equal(got, ops.gather_ar1_delta(xt, xp, idx, *par, precision=prec))
+        assert torch.equal(gaussian_ar1.gather_ar1_delta(xt, xp, range(start, stop), *par),
+                           ops.gather_ar1_delta(xt, xp, idx, *par))
+    assert ops.gather_ar1_delta(xt, xp, range(9, 9), *par).shape == (1, 0)
+    for bad in (range(0, n + 1), range(-1, 5), range(0, 10, 2)):
+        with pytest.raises(ValueError):
+            ops.gather_ar1_delta(xt, xp, bad, *par)
+    with pytest.raises(ValueError, match="shared"):
+        ops.gather_ar1_delta(xt[None], xp[None], range(0, 5), *par)
+
+
+@pytest.mark.parametrize("chunk_size", [None, 256, 77])
+def test_exact_decide_ar1_range_form_matches_index_tensor(sv, chunk_size):
+    """exact_decide on a make_param_target target scores the full pass's
+    chunks as ranges; the same log_local behind a target that gets index
+    tensors (the reference's ``arange`` chunks) reaches the same total
+    (mu_hat), decision, n_evaluated and rounds."""
+    tt = stochvol.make_param_target(sv["t"].h_true, "phi")
+    n = tt.num_sections
+    by_index = build_target(None, None, n, log_global=tt.log_global, log_local=tt.log_local)
+    assert tt.range_sections and not by_index.range_sections
+    rng = np.random.default_rng(4)
+    decisions = set()
+    for _ in range(12):
+        phi, s2 = rng.uniform(0.85, 0.99), rng.uniform(0.005, 0.02)
+        th = _theta(phi, s2)
+        thp = _theta(phi + rng.normal(0, 0.01), s2 * rng.uniform(0.9, 1.1))
+        g = tt.log_global(th, thp)
+        lu = torch.tensor(np.log(rng.uniform()), dtype=torch.float32)
+        (a, ia), (b, ib) = (exact_decide(th, thp, g, lu, t, chunk_size=chunk_size)
+                            for t in (tt, by_index))
+        assert all(torch.equal(a[v], b[v]) for v in ("phi", "sigma2"))
+        assert bool(ia.accepted) == bool(ib.accepted)
+        assert torch.equal(ia.mu_hat, ib.mu_hat) and int(ia.n_evaluated) == int(ib.n_evaluated) == n
+        assert int(ia.rounds) == int(ib.rounds)
+        decisions.add(bool(ia.accepted))
+    assert decisions == {True, False}
 
 
 def test_sections_built_once_per_transition():
