@@ -14,8 +14,19 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      in the same timing harness);
   B  one chain: BayesLR at N=12214, D=50, 1000 subsampled transitions and
      20 exact ones;
-  C  K=32 chains in lock-step (``run_posterior_ensemble``), then the fused
-     route against ``fused_kernels="never"`` on 200 fixed proposals;
+  B' the same chain from B's last sample under MALA (the gradient of the
+     first 100 rows, rescaled): a short sweep of the step, then 200
+     transitions;
+  C  K=32 chains in lock-step (``ChainEnsemble`` as
+     ``bayeslr.run_posterior_ensemble`` drives it), then the fused route
+     against ``fused_kernels="never"`` on 200 fixed proposals;
+  K  C's configuration with ``stepping="masked"`` for C's first 250 steps:
+     C's samples and infos bit for bit, in fewer supersteps than C's
+     lock-step rounds over those steps;
+  L  the adaptive form: masked stepping with ``ScheduleConfig(epsilon_max=0.2)``
+     and the Fisher–Yates sampler (the bounded draw, per-chain m_eff), K=32,
+     1000 steps, the knobs held to their bounds; then 20 steps through the
+     fused route against ``fused_kernels="never"``;
   D  the paper's Fig. 5 on the card: evaluated sections per transition at
      fixed theta for N = 1e4, 1e5, 1e6;
   E  stochastic volatility (Sec. 4.3), one chain: S=200 series x T=5, the
@@ -41,12 +52,14 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
   J  the same target on K=8 lock-step chains with per-chain (8, V, D) fp32
      tables, 20 steps.
 
-Launch counts are set to 0 before each of B-J and read after it; every
+Phase A also holds the bounded Fisher–Yates draw (ragged per-chain m_eff,
+m_max = 100 and 400) against its plain version. Launch counts are set to 0
+before each of B-L and read after it; every
 kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels with their launches, errors and times. The full report
 goes to ``chiprun_out/chip_smoke.json``. ``--profile`` instead runs short
-windows of phases B, C, E, F, H, I and J under ``torch.profiler`` and reports
+windows of phases B, C, K, L, E, F, H, I and J under ``torch.profiler`` and reports
 the device's idle share (``chip_profile.json`` beside the report); the windows of
 H, I and J use the launcher's initial model.
 """
@@ -170,7 +183,8 @@ def phase_a_logit(report):
     """The pair-delta kernel (``logit_delta``, ``batched_logit_delta``)
     against its plain version and the library composite, at the main path's
     shapes: the rounds of B (m=100 of N=12214, D=50) and D (m=100 of N=1e4,
-    1e5, 1e6, D=2), C's gathered K=32 round, and the exact transition's full
+    1e5, 1e6, D=2), C's gathered K=32 round, L's (K=32, m_max=400), and the
+    exact transition's full
     pass in the form ``exact_decide`` takes (a ``range`` of the pool: B's
     N=12214 at D=50, D's N=1e4..1e6 at D=2), with the full pool at N=1e6,
     D=50 beside them. A pool smaller than the card's L2 (50 MB) stays there
@@ -246,7 +260,7 @@ def phase_a_logit(report):
     # batched (pre-gathered) and gathered forms; "fp32 x, precision bf16"
     # rounds the rows and the pair in the kernel
     x, y = pools[12214, 50]
-    for (k, m, d) in [(32, 100, 50), (32, 1000, 50), (1, 7, 50)]:
+    for (k, m, d) in [(32, 100, 50), (32, 400, 50), (32, 1000, 50), (1, 7, 50)]:
         w, wp = weights(k, d)
         idx = torch.randint(0, 12214, (k, m), generator=gen, device=dev, dtype=torch.int32)
         for prec in ("fp32", "bf16", "fp32 x, precision bf16"):
@@ -349,9 +363,13 @@ def phase_a(report):
     # lane's partial (m = 37, 512), warps of the last block without a chain
     # (K = 1, 5, 33), random states; and 8 chains whose deltas equal their
     # mean (multiples of 2^-10, so the sums are exact): s ~ 1e-14 and
-    # x < 2^-60, where the kernel's divisions leave their fast form's range
-    for (k2, m2_, near_constant) in [(1, 4, False), (5, 37, False), (32, 100, False),
-                                     (33, 512, False), (8, 100, True)]:
+    # x < 2^-60, where the kernel's divisions leave their fast form's range;
+    # and phase L's round, (32, 400) with the lanes a bounded draw leaves
+    # valid: s < m_eff for a ragged per-chain m_eff in the buckets, 0
+    # included, and pools that run out partway
+    for (k2, m2_, kind) in [(1, 4, "random"), (5, 37, "random"), (32, 100, "random"),
+                            (33, 512, "random"), (8, 100, "constant"), (32, 400, "ragged")]:
+        near_constant = kind == "constant"
         r2 = np.random.default_rng(k2 * 1000 + m2_)
         cnt = r2.integers(100 if near_constant else 0, 5000, k2).astype(np.float32)
         mn = r2.normal(0, 0.05, k2).astype(np.float32)
@@ -364,13 +382,21 @@ def phase_a(report):
         state = [t(cnt), t(mn), t(m2v), t(r2.normal(0, 0.05, k2)), t(np.full(k2, 0.05, np.float32)),
                  t(np.zeros(k2), torch.int32), t(np.zeros(k2), torch.bool),
                  t(np.zeros(k2), torch.bool), t(np.ones(k2))]
-        v2 = t(r2.uniform(size=(k2, m2_)) < (2.0 if near_constant else 0.9), torch.bool)
+        if kind == "ragged":
+            meff = r2.choice([0, 50, 100, 200, 400], k2)
+            meff[:5] = (0, 50, 100, 200, 400)
+            left = np.where(r2.uniform(size=k2) < 0.25, r2.integers(0, 400, k2), 400)
+            v2 = t(np.arange(m2_)[None, :] < np.minimum(meff, left)[:, None], torch.bool)
+            state[6] = t(r2.uniform(size=k2) < 0.2, torch.bool)  # chains not in flight
+        else:
+            v2 = t(r2.uniform(size=(k2, m2_)) < (2.0 if near_constant else 0.9), torch.bool)
         l2 = t(l2)
         s2k, s2p = [b.clone() for b in state], [b.clone() for b in state]
         t_test_round(l2, v2, *s2k[:5], 12214, 123, *s2k[5:])
         t_test_round_ref(l2, v2, *s2p[:5], 12214, 123, *s2p[5:])
         torch.cuda.synchronize()
-        label = f"K={k2} m={m2_}" + (" deltas equal to their mean" if near_constant else "")
+        label = f"K={k2} m={m2_}" + (" deltas equal to their mean" if near_constant else
+                                     " ragged m_eff" if kind == "ragged" else "")
         e2, rel2 = compare_round(s2k, s2p, label)
         kern["t_test_round"]["cases"].append({"case": label, **e2, "pval_rel": rel2})
     launch_floor, _ = time_ms(lambda: torch.cuda._sleep(0), 60)
@@ -611,6 +637,62 @@ def phase_a_sv(report):
         byts = k * m * (8 + 16 + 4 + 1) + k * 12
         record(report, "fy_draw", label, err, ms, plain_ms, byts, k * m * 12, host_ms,
                plain_host_ms, (k, n) == (32, 1000))
+
+    # the bounded draw (the adaptive scheduler's per-chain m_eff): K = 1, 32,
+    # 33 x m_max = 100, 400, m_eff ragged per chain (0 and m_max among them),
+    # inactive chains, on the BayesLR pool (N=12214) and on a pool of 1000
+    # that runs out partway; kernel and plain on copies with the same
+    # uniforms, every round: identical everything, buffers still permutations
+    for (k, m_max, n, nr, inactive) in [(1, 100, 12214, 4, 0.0), (32, 100, 12214, 4, 0.2),
+                                        (33, 100, 1000, 14, 0.0), (1, 400, 12214, 4, 0.0),
+                                        (32, 400, 12214, 4, 0.2), (33, 400, 1000, 6, 0.2)]:
+        m_eff = torch.randint(0, m_max + 1, (k,), generator=gen, device=dev, dtype=torch.int32)
+        m_eff[0] = 0 if k > 1 else m_max // 2
+        if k > 1:
+            m_eff[1] = m_max
+        start = torch.argsort(torch.rand(k, n, generator=gen, device=dev), dim=1).int()
+        bufs = [start.clone(), start.clone()]
+        pos = [torch.zeros(k, dtype=torch.int32, device=dev) for _ in range(2)]
+        sizes = torch.full((k,), n, dtype=torch.int32, device=dev)
+        same = True
+        for _ in range(nr):
+            u = torch.rand((k, m_max), generator=gen, dtype=torch.float64, device=dev)
+            active = torch.rand(k, generator=gen, device=dev) >= inactive
+            outs = [ops.fy_draw(u, bufs[i], pos[i], sizes, m_max, active, mode=mode, m_eff=m_eff)
+                    for i, mode in enumerate(("always", "never"))]
+            same &= all(torch.equal(a, b) for a, b in zip(*outs)) and torch.equal(*bufs)
+            pos = [outs[0][2], outs[1][2]]
+        ran_out = bool((pos[0] == sizes).any())
+        label = f"bounded K={k} m_max={m_max} of N={n}, ragged m_eff" + (
+            ", pool runs out" if ran_out else "")
+        perm = all(torch.equal(row.sort().values, torch.arange(n, dtype=torch.int32, device=dev))
+                   for row in bufs[0])
+        check(same and perm, f"fy_draw {label}, {nr} rounds: indices, valid flags, positions "
+                             "and buffers identical, buffers still permutations")
+        report["kernels"]["fy_draw"]["cases"].append({"case": label, "max_abs_err": 0.0})
+    # timed: phase L's round (K=32, m_max=400 of N=12214, ragged m_eff) beside
+    # the unbounded call at the same shape
+    k, m_max, n = 32, 400, 12214
+    m_eff = torch.tensor([50, 100, 200, 400] * 8, dtype=torch.int32, device=dev)
+    u = torch.rand((k, m_max), generator=gen, dtype=torch.float64, device=dev)
+    p0 = torch.zeros(k, dtype=torch.int32, device=dev)
+    sz = torch.full((k,), n, dtype=torch.int32, device=dev)
+    for me in (m_eff, None):
+        bufs = [torch.arange(n, dtype=torch.int32, device=dev).repeat(k, 1) for _ in range(2)]
+        outs = [ops.fy_draw(u, b, p0, sz, m_max, mode=mode, m_eff=me)
+                for b, mode in zip(bufs, ("always", "never"))]
+        torch.cuda.synchronize()
+        err = max(float((a.long() - b.long()).abs().max())
+                  for a, b in zip(outs[0] + (bufs[0],), outs[1] + (bufs[1],)))
+        label = f"K={k} m={m_max} of N={n}" + (" bounded, m_eff 50..400" if me is not None else "")
+        check(err == 0, f"fy_draw {label}: indices, valid flags, position and buffer identical")
+        run = lambda b=bufs[0], me=me: ops.fy_draw(u, b, p0, sz, m_max, mode="always", m_eff=me)
+        plain = lambda b=bufs[1], me=me: ops.fy_draw(u, b, p0, sz, m_max, mode="never", m_eff=me)
+        (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 2, queued=False)
+        byts = k * m_max * (8 + 16 + 4 + 1) + k * 12 + (k * 4 if me is not None else 0)
+        record(report, "fy_draw", label, err, ms, plain_ms, byts, k * m_max * 12, host_ms,
+               plain_host_ms, False, above_floor_ms=ms - floor)
+        print(f"    above the launch floor: {(ms - floor) * 1e3:.2f}us")
 
     # pgibbs sweep: the lattices of phases F and E, and one chain at S=20000
     for (k, s, t, p) in [(32, 200, 5, 25), (1, 200, 5, 25), (1, 20_000, 5, 25)]:
@@ -1212,7 +1294,8 @@ def profile_idle_share() -> dict:
 
     from repro_torch.bayes import TrainConfig, make_train_step
     from repro_torch.configs import ARCHS
-    from repro_torch.core import RandomWalk, SubsampledMHConfig, run_chain, run_ensemble
+    from repro_torch.core import (RandomWalk, ScheduleConfig, SubsampledMHConfig, run_chain,
+                                  run_ensemble)
     from repro_torch.data import DataConfig, MarkovStream
     from repro_torch.experiments import bayeslr, stochvol
     from repro_torch.models import init_params
@@ -1244,6 +1327,13 @@ def profile_idle_share() -> dict:
         "C: BayesLR K=32, 20 steps": lambda: bayeslr.run_posterior_ensemble(
             3, lr, num_chains=32, num_steps=20, batch_size=100, epsilon=0.05, sampler="stream",
             sigma=0.05),
+        "K: BayesLR K=32 masked, 20 steps": lambda: bayeslr.run_posterior_ensemble(
+            3, lr, num_chains=32, num_steps=20, batch_size=100, epsilon=0.05, sampler="stream",
+            sigma=0.05, stepping="masked"),
+        "L: BayesLR K=32 masked + schedule, Fisher-Yates, 20 steps":
+            lambda: bayeslr.run_posterior_ensemble(
+                3, lr, num_chains=32, num_steps=20, batch_size=100, epsilon=0.05, sampler="fy",
+                sigma=0.05, stepping="masked", schedule=ScheduleConfig(epsilon_max=0.2)),
         "E: stochvol one chain, 50 cycle steps": lambda: stochvol.run_posterior_sequential(
             11, sv, 50),
         "F: stochvol K=32, 20 cycle steps": lambda: stochvol.run_posterior_ensemble(
@@ -1271,7 +1361,7 @@ def profile_idle_share() -> dict:
             e, "self_cuda_time_total", 0.0)
         events = sorted(prof.key_averages(), key=dev, reverse=True)
         busy_ms = sum(dev(e) for e in events) / 1e3
-        top = [(e.key[:60], round(dev(e) / 1e3, 3), e.count) for e in events[:10] if dev(e) > 0]
+        top = [(e.key[:60], round(dev(e) / 1e3, 3), e.count) for e in events[:14] if dev(e) > 0]
         share = None if busy_ms <= 0 else 1.0 - busy_ms / wall_ms
         # an estimate from two runs of the window: the busy time taken under
         # the profiler over the wall time of the unprofiled run
@@ -1377,9 +1467,9 @@ def phase_b(report, data):
         t0 = time.perf_counter()
         _, ex_samples, ex_infos = run_chain(2, th, target, RandomWalk(0.05), 20, kernel="exact")
         torch.cuda.synchronize()
-        return samples, infos, wall, ex_infos, time.perf_counter() - t0
+        return th, samples, infos, wall, ex_infos, time.perf_counter() - t0
 
-    samples, infos, wall, ex_infos, ex_wall = counted(report, "B", run)
+    th, samples, infos, wall, ex_infos, ex_wall = counted(report, "B", run)
     acc = acceptance_rate(infos)
     n_eval = float(infos.n_evaluated.float().mean())
     rounds = float(infos.rounds.float().mean())
@@ -1399,6 +1489,7 @@ def phase_b(report, data):
     check(0.05 < acc < 0.95 and n_eval <= n, "phase B acceptance in (0.05, 0.95), n_evaluated <= N")
     check(err_post <= err_true + 0.05, "posterior-mean test error within 0.05 of w_true's")
     check(bool(np.all(ex_infos.n_evaluated.cpu().numpy() == n)), "exact steps evaluate all N")
+    return th
 
 
 def phase_c(report, data):
@@ -1415,20 +1506,20 @@ def phase_c(report, data):
 
     def run():
         t0 = time.perf_counter()
-        samples, diag = bayeslr.run_posterior_ensemble(3, data, num_chains=k, num_steps=steps,
-                                                       batch_size=100, epsilon=0.05,
-                                                       sampler="stream", sigma=0.05)
+        samples, diag, _, infos = bayeslr_ensemble(3, data, k, steps)
         torch.cuda.synchronize()
-        return samples, diag, time.perf_counter() - t0
+        return samples, diag, time.perf_counter() - t0, infos
 
-    samples, diag, wall = counted(report, "C", run)
+    samples, diag, wall, infos = counted(report, "C", run)
     rhat = np.asarray(diag["rhat"])
     r = {"rhat_max": float(rhat.max()), "rhat_median": float(np.median(rhat)),
          "ess_w0": diag["ess_w0"], "accept": diag["accept_rate_overall"],
          "mean_n_evaluated_frac": diag["mean_n_evaluated_overall"] / n,
          "mean_rounds": diag["mean_rounds_overall"],
          "rounds_p99": diag["rounds_tail"]["p99"],
-         "transitions_per_s": k * steps / wall}
+         "transitions_per_s": k * steps / wall,
+         "lockstep_rounds": int(infos.rounds.long().max(0).values.sum()),
+         "rounds_per_chain": float(infos.rounds.long().sum(1).float().mean())}
     report["phases"]["C"].update(r)
     print(f"  split R-hat max={r['rhat_max']:.3f} median={r['rhat_median']:.3f} "
           f"ESS(w0)={r['ess_w0']:.1f} acceptance={r['accept']:.3f} "
@@ -1466,7 +1557,258 @@ def phase_c(report, data):
           f"max |mu_hat diff| {float((a.mu_hat - b.mu_hat).abs().max()):.3e}")
     check(not bool((differ & ~borderline).any()),
           "fused and plain routes agree on every proposal whose p-value is not within 0.1% of epsilon")
+    return samples, infos, wall
 
+
+
+def bayeslr_ensemble(seed, data, num_chains, num_steps, *, sigma=0.05, overdisperse=0.5,
+                     batch_size=100, epsilon=0.05, sampler="stream", **ens_kw):
+    """What ``bayeslr.run_posterior_ensemble`` does, step for step (the same
+    draws from the same generator, so the same samples), through the
+    entry points it calls, returning also the final state and the infos it
+    only summarises: (samples (K, T, D) numpy, diagnostics, state, infos).
+    ``ens_kw`` goes to ``ChainEnsemble`` (stepping, schedule,
+    fused_kernels)."""
+    import torch
+
+    from repro_torch._device import make_generator
+    from repro_torch.core import (ChainEnsemble, RandomWalk, SubsampledMHConfig,
+                                  ensemble_summary, multichain_ess, split_rhat)
+    from repro_torch.experiments import bayeslr
+
+    dev = torch.device("cuda")
+    gen = make_generator(seed, dev)
+    target = bayeslr.make_target(data.x_train.to(dev), data.y_train.to(dev))
+    cfg = SubsampledMHConfig(batch_size=batch_size, epsilon=epsilon, sampler=sampler)
+    ens = ChainEnsemble(target, RandomWalk(sigma), num_chains, config=cfg, device=dev, **ens_kw)
+    theta0 = overdisperse * torch.randn(num_chains, data.x_train.shape[1], generator=gen,
+                                        device=dev)
+    state, samples, infos = ens.run(gen, ens.init(theta0, batched=True), num_steps)
+    samples = samples.cpu().numpy()
+    w = samples[:, num_steps // 2:]
+    diag = {"rhat": split_rhat(w), "ess_w0": multichain_ess(w[..., 0]), **ensemble_summary(infos)}
+    return samples, diag, state, infos
+
+
+def chain_summary(samples, diag, infos, n, wall, k, steps):
+    """The numbers phases C, K and L report on a K-chain BayesLR run."""
+    import numpy as np
+
+    rhat = np.asarray(diag["rhat"])
+    rounds = infos.rounds.long()
+    return {"rhat_max": float(rhat.max()), "rhat_median": float(np.median(rhat)),
+            "ess_w0": diag["ess_w0"], "accept": diag["accept_rate_overall"],
+            "mean_n_evaluated_frac": diag["mean_n_evaluated_overall"] / n,
+            "mean_rounds": diag["mean_rounds_overall"], "rounds_p99": diag["rounds_tail"]["p99"],
+            "transitions_per_s": k * steps / wall,
+            "lockstep_rounds": int(rounds.max(0).values.sum()),
+            "supersteps": int(rounds.sum(1).max()),
+            "rounds_per_chain": float(rounds.sum(1).float().mean())}
+
+
+K_STEPS = 250  # phase K's depth: C's first 250 steps
+
+
+def phase_k(report, data, c_out):
+    """Phase C's configuration with masked stepping for C's first
+    ``K_STEPS`` steps: the same samples and infos as C's first steps, bit
+    for bit (the stream sampler draws nothing in the rounds, so each
+    chain's step t draws from lock-step's generator state), in
+    max_k sum_t rounds supersteps instead of sum_t max_k rounds rounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import SubsampledMHInfo
+
+    print(f"phase K: phase C's configuration with stepping='masked', K=32, C's first {K_STEPS} steps")
+    n, k, steps = data.x_train.shape[0], 32, K_STEPS
+    c_samples, c_infos, c_wall = c_out
+    c_samples, c_infos = c_samples[:, :steps], SubsampledMHInfo(*(f[:, :steps] for f in c_infos))
+
+    def run():
+        t0 = time.perf_counter()
+        samples, diag, _, infos = bayeslr_ensemble(3, data, k, steps, stepping="masked")
+        torch.cuda.synchronize()
+        return samples, diag, time.perf_counter() - t0, infos
+
+    samples, diag, wall, infos = counted(report, "K", run)
+    r = chain_summary(samples, diag, infos, n, wall, k, steps)
+    c = report["phases"]["C"]
+    r["launches_t_test_round"] = report["phases"]["K"]["launches"].get("t_test_round", 0)
+    r["c_lockstep_rounds"] = int(c_infos.rounds.long().max(0).values.sum())
+    r["c_transitions_per_s"] = c["transitions_per_s"]
+    report["phases"]["K"].update(r)
+    print(f"  supersteps={r['supersteps']} (round-op launches {r['launches_t_test_round']}) against "
+          f"C's lock-step rounds over the same steps {r['c_lockstep_rounds']}; rounds a chain "
+          f"{r['rounds_per_chain']:.1f}; transitions/s={r['transitions_per_s']:.1f} "
+          f"(C: {c['transitions_per_s']:.1f}); acceptance={r['accept']:.3f} "
+          f"R-hat max={r['rhat_max']:.3f} ESS(w0)={r['ess_w0']:.1f}")
+    check(np.array_equal(samples, c_samples), f"phase K samples equal phase C's first {steps} bit for bit")
+    same = [name for name, a, b in zip(SubsampledMHInfo._fields, infos, c_infos)
+            if a.dtype == b.dtype and torch.equal(a, b)]
+    check(len(same) == len(SubsampledMHInfo._fields),
+          f"phase K infos equal phase C's first {steps} bit for bit (equal: {same})")
+    check(r["supersteps"] == r["launches_t_test_round"] < r["c_lockstep_rounds"],
+          "one round op a superstep; fewer supersteps than lock-step rounds")
+
+
+def first_difference_borderline(a, b) -> tuple[int, bool]:
+    """Two masked runs of one configuration from one seed through two routes
+    (infos (K, T)): how many transitions differ in decision or n_evaluated,
+    and whether the first of them to commit had a p-value within 0.1% of its
+    epsilon (phase C's allowance). A chain's transitions run back to back,
+    one round a superstep, so transition t of chain k commits at superstep
+    sum_{t' <= t} rounds; once one decision differs, every later superstep
+    draws from a shifted stream and may differ too."""
+    import torch
+
+    differ = (a.accepted != b.accepted) | (a.n_evaluated != b.n_evaluated)
+    n_diff = int(differ.sum())
+    if not n_diff:
+        return 0, True
+    commit = torch.minimum(a.rounds.long().cumsum(1), b.rounds.long().cumsum(1))
+    flat = torch.where(differ, commit, torch.iinfo(torch.int64).max).flatten().argmin()
+    kk, t = divmod(int(flat), differ.shape[1])
+    near = lambda i: abs(float(i.pvalue[kk, t]) - float(i.epsilon[kk, t])) <= 1e-3 * float(
+        i.epsilon[kk, t])
+    return n_diff, near(a) or near(b)
+
+
+def phase_l(report, data):
+    """The README's adaptive form: masked stepping, the per-chain controller
+    (ScheduleConfig(epsilon_max=0.2): buckets 50..400), the Fisher–Yates
+    sampler (the bounded fy_draw kernel), K=32, 1000 steps; then 20 steps
+    through the fused route and through fused_kernels='never'."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ScheduleConfig, SubsampledMHConfig
+    from repro_torch.experiments import bayeslr
+
+    print("phase L: adaptive masked stepping, ScheduleConfig(epsilon_max=0.2), fy sampler, "
+          "K=32, 1000 steps")
+    n, k, steps = data.x_train.shape[0], 32, 1000
+    sched = ScheduleConfig(epsilon_max=0.2)
+    buckets = sched.buckets_for(SubsampledMHConfig(batch_size=100), n)
+    kw = dict(stepping="masked", schedule=sched)
+
+    def run():
+        t0 = time.perf_counter()
+        out = bayeslr_ensemble(3, data, k, steps, sampler="fy", **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (samples, diag, state, infos), wall = counted(report, "L", run)
+    r = chain_summary(samples, diag, infos, n, wall, k, steps)
+    eps, meff = infos.epsilon.cpu().numpy(), infos.batch_eff.cpu().numpy()
+    w_mean = samples[:, steps // 2:].reshape(-1, samples.shape[-1]).mean(0)
+    r.update(launches_t_test_round=report["phases"]["L"]["launches"].get("t_test_round", 0),
+             mean_epsilon=float(eps.mean()), final_epsilon=float(eps[:, -1].mean()),
+             mean_batch_eff=float(meff.mean()), final_batch_eff=float(meff[:, -1].mean()),
+             batch_eff_counts={int(b): int((meff == b).sum()) for b in buckets},
+             test_error_posterior_mean=bayeslr.test_error(w_mean, data.x_test, data.y_test),
+             test_error_w_true=bayeslr.test_error(data.w_true, data.x_test, data.y_test),
+             c_transitions_per_s=report["phases"]["C"]["transitions_per_s"])
+    report["phases"]["L"].update(r)
+    print(f"  transitions/s={r['transitions_per_s']:.1f} (C: {r['c_transitions_per_s']:.1f}) "
+          f"supersteps={r['supersteps']} rounds a transition mean {r['mean_rounds']:.2f} "
+          f"p99 {r['rounds_p99']:.0f}; n_evaluated/N={r['mean_n_evaluated_frac']:.4f}; epsilon "
+          f"mean {r['mean_epsilon']:.4f} final {r['final_epsilon']:.4f}; batch_eff mean "
+          f"{r['mean_batch_eff']:.1f} final {r['final_batch_eff']:.1f} {r['batch_eff_counts']}; "
+          f"acceptance={r['accept']:.3f} R-hat max={r['rhat_max']:.3f} ESS(w0)={r['ess_w0']:.1f}; "
+          f"test error {r['test_error_posterior_mean']:.3f} (w_true {r['test_error_w_true']:.3f})")
+    check(bool(np.isfinite(samples).all()) and samples.shape == (k, steps, 50),
+          f"phase L samples finite, shape {samples.shape}")
+    check(eps.min() >= np.float32(0.05) and eps.max() <= np.float32(0.2)
+          and set(np.unique(meff).tolist()) <= set(buckets)
+          and state.controller.t.tolist() == [steps] * k,
+          f"phase L knobs within bounds: epsilon in [0.05, 0.2], batch_eff in {buckets}, "
+          f"{steps} controller updates a chain")
+    check(0.05 < r["accept"] < 0.95, "phase L acceptance in (0.05, 0.95)")
+    check(r["test_error_posterior_mean"] <= r["test_error_w_true"] + 0.05,
+          "phase L posterior-mean test error within 0.05 of w_true's")
+
+    controller_cost(report, state.controller, infos, sched, buckets, n)
+
+    out = {}
+    for route in ("auto", "never"):
+        out[route] = bayeslr_ensemble(5, data, k, 20, sampler="fy", fused_kernels=route, **kw)[3]
+    n_diff, borderline = first_difference_borderline(out["auto"], out["never"])
+    report["phases"]["L"]["fused_vs_plain_differ"] = n_diff
+    print(f"  fused vs never, 20 steps: {n_diff} of {k * 20} transitions differ in decision or "
+          "n_evaluated")
+    check(borderline, "fused and plain routes agree until a p-value within 0.1% of epsilon "
+                      "(phase C's allowance) sends them apart")
+
+
+def controller_cost(report, ctrl, infos, sched, buckets, n):
+    """Device and host time of one ``controller_update`` of L's 32 chains,
+    with the sigma scale's update (``adapt_proposal``, whose exp repeats
+    XLA's CPU polynomial op by op) and without it (L's own setting), and of
+    that exp alone beside ``torch.exp``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import SubsampledMHConfig, SubsampledMHInfo, controller_update
+    from repro_torch.core.schedule import _exp_f32
+
+    info = SubsampledMHInfo(*(f[:, -1] for f in infos))
+    floor = sched.epsilon_floor(SubsampledMHConfig(batch_size=100, epsilon=0.05))
+    x = torch.linspace(-0.3, 0.3, ctrl.epsilon.shape[0], device="cuda")
+    calls = {"update": lambda: controller_update(ctrl, info, sched, buckets, n, floor),
+             "update, adapt_proposal": lambda: controller_update(
+                 ctrl, info, dataclasses.replace(sched, adapt_proposal=True), buckets, n, floor),
+             "exp as XLA's CPU code": lambda: _exp_f32(x), "torch.exp": lambda: torch.exp(x)}
+    r = {}
+    for name, fn in calls.items():
+        ms, host_ms = time_ms(fn, 10)
+        r[name] = {"ms": ms, "host_ms": host_ms}
+        print(f"  controller_update cost, K=32: {name:24s} device {ms * 1e3:7.2f}us "
+              f"host {host_ms * 1e3:7.2f}us a call")
+    report["phases"]["L"]["controller_cost"] = r
+
+
+MALA_STEPS = (1e-6, 3e-6, 1e-5, 3e-5, 1e-4)  # the sweep of phase B'
+
+
+def phase_b_mala(report, data, theta0):
+    """One chain on B's data from B's last sample, MALA with the gradient of
+    the first 100 rows rescaled by N/100: 30 transitions at each step of a
+    short sweep, then 200 at the step whose acceptance is nearest MALA's
+    0.574."""
+    import torch
+
+    from repro_torch.core import MALA, SubsampledMHConfig, acceptance_rate, run_chain
+    from repro_torch.experiments import bayeslr
+
+    print("phase B': one chain, MALA (gradient of 100 rows x N/100), N=12214 D=50, 200 transitions")
+    target = bayeslr.make_target(data.x_train, data.y_train)
+    grad_fn = bayeslr.make_grad_fn(data.x_train, data.y_train, subsample=100)
+    cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="stream")
+
+    def run():
+        sweep = {}
+        for i, step in enumerate(MALA_STEPS):
+            _, _, infos = run_chain(10 + i, theta0, target, MALA(step, grad_fn), 30, config=cfg)
+            sweep[step] = acceptance_rate(infos)
+        step = min(MALA_STEPS, key=lambda s: abs(sweep[s] - 0.574))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, samples, infos = run_chain(4, theta0, target, MALA(step, grad_fn), 200, config=cfg)
+        torch.cuda.synchronize()
+        return sweep, step, samples, infos, time.perf_counter() - t0
+
+    sweep, step, samples, infos, wall = counted(report, "B'", run)
+    r = {"sweep_accept": sweep, "step": step, "accept": acceptance_rate(infos),
+         "mean_rounds": float(infos.rounds.float().mean()), "transitions_per_s": 200 / wall,
+         "mean_n_evaluated": float(infos.n_evaluated.float().mean())}
+    report["phases"]["B'"].update(r)
+    print(f"  sweep acceptance {sweep}; step {step}: acceptance={r['accept']:.3f} "
+          f"rounds={r['mean_rounds']:.2f} transitions/s={r['transitions_per_s']:.1f}")
+    check(bool(torch.isfinite(samples).all()) and tuple(samples.shape) == (200, 50),
+          "phase B' samples finite, shape (200, 50)")
+    check(0.05 < r["accept"] < 0.95, "phase B' acceptance in (0.05, 0.95)")
 
 def phase_d(report):
     import numpy as np
@@ -1585,7 +1927,8 @@ def main() -> int:
         "fy_draw": csrc + "fy_draw.cu",
         "pgibbs_sweep": csrc + "pgibbs_sweep.cu",
     }
-    report = {"card": card, "kind": kind, "phases": {p: {} for p in "BCDEFGHIJ"},
+    report = {"card": card, "kind": kind, "phases": {p: {} for p in
+                                                      [*"BCDEFGHIJKL", "B'"]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -1602,8 +1945,12 @@ def main() -> int:
     phase_a(report)
     phase_a_sv(report)
     data = bayeslr.synth_mnist_like(0)
-    phase_b(report, data)
-    phase_c(report, data)
+    theta_b = phase_b(report, data)
+    phase_b_mala(report, data, theta_b)
+    c_out = phase_c(report, data)
+    phase_k(report, data, c_out)
+    del c_out
+    phase_l(report, data)
     phase_d(report)
     phase_e(report)
     phase_f(report)
@@ -1619,7 +1966,10 @@ def main() -> int:
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
     sv = ("gaussian_ar1_delta", "fy_draw", "pgibbs_sweep", "t_test_round")
     for phase, need in (("B", ("logit_delta", "t_test_round")),
+                        ("B'", ("logit_delta", "t_test_round")),
                         ("C", ("batched_logit_delta", "t_test_round")),
+                        ("K", ("batched_logit_delta", "t_test_round")),
+                        ("L", ("batched_logit_delta", "fy_draw", "t_test_round")),
                         ("D", ("logit_delta", "t_test_round")),
                         ("E", sv), ("F", sv), ("G", sv[:2] + sv[3:]),
                         ("H", ("t_test_round",)),

@@ -1,9 +1,11 @@
 """Core algorithms (paper Alg. 1-3) in PyTorch: the port of ``repro.core``.
 
-Covered so far: samplers, Welford and the Student-t test, the sequential
-test, the subsampled and exact MH transitions, the single-chain drivers, the
-``logit`` and ``gaussian_ar1`` target families, composite cycles and the
-lock-step ensemble (single kernels and cycles).
+Covered so far: samplers (with the bounded draws), Welford and the
+Student-t test, the sequential test, the subsampled and exact MH
+transitions, the proposals (random walk, MALA, independence), the
+single-chain drivers, the ``logit``, ``gaussian_ar1`` and ``ce`` target
+families, composite cycles, the adaptive scheduler, and the ensemble in
+lock-step (single kernels and cycles) and masked stepping.
 """
 from .chain import acceptance_rate, run_chain, run_chain_timed
 from .composite import (
@@ -16,21 +18,32 @@ from .composite import (
 )
 from .ensemble import ChainEnsemble, EnsembleState, run_ensemble
 from .mh import MHInfo, exact_decide, mh_step
-from .proposals import IndependentGaussian, RandomWalk
+from .proposals import MALA, IndependentGaussian, RandomWalk
 from .samplers import (
     FisherYatesState,
     StreamSliceState,
     fy_draw,
+    fy_draw_bounded,
     fy_init,
     fy_reset,
+    make_bounded_draw,
     make_sampler,
     stream_draw,
+    stream_draw_bounded,
     stream_init,
     stream_reset,
+)
+from .schedule import (
+    ControllerState,
+    ScheduleConfig,
+    controller_init,
+    controller_params,
+    controller_update,
 )
 from .sequential_test import SeqTestResult, sequential_test, test_round_decision
 from .stats import (
     Welford,
+    autocorrelation,
     effective_sample_size,
     ensemble_summary,
     finite_population_std_err,
@@ -53,16 +66,18 @@ from .target import PartitionedTarget, from_iid_loglik
 from .target_builder import KernelFamily, build_target, get_family, register_family, registered_families
 
 __all__ = [
-    "ChainEnsemble", "CycleOp", "EnsembleState", "SubsampledMHOp", "SweepOp", "cycle",
-    "init_cycle_samplers", "run_cycle_sequential", "FisherYatesState", "IndependentGaussian",
-    "KernelFamily", "MHInfo", "PartitionedTarget", "RandomWalk", "SeqTestResult",
-    "StreamSliceState", "SubsampledMHConfig", "SubsampledMHInfo", "Welford",
-    "acceptance_rate", "adaptive_max_rounds", "build_target", "effective_sample_size",
-    "ensemble_summary", "exact_decide", "finish_transition", "finite_population_std_err",
-    "from_iid_loglik", "fy_draw", "fy_init", "fy_reset", "get_family", "make_kernel",
-    "make_sampler", "mh_step", "multichain_ess", "propose_and_mu0", "register_family",
-    "registered_families", "run_chain", "run_chain_timed", "run_ensemble",
-    "sequential_test", "split_rhat", "stream_draw", "stream_init", "stream_reset",
-    "student_t_sf", "subsampled_mh_step", "tail_latency_summary", "test_round_decision",
-    "two_sided_t_pvalue",
+    "ChainEnsemble", "ControllerState", "CycleOp", "EnsembleState", "SubsampledMHOp",
+    "SweepOp", "cycle", "init_cycle_samplers", "run_cycle_sequential", "FisherYatesState",
+    "IndependentGaussian", "KernelFamily", "MALA", "MHInfo", "PartitionedTarget",
+    "RandomWalk", "ScheduleConfig", "SeqTestResult", "StreamSliceState",
+    "SubsampledMHConfig", "SubsampledMHInfo", "Welford", "acceptance_rate",
+    "adaptive_max_rounds", "autocorrelation", "build_target", "controller_init",
+    "controller_params", "controller_update", "effective_sample_size", "ensemble_summary",
+    "exact_decide", "finish_transition", "finite_population_std_err", "from_iid_loglik",
+    "fy_draw", "fy_draw_bounded", "fy_init", "fy_reset", "get_family", "make_bounded_draw",
+    "make_kernel", "make_sampler", "mh_step", "multichain_ess", "propose_and_mu0",
+    "register_family", "registered_families", "run_chain", "run_chain_timed", "run_ensemble",
+    "sequential_test", "split_rhat", "stream_draw", "stream_draw_bounded", "stream_init",
+    "stream_reset", "student_t_sf", "subsampled_mh_step", "tail_latency_summary",
+    "test_round_decision", "two_sided_t_pvalue",
 ]

@@ -1,12 +1,30 @@
-"""K independent MH chains in lock-step: the port of
-``repro.core.ensemble.ChainEnsemble`` (lock-step stepping).
+"""K independent MH chains advanced together: the port of
+``repro.core.ensemble.ChainEnsemble``.
 
 Every leaf of theta and of the sampler state carries a leading (K,) chain
-axis. A transition proposes for all K chains at once, then runs one
-sequential-test loop whose rounds are (K, m) blocks: one draw, one
-evaluation and one round op per round, until the slowest chain's test stops.
-Finished chains keep their state, as in the reference's batched while loop
-(``_make_batched_transition``, whose structure this follows).
+axis. Two stepping modes share the (K, m) rounds:
+
+  ``lockstep``  a transition proposes for all K chains at once, then runs one
+      sequential-test loop whose rounds are (K, m) blocks (one draw, one
+      evaluation and one round op per round) until the slowest chain's test
+      stops. Finished chains keep their state, as in the reference's batched
+      while loop (``_make_batched_transition``, whose structure this follows).
+      A step costs ``max_k rounds_k`` rounds.
+  ``masked``  the masked-continuation superstep (the reference's
+      ``_run_masked_jit``): one host loop over supersteps, each one round for
+      every chain with a transition in flight. A chain whose test finishes
+      commits its transition and starts the next at the following superstep,
+      so a run costs ``max_k sum_t rounds_{k,t}`` supersteps instead of
+      ``sum_t max_k rounds_{k,t}`` rounds. The host reads the round's ``done``
+      flags once per superstep; that one copy says which chains commit, which
+      start, and whether all are through.
+
+``schedule=ScheduleConfig(...)`` attaches the adaptive per-chain controller
+(:mod:`repro_torch.core.schedule`) in either mode: each transition runs with
+its chain's epsilon and effective batch (rounds shaped by the largest
+bucket, drawn by the bounded samplers), and each completed transition
+updates that chain's controller, which ``run`` returns in
+``EnsembleState.controller`` so that a second ``run`` continues it.
 
 Routes, by ``fused_kernels``:
 
@@ -25,18 +43,27 @@ transition applies every component once, in order. A subsampled-MH op runs
 the lock-step transition above with its own target, proposal, config and
 batched sampler state; a sweep op calls its ``batched_fn`` on the whole
 batch when it has one, and its ``fn`` chain by chain otherwise. Infos are
-then a dict keyed by component name.
+then a dict keyed by component name. Cycles run lock-step and unscheduled.
 
 Randomness: one device ``torch.Generator`` per ``run`` draws all K chains'
 noise each step (u, then the proposal, then the sampler; for a cycle, each
 component's draws in cycle order). An ensemble of one chain therefore
 reproduces :func:`repro_torch.core.chain.run_chain`, and with a cycle
 :func:`repro_torch.core.composite.run_cycle_sequential`, with the same seed.
-The reference's "chain k equals a sequential run with key k" and its
-resumable ``step_keys`` schedule rest on JAX's splittable keys and wait for
-the serving slice. So do ``stepping="masked"`` and ``schedule=`` for single
-kernels; the ``shard=`` mesh paths wait for the distributed slice. Each
-raises ``NotImplementedError``.
+Masked stepping keeps lock-step's draws where it can: with the ``stream``
+sampler the rounds draw nothing, so the generator's state at the start of
+lock-step's step t is fixed; the superstep records it the first time a
+chain draws step t - 1 and restores it for every chain that starts step t,
+drawing the full (K,) u and proposal and keeping that chain's rows.
+Masked then equals lock-step bit for bit (samples and every info field), and
+leaves the generator where lock-step leaves it. With the Fisher–Yates
+sampler the rounds draw from the same generator, so the superstep draws
+each start's u and proposal where the stream stands: masked and lock-step
+agree in distribution only (for K = 1 they coincide, and equal
+``run_chain``). The reference's "chain k equals a sequential run with key
+k" and its resumable ``step_keys`` schedule rest on JAX's splittable keys and
+wait for the serving slice; the ``shard=`` mesh paths wait for the
+distributed slice. Each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,31 +72,38 @@ import functools
 import time
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from .._device import make_generator, resolve_device, tree_leaves, tree_map, tree_select
 from .chain import _stack
 from .composite import CycleOp, SubsampledMHOp, init_cycle_samplers
 from .mh import MHInfo
-from .samplers import batch_sampler_state, make_sampler, sampler_fns
+from .proposals import propose
+from .samplers import batch_sampler_state, make_bounded_draw, make_sampler, sampler_fns
+from .schedule import ScheduleConfig, controller_init, controller_params, controller_update
 from .subsampled_mh import (
     SubsampledMHConfig,
+    SubsampledMHInfo,
     adaptive_max_rounds,
     draw_log_u,
     propose_and_mu0,
     finish_transition,
 )
 from .target import PartitionedTarget
+from ..kernels import ops
 
 Params = Any
 
 
 class EnsembleState(NamedTuple):
-    """Per-chain carried state; every leaf has a leading (K,) chain axis."""
+    """Per-chain carried state; every leaf has a leading (K,) chain axis.
+    ``controller`` is ``None`` without a schedule, otherwise the batched
+    :class:`repro_torch.core.schedule.ControllerState`."""
 
     theta: Params
     sampler_state: Any  # batched sampler state (None for the exact kernel)
-    controller: Any = None  # the adaptive scheduler's state, in a later slice
+    controller: Any = None
 
     @property
     def num_chains(self) -> int:
@@ -77,19 +111,46 @@ class EnsembleState(NamedTuple):
 
 
 def _later(what: str, where: str):
-    raise NotImplementedError(f"{what} comes with {where}; this slice runs lock-step ensembles")
+    raise NotImplementedError(f"{what} comes with {where}")
+
+
+def _takes_scale(proposal) -> bool:
+    """Does ``proposal`` accept a third ``scale`` argument (the reference's
+    test for ``adapt_proposal``)? Keyword-only parameters (MALA's
+    ``batch_ndim``) do not count."""
+    import inspect
+
+    try:
+        params = inspect.signature(proposal).parameters
+    except (TypeError, ValueError):  # builtins etc: trust the caller
+        return True
+    positional = [p for p in params.values() if p.kind is not inspect.Parameter.KEYWORD_ONLY]
+    return len(positional) >= 3 or any(
+        p.kind in (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+        for p in params.values())
+
+
+# The masked superstep packs a transition's info into one float32 row per
+# chain (one indexed write per commit): the fields are float32, bool, or
+# integers below 2^24 (count is float32 in the Welford state already).
+_INFO_FIELDS = SubsampledMHInfo._fields
+_INFO_DTYPES = dict(accepted=torch.bool, n_evaluated=torch.int32, rounds=torch.int32,
+                    batch_eff=torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
 class ChainEnsemble:
-    """K independent MH chains advanced together in lock-step.
+    """K independent MH chains advanced together.
 
         ens = ChainEnsemble(target, RandomWalk(0.05), num_chains=16)
         state = ens.init(theta0)                      # broadcast K chains
         state, samples, infos = ens.run(0, state, num_steps=1000)
         # samples: (K, num_steps, ...); infos leaves: (K, num_steps)
 
-    ``device=None`` means the card (raises without one).
+    ``stepping="masked"`` (subsampled kernel only) runs the
+    masked-continuation superstep; ``schedule=ScheduleConfig(...)`` attaches
+    the per-chain adaptive controller (both modes). ``device=None`` means
+    the card (raises without one).
     """
 
     target: PartitionedTarget | None = None
@@ -100,8 +161,8 @@ class ChainEnsemble:
     chunk_size: int | None = None  # exact kernel: sections per chunk
     collect: Callable[[Params], Any] | None = None
     shard: Any = "auto"
-    stepping: str = "lockstep"
-    schedule: Any = None
+    stepping: str = "lockstep"  # "lockstep" | "masked" (subsampled only)
+    schedule: ScheduleConfig | None = None  # adaptive per-chain controller
     fused_kernels: str = "auto"  # "auto" | "always" | "never"
     transition: Any = None
     device: Any = None
@@ -119,15 +180,23 @@ class ChainEnsemble:
             self._check_composite()
             self._device  # resolve now: without a card and without device= this raises
             return
-        if self.stepping == "masked":
-            _later("stepping='masked'", "the scheduler slice")
-        if self.schedule is not None:
-            _later("schedule=", "the scheduler slice")
+        if self.schedule is not None and not isinstance(self.schedule, ScheduleConfig):
+            raise TypeError(f"schedule must be a ScheduleConfig, got {self.schedule!r}")
+        if self.stepping == "masked" and self.shard is True:
+            raise ValueError("masked stepping runs unsharded; use shard='auto' or False")
         if self.shard not in ("auto", False):
             _later(f"shard={self.shard!r}", "the distributed slice")
         if self.target is None or self.proposal is None:
             raise ValueError("target and proposal are required without transition=")
         self._device  # resolve now: without a card and without device= this raises
+        if self.kernel == "exact" and (self.stepping == "masked" or self.schedule):
+            raise ValueError(
+                "masked stepping / adaptive scheduling require the subsampled kernel "
+                "(the exact kernel has no sequential test to overlap)")
+        if self.schedule is not None and self.schedule.adapt_proposal \
+                and not _takes_scale(self.proposal):
+            raise ValueError("schedule.adapt_proposal=True needs a proposal accepting a third "
+                             "`scale` argument (e.g. repro_torch.core.RandomWalk)")
         if self.fused_kernels == "always" and self.kernel == "exact":
             raise ValueError("fused_kernels='always' requires the subsampled kernel")
         if self.fused_kernels == "always" and self.target.log_local_ensemble is None:
@@ -177,9 +246,19 @@ class ChainEnsemble:
         return self.config or SubsampledMHConfig()
 
     @functools.cached_property
+    def _buckets(self) -> tuple[int, ...]:
+        if self.schedule is None:
+            return (self._config.batch_size,)
+        return self.schedule.buckets_for(self._config, self.target.num_sections)
+
+    @functools.cached_property
+    def _bucket_table(self) -> torch.Tensor:
+        """The buckets as an int32 tensor on the device, for controller_params."""
+        return torch.tensor(self._buckets, dtype=torch.int32, device=self._device)
+
+    @functools.cached_property
     def _max_rounds(self) -> int:
-        return adaptive_max_rounds(self._config, self.target.num_sections,
-                                   (self._config.batch_size,))
+        return adaptive_max_rounds(self._config, self.target.num_sections, self._buckets)
 
     def _round_fn(self, theta, theta_p, target=None):
         """``idx (K, m) -> (K, m)`` deltas for one transition's rounds."""
@@ -214,24 +293,50 @@ class ChainEnsemble:
         if self.kernel == "exact":
             return EnsembleState(theta, None, None)
         state0, _, _ = make_sampler(self._config.sampler, self.target.num_sections, device=dev)
-        return EnsembleState(theta, batch_sampler_state(state0, K), None)
+        ctrl = None
+        if self.schedule is not None:
+            ctrl = controller_init(self.schedule, self._config, self.target.num_sections, K,
+                                   device=dev)
+        return EnsembleState(theta, batch_sampler_state(state0, K), ctrl)
 
     # -- transitions -------------------------------------------------------
 
-    def _mh_step(self, gen, theta, sampler, target, proposal, cfg, max_rounds):
-        """One lock-step subsampled-MH transition of all K chains."""
+    def _mh_step(self, gen, theta, sampler, target, proposal, cfg, max_rounds,
+                 prop_scale=None, **knobs):
+        """One lock-step subsampled-MH transition of all K chains; ``knobs``
+        are the scheduler's overrides of :func:`finish_transition`."""
         reset_fn, draw_fn = sampler_fns(cfg.sampler)
-        theta_p, mu0, log_u = propose_and_mu0(gen, theta, target, proposal,
+        theta_p, mu0, log_u = propose_and_mu0(gen, theta, target, proposal, prop_scale,
                                               batch_shape=(self.num_chains,))
         return finish_transition(
             gen, theta, theta_p, mu0, log_u, sampler, target, cfg, reset_fn, draw_fn,
             eval_fn=self._round_fn(theta, theta_p, target),
-            max_rounds=max_rounds, mode=self.fused_kernels,
+            max_rounds=max_rounds, mode=self.fused_kernels, **knobs,
         )
 
     def _subsampled_step(self, gen, theta, sampler):
         return self._mh_step(gen, theta, sampler, self.target, self.proposal, self._config,
                              self._max_rounds)
+
+    def _prop_scale(self, ctrl):
+        return ctrl.sigma_scale if self.schedule.adapt_proposal else None
+
+    def _update_controller(self, ctrl, info):
+        sched, cfg = self.schedule, self._config
+        return controller_update(ctrl, info, sched, self._buckets, self.target.num_sections,
+                                 sched.epsilon_floor(cfg))
+
+    def _scheduled_step(self, gen, theta, sampler, ctrl):
+        """A lock-step transition with each chain's knobs from its controller,
+        then the controller update (the reference's scheduled lock-step scan).
+        Returns (theta, sampler, controller, info)."""
+        eps, meff = controller_params(ctrl, self._bucket_table)
+        theta, sampler, info = self._mh_step(
+            gen, theta, sampler, self.target, self.proposal, self._config, self._max_rounds,
+            self._prop_scale(ctrl), epsilon=eps, batch_eff=meff,
+            draw_bounded_fn=make_bounded_draw(self._config.sampler),
+            batch_max=max(self._buckets))
+        return theta, sampler, self._update_controller(ctrl, info), info
 
     def _sweep_op_step(self, gen, theta, op):
         """A sweep of a composite cycle: ``batched_fn`` on the whole batch, or
@@ -262,7 +367,7 @@ class ChainEnsemble:
     def _exact_step(self, gen, theta, sampler):
         K, n, dev = self.num_chains, self.target.num_sections, self._device
         log_u = draw_log_u(gen, (K,), dev)
-        theta_p, corr = self.proposal(gen, theta)
+        theta_p, corr = propose(self.proposal, gen, theta, batch_ndim=1)
         g = self.target.log_global(theta, theta_p) + corr
         step = n if self.chunk_size is None or self.chunk_size >= n else self.chunk_size
         total = torch.zeros((K,), dtype=torch.float32, device=dev)
@@ -290,6 +395,8 @@ class ChainEnsemble:
         generator again to continue its stream). Returns ``(state, samples,
         infos)`` with leaves shaped (K, num_steps, ...)."""
         gen = make_generator(seed, self._device)
+        if self.stepping == "masked":
+            return self._run_masked(gen, state, num_steps)
         if self.transition is not None:
             step = self._composite_step
         elif self.kernel == "subsampled":
@@ -297,14 +404,122 @@ class ChainEnsemble:
         else:
             step = self._exact_step
         collect = self.collect or (lambda t: t)
-        theta, sampler = state.theta, state.sampler_state
+        theta, sampler, ctrl = state
         samples, infos = [], []
         for _ in range(num_steps):
-            theta, sampler, info = step(gen, theta, sampler)
+            if self.schedule is None:
+                theta, sampler, info = step(gen, theta, sampler)
+            else:
+                theta, sampler, ctrl, info = self._scheduled_step(gen, theta, sampler, ctrl)
             samples.append(collect(theta))
             infos.append(info)
         swap = lambda t: tree_map(lambda l: l.transpose(0, 1), t)
-        return EnsembleState(theta, sampler, None), swap(_stack(samples)), swap(_stack(infos))
+        return EnsembleState(theta, sampler, ctrl), swap(_stack(samples)), swap(_stack(infos))
+
+    # -- masked-continuation superstep -----------------------------------
+
+    def _run_masked(self, gen, state: EnsembleState, num_steps: int):
+        """The masked superstep loop (see the module docstring). Per chain it
+        carries the transition in flight: the proposal, mu0, log u, the knobs
+        frozen at its start, and the round op's state, which the round op
+        updates in place (chains whose test is done are left alone)."""
+        K, T, dev, cfg = self.num_chains, num_steps, self._device, self._config
+        target, sched, mode = self.target, self.schedule, self.fused_kernels
+        n = target.num_sections
+        m_max = max(self._buckets)
+        _, draw_fn = sampler_fns(cfg.sampler)
+        draw_bounded = make_bounded_draw(cfg.sampler)
+        collect = self.collect or (lambda t: t)
+        theta, sampler, ctrl = state
+        f32 = dict(dtype=torch.float32, device=dev)
+        stats = torch.zeros((3, K), **f32)  # the Welford rows: count, mean, m2
+        count, mean, m2 = stats
+        pval = torch.ones(K, **f32)
+        rounds = torch.zeros(K, dtype=torch.int32, device=dev)
+        done = torch.ones(K, dtype=torch.bool, device=dev)  # no transition in flight
+        decision = torch.zeros(K, dtype=torch.bool, device=dev)
+        mu0, log_u = torch.zeros(K, **f32), torch.zeros(K, **f32)
+        eps = torch.full((K,), cfg.epsilon, **f32)
+        meff = torch.full((K,), cfg.batch_size, dtype=torch.int32, device=dev)
+        theta_prop = theta
+        samples = tree_map(lambda l: l.new_empty((K, T) + l.shape[1:]), collect(theta))
+        info_rows = torch.empty((K, T, len(_INFO_FIELDS)), **f32)
+        steps = np.zeros(K, np.int64)  # transitions committed, per chain (host)
+        in_flight = np.zeros(K, bool)
+        # stream sampler: the generator's state at the start of each step
+        step_states = {0: gen.get_state()} if cfg.sampler == "stream" else None
+        start = np.full(K, T > 0)
+        while True:
+            if start.any():
+                start_t = torch.as_tensor(start, device=dev)
+                theta_prop, mu0, log_u = self._masked_proposals(
+                    gen, start, start_t, steps, step_states, theta, theta_prop, mu0, log_u, ctrl)
+                if sched is not None:
+                    eps_n, meff_n = controller_params(ctrl, self._bucket_table)
+                    eps, meff = torch.where(start_t, eps_n, eps), torch.where(start_t, meff_n, meff)
+                stats.masked_fill_(start_t, 0.0)
+                pval.masked_fill_(start_t, 1.0)
+                rounds.masked_fill_(start_t, 0)
+                done.masked_fill_(start_t, False)
+                decision.masked_fill_(start_t, False)
+                sampler = sampler._replace(pos=sampler.pos.masked_fill(start_t, 0))
+                in_flight |= start
+                eval_fn = self._round_fn(theta, theta_prop)
+            if not in_flight.any():
+                break
+            # one sequential-test round for every chain with a test in flight
+            if sched is None:
+                sampler, idx, valid = draw_fn(gen, sampler, m_max, ~done, mode=mode)
+            else:
+                sampler, idx, valid = draw_bounded(gen, sampler, m_max, meff, ~done, mode=mode)
+            ops.t_test_round(eval_fn(idx), valid, count, mean, m2, mu0, eps, n,
+                             self._max_rounds, rounds, done, decision, pval, mode=mode)
+            fin = done.cpu().numpy() & in_flight  # the superstep's one read
+            if fin.any():
+                rows = np.flatnonzero(fin)
+                h = torch.as_tensor(np.concatenate([fin, rows, steps[rows]]), device=dev)
+                fin_t, r, c = h[:K].bool(), h[K:K + len(rows)], h[K + len(rows):]
+                theta = tree_select(decision & fin_t, theta_prop, theta)
+                tree_map(lambda buf, v: buf.index_put_((r, c), v.index_select(0, r)),
+                         samples, collect(theta))
+                info = SubsampledMHInfo(decision, count, rounds, mean, mu0, pval, log_u, eps,
+                                        meff)
+                info_rows.index_put_((r, c), torch.stack(info, -1).index_select(0, r))
+                if sched is not None:
+                    info = info._replace(n_evaluated=count.to(torch.int32))
+                    ctrl = tree_select(fin_t, self._update_controller(ctrl, info), ctrl)
+                steps += fin
+                in_flight &= ~fin
+            start = fin & (steps < T)
+        if step_states is not None and T > 0:
+            gen.set_state(step_states[T])  # where lock-step leaves it
+        infos = SubsampledMHInfo(*(
+            col.to(_INFO_DTYPES.get(name, torch.float32)).contiguous()
+            for name, col in zip(_INFO_FIELDS, info_rows.unbind(-1))))
+        return EnsembleState(theta, sampler, ctrl), samples, infos
+
+    def _masked_proposals(self, gen, start, start_t, steps, step_states, theta, theta_prop,
+                          mu0, log_u, ctrl):
+        """u, the proposal and mu0 for the chains that start a transition.
+        With the stream sampler each chain draws from the generator state of
+        its step (recorded after that step's first draws), as lock-step
+        does; otherwise all draws come from where the stream stands."""
+        K, dev = self.num_chains, self._device
+        scale = None if self.schedule is None else self._prop_scale(ctrl)
+        groups = [(start_t, None)] if step_states is None else [
+            (start_t if (steps[start] == s).all() else
+             torch.as_tensor(start & (steps == s), device=dev), int(s))
+            for s in np.unique(steps[start])]
+        for sel, s in groups:
+            if s is not None:
+                gen.set_state(step_states[s])
+            th_p, mu0_n, log_u_n = propose_and_mu0(gen, theta, self.target, self.proposal,
+                                                   scale, batch_shape=(K,))
+            if s is not None:
+                step_states.setdefault(s + 1, gen.get_state())
+            theta_prop = tree_select(sel, th_p, theta_prop)
+            mu0, log_u = torch.where(sel, mu0_n, mu0), torch.where(sel, log_u_n, log_u)
+        return theta_prop, mu0, log_u
 
     def run_timed(self, seed, state: EnsembleState, num_steps: int, block_every: int = 1):
         """Host-chunked loop recording the wall clock, synchronising the

@@ -15,8 +15,13 @@ the lock-step rule of the reference's batched while loop.
     launch of the ``fy_draw`` kernel on the card.
 
 Both draws take ``mode`` (the kernel dispatch); the stream draw launches
-nothing and ignores it. The ``_bounded`` twins of the reference wait for the
-adaptive scheduler.
+nothing and ignores it. Their ``_bounded`` twins take an effective batch
+``m_eff`` (a () or per-chain (K,) int tensor) beside the static ``m_max``,
+the adaptive scheduler's bucket mechanism: shapes stay at ``m_max``, lanes
+at ``s >= m_eff`` are invalid, and the position advances by ``m_eff``. A
+bounded Fisher–Yates draw still performs all ``m_max`` swaps; those beyond
+``m_eff`` only re-permute the unconsumed tail, and any permutation is a
+valid start for the next without-replacement draw.
 """
 from __future__ import annotations
 
@@ -54,25 +59,40 @@ def fy_reset(state: FisherYatesState) -> FisherYatesState:
 
 
 def fy_draw(gen: torch.Generator, state: FisherYatesState, m: int,
-            active: torch.Tensor | None = None, *, mode: str = "auto"):
+            active: torch.Tensor | None = None, *, mode: str = "auto", m_eff=None):
     """Draw ``m`` indices without replacement from the logical pool.
 
     Returns (new_state, indices int32 (..., m), valid bool (..., m)). When
     fewer than m remain, the tail repeats valid draws and is flagged invalid.
     The m uniforms of every chain come from ``gen`` in one call; the swaps
     run in :func:`repro_torch.kernels.ops.fy_draw` (one launch on the card,
-    dispatched by ``mode``).
+    dispatched by ``mode``). ``m_eff`` is :func:`fy_draw_bounded`'s.
     """
     idx, pos, n = state.idx, state.pos, state.size
     cap = idx.shape[-1]
     u = torch.rand(pos.shape + (m,), generator=gen, dtype=torch.float64, device=idx.device)
     flat = lambda t: t.reshape(-1) if t.ndim == pos.ndim else t.reshape(-1, t.shape[-1])
+    if m_eff is not None:
+        m_eff = torch.broadcast_to(m_eff, pos.shape).reshape(-1).contiguous()
     out, valid, new_pos = ops.fy_draw(
         flat(u), flat(idx), flat(pos), flat(n), m,
-        None if active is None else active.reshape(-1), mode=mode)
+        None if active is None else active.reshape(-1), mode=mode, m_eff=m_eff)
     shape = pos.shape + (m,)
     return FisherYatesState(idx, new_pos.reshape(pos.shape), n), out.reshape(shape), \
         valid.reshape(shape)
+
+
+def _clip_m_eff(m_eff, m_max: int, device) -> torch.Tensor:
+    return torch.as_tensor(m_eff, device=device).to(torch.int32).clamp(0, m_max)
+
+
+def fy_draw_bounded(gen: torch.Generator, state: FisherYatesState, m_max: int, m_eff,
+                    active: torch.Tensor | None = None, *, mode: str = "auto"):
+    """Fisher–Yates draw with an effective batch ``m_eff`` (clipped to
+    [0, m_max]): all ``m_max`` swaps run, only the first ``m_eff`` lanes are
+    valid, and the next draw resumes at ``pos + m_eff``."""
+    return fy_draw(gen, state, m_max, active, mode=mode,
+                   m_eff=_clip_m_eff(m_eff, m_max, state.pos.device))
 
 
 class StreamSliceState(NamedTuple):
@@ -108,6 +128,23 @@ def stream_draw(gen, state: StreamSliceState, m: int, active: torch.Tensor | Non
     return StreamSliceState(new_pos, state.n), out, valid
 
 
+def stream_draw_bounded(gen, state: StreamSliceState, m_max: int, m_eff,
+                        active: torch.Tensor | None = None, *, mode: str = "auto"):
+    """Stream-slice draw with an effective batch ``m_eff`` <= ``m_max``:
+    lanes past it are invalid and do not advance the stream position."""
+    del gen, mode
+    pos = state.pos
+    m_eff = _clip_m_eff(m_eff, m_max, pos.device)
+    lanes = torch.arange(m_max, dtype=torch.int32, device=pos.device)
+    offs = pos[..., None] + lanes
+    valid = (offs < state.n) & (lanes < m_eff[..., None])
+    out = torch.clamp_max(offs, state.n - 1)
+    new_pos = torch.clamp_max(pos + m_eff, state.n)
+    if active is not None:
+        new_pos = torch.where(active, new_pos, pos)
+    return StreamSliceState(new_pos, state.n), out, valid
+
+
 def sampler_fns(kind: str):
     """(reset_fn, draw_fn) for ``kind`` in {fy, stream}."""
     if kind == "fy":
@@ -122,6 +159,16 @@ def make_sampler(kind: str, n: int, *, device=None):
     reset_fn, draw_fn = sampler_fns(kind)
     init = fy_init if kind == "fy" else stream_init
     return init(n, device=device), reset_fn, draw_fn
+
+
+def make_bounded_draw(kind: str):
+    """The bounded twin of ``sampler_fns``'s draw:
+    ``draw(gen, state, m_max, m_eff, active=None, mode=) -> (state, idx, valid)``."""
+    if kind == "fy":
+        return fy_draw_bounded
+    if kind == "stream":
+        return stream_draw_bounded
+    raise ValueError(f"unknown sampler kind: {kind!r}")
 
 
 def batch_sampler_state(state, num_chains: int):

@@ -57,6 +57,8 @@ def sequential_test(
     max_rounds: int | None = None,
     *,
     mode: str = "auto",
+    batch_eff=None,
+    draw_bounded_fn: Callable | None = None,
 ) -> SeqTestResult:
     """Run the sequential test for one chain (mu0 shape ()) or K lock-step
     chains (mu0 shape (K,)).
@@ -65,7 +67,12 @@ def sequential_test(
     eval_fn(idx) -> l, shaped mu0.shape + (m,)
 
     ``epsilon`` is a float or a per-chain tensor; ``mode`` is the kernel
-    dispatch of the draw and the round op.
+    dispatch of the draw and the round op. With ``batch_eff`` (an effective
+    batch <= ``batch_size``, () or per chain) and its
+    ``draw_bounded_fn(gen, state, m_max, m_eff, active, mode=)``, rounds keep
+    the shape ``batch_size`` but only ``batch_eff`` sections a chain are
+    drawn, merged and consumed: the adaptive scheduler's buckets. Pass a
+    ``max_rounds`` that covers exhaustion at the smallest bucket then.
 
     Example — an easy decision (all l_i far above mu0) stops after one round::
 
@@ -79,6 +86,8 @@ def sequential_test(
         >>> bool(res.decision), int(res.rounds), int(res.n_evaluated)
         (True, 1, 50)
     """
+    if batch_eff is not None and draw_bounded_fn is None:
+        raise ValueError("batch_eff requires a matching draw_bounded_fn")
     if max_rounds is None:
         max_rounds = int(math.ceil(int(num_sections) / batch_size))
     mu0 = mu0.to(torch.float32).contiguous()
@@ -95,7 +104,11 @@ def sequential_test(
     batched = len(shape) > 0
     while True:
         active = ~done if batched else None
-        sampler, idx, valid = draw_fn(gen, sampler, batch_size, active, mode=mode)
+        if batch_eff is None:
+            sampler, idx, valid = draw_fn(gen, sampler, batch_size, active, mode=mode)
+        else:
+            sampler, idx, valid = draw_bounded_fn(gen, sampler, batch_size, batch_eff, active,
+                                                  mode=mode)
         l = eval_fn(idx)
         ops.t_test_round(
             l.reshape(-1, batch_size), valid.reshape(-1, batch_size),

@@ -19,6 +19,7 @@ import torch
 from .._device import make_generator, resolve_device
 from ..core.target import PartitionedTarget
 from ..core.target_builder import build_target
+from ..kernels.ref import logit_loglik
 
 PRIOR_VAR = 0.1
 
@@ -67,6 +68,31 @@ def make_target(x: torch.Tensor, y: torch.Tensor, prior_var: float = PRIOR_VAR) 
         x.shape[0],
         prior_logpdf=lambda w: (-0.5 / prior_var) * (w ** 2).sum(-1),
     )
+
+
+def make_grad_fn(x: torch.Tensor, y: torch.Tensor, prior_var: float = PRIOR_VAR,
+                 subsample: int | None = None):
+    """Gradient of the log posterior, or of its estimate on the first
+    ``subsample`` rows rescaled by N/|S|, through ``torch.autograd`` on the
+    plain log-likelihood: it powers the MALA proposal. A (K, D) theta gives
+    per-chain gradients."""
+    n = x.shape[0]
+    sub = n if subsample is None else min(subsample, n)
+    xs, ys = x[:sub], y[:sub]
+
+    def grad(w: torch.Tensor) -> torch.Tensor:
+        with torch.enable_grad():
+            wv = w.detach().requires_grad_(True)
+            batched = wv.ndim == 2  # (K, D): the rows' logits as (N, K) columns
+            ll = logit_loglik(wv.transpose(0, 1) if batched else wv, xs,
+                              ys[:, None] if batched else ys).sum(0)
+            if subsample is not None:
+                ll = (n / sub) * ll
+            lp = (-0.5 / prior_var) * (wv ** 2).sum(-1) + ll
+            (g,) = torch.autograd.grad(lp.sum(), wv)
+        return g
+
+    return grad
 
 
 def run_posterior_ensemble(seed, data: LRData, num_chains: int = 8, num_steps: int = 1000,

@@ -16,6 +16,21 @@
 // the float64 draws the plain version takes from the generator; u * span is
 // the same double product, truncated, so the indices are identical.
 //
+// The bounded draw (src/repro/core/samplers.py:93-107, fy_draw_bounded, the
+// adaptive scheduler's effective batch): with a per-chain m_eff[k] in
+// [0, m], the swaps and out[] are unchanged, valid[k, i] also needs
+// i < m_eff[k], and new_pos = min(pos + m_eff[k], size). With m_eff null
+// the kernel is the unbounded draw, bit for bit. The next round's window
+// then starts at pos + m_eff, inside this round's: positions
+// [pos + m_eff, pos + m) hold values this round's swaps put there but
+// flagged invalid, so nothing is drawn twice, and the next round's
+// Fisher–Yates walk over [pos + m_eff, size) takes fresh uniforms from
+// whatever permutation it finds: any start state gives a uniform draw. No
+// later swap of the transition touches a position below pos + m_eff (every
+// later p is at least that, and j >= p), so the indices already handed out
+// stay where they were drawn. Within one launch nothing changes: the
+// trace-back below resolves all m swaps of the round as before.
+//
 // What bounds it: latency. Bytes (the uniforms, at most 2 m buffer entries
 // read and written, the outputs: ~90 KB at K = 32, m = 100) and integer
 // operations are negligible. Walking the swaps through the buffer costs m
@@ -58,14 +73,15 @@ constexpr int kThreads = 2 * kChunk;   // one thread per touched position
 __global__ void __launch_bounds__(kThreads)
 fy_draw_kernel(const double* __restrict__ u, int32_t* idx, const int32_t* __restrict__ pos,
                const int32_t* __restrict__ size, const uint8_t* __restrict__ active,
-               int32_t* __restrict__ out, uint8_t* __restrict__ valid,
-               int32_t* __restrict__ new_pos, int m, int cap) {
+               const int32_t* __restrict__ m_eff, int32_t* __restrict__ out,
+               uint8_t* __restrict__ valid, int32_t* __restrict__ new_pos, int m, int cap) {
   __shared__ int2 pair[kChunk];  // (p_s, j_s) of the chunk's steps
   const int c = blockIdx.x, t = threadIdx.x;
   int32_t* buf = idx + (size_t)c * cap;
   const double* uc = u + (size_t)c * m;
   const int p0 = pos[c], sz = size[c];
   const bool act = active == nullptr || active[c] != 0;
+  const int take = m_eff == nullptr ? m : m_eff[c];  // lanes valid and consumed
   for (int s0 = 0; s0 < m; s0 += kChunk) {
     const int n = min(kChunk, m - s0);
     if (t < n) {
@@ -94,24 +110,25 @@ fy_draw_kernel(const double* __restrict__ u, int32_t* idx, const int32_t* __rest
       if (act) buf[x] = v;
       if (t < n) {
         out[(size_t)c * m + s0 + t] = v;
-        valid[(size_t)c * m + s0 + t] = (p0 + s0 + t) < sz;
+        valid[(size_t)c * m + s0 + t] = (p0 + s0 + t) < sz && s0 + t < take;
       }
     }
     __syncthreads();  // the next chunk reads these writes and reuses pair
   }
-  if (t == 0) new_pos[c] = act ? min(p0 + m, sz) : p0;
+  if (t == 0) new_pos[c] = act ? min(p0 + take, sz) : p0;
 }
 
 }  // namespace
 
 // u: (K, m) float64 in [0, 1); idx: (K, cap) int32, swapped in place;
 // pos, size: (K,) int32; active: (K,) bool or null (all active);
+// m_eff: (K,) int32 in [0, m] or null (m for every chain);
 // out: (K, m) int32; valid: (K, m) bool; new_pos: (K,) int32.
 extern "C" int fy_draw(const double* u, int32_t* idx, const int32_t* pos, const int32_t* size,
-                       const uint8_t* active, int32_t* out, uint8_t* valid, int32_t* new_pos,
-                       int k, int m, int cap, void* stream) {
+                       const uint8_t* active, const int32_t* m_eff, int32_t* out,
+                       uint8_t* valid, int32_t* new_pos, int k, int m, int cap, void* stream) {
   if (k <= 0) return (int)cudaSuccess;
   fy_draw_kernel<<<k, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, idx, pos, size, active, out, valid, new_pos, m, cap);
+      u, idx, pos, size, active, m_eff, out, valid, new_pos, m, cap);
   return (int)cudaGetLastError();
 }

@@ -6,9 +6,13 @@ round's m indices, their valid flags and the new position. The buffer is
 updated in place; chains that are not ``active`` leave it untouched (the
 lock-step rule). The uniforms (K, m) float64 come from the caller's
 generator, so kernel and plain version give identical indices for the same
-uniforms.
+uniforms. An optional per-chain ``m_eff`` (the adaptive scheduler's
+effective batch, ``repro.core.samplers.fy_draw_bounded``) leaves the swaps
+and indices as they are, flags lanes ``s >= m_eff`` invalid and advances
+the position by ``m_eff`` instead of ``m``.
 
   u (K, m) f64   idx (K, cap) int32   pos, size (K,) int32   active (K,) bool | None
+  m_eff (K,) int32 in [0, m] | None
   -> out (K, m) int32, valid (K, m) bool, new_pos (K,) int32
 
 The CUDA source is ``csrc/fy_draw.cu``; :func:`fy_draw_ref` is the plain
@@ -52,7 +56,7 @@ def _swap_on_host(idx, p, j) -> None:
         buf[rows, js] = vi
 
 
-def fy_draw_ref(u, idx, pos, size, m: int, active=None):
+def fy_draw_ref(u, idx, pos, size, m: int, active=None, m_eff=None):
     """Plain version of :func:`fy_draw` (same in-place contract). The swap
     targets of all m steps are computed at once; the swaps themselves, which
     depend on each other, run one step at a time."""
@@ -69,7 +73,11 @@ def fy_draw_ref(u, idx, pos, size, m: int, active=None):
     offs = pos[:, None] + steps
     valid = offs < size[:, None]
     out = idx.gather(1, torch.clamp_max(offs, cap - 1).long())
-    new_pos = torch.minimum(pos + m, size)
+    if m_eff is None:
+        new_pos = torch.minimum(pos + m, size)
+    else:
+        valid &= steps < m_eff[:, None]
+        new_pos = torch.minimum(pos + m_eff, size)
     if active is not None:
         new_pos = torch.where(active, new_pos, pos)
     return out, valid, new_pos
@@ -79,15 +87,15 @@ def fy_draw_ref(u, idx, pos, size, m: int, active=None):
 def _bind():
     fn = _build.load("fy_draw").fy_draw
     P, I = _build.P, _build.I
-    fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
+    fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, P]
     fn.restype = I
     return fn
 
 
-def fy_draw(u, idx, pos, size, m: int, active=None):
+def fy_draw(u, idx, pos, size, m: int, active=None, m_eff=None):
     """Launch the draw on CUDA tensors (the plain version on CPU tensors)."""
     if idx.device.type == "cpu":
-        return fy_draw_ref(u, idx, pos, size, m, active)
+        return fy_draw_ref(u, idx, pos, size, m, active, m_eff)
     if idx.device.type != "cuda":
         raise ValueError(f"fy_draw has no kernel for device {idx.device}")
     if idx.ndim != 2:
@@ -100,12 +108,14 @@ def fy_draw(u, idx, pos, size, m: int, active=None):
     _build.require(size, "size", dev, (torch.int32,), (k,))
     if active is not None:
         _build.require(active, "active", dev, (torch.bool,), (k,))
+    if m_eff is not None:
+        _build.require(m_eff, "m_eff", dev, (torch.int32,), (k,))
     out = torch.empty((k, m), dtype=torch.int32, device=dev)
     valid = torch.empty((k, m), dtype=torch.bool, device=dev)
     new_pos = torch.empty((k,), dtype=torch.int32, device=dev)
     p = _build.ptr
-    err = _bind()(p(u), p(idx), p(pos), p(size), p(active), p(out), p(valid), p(new_pos),
-                  k, m, cap, _build.stream_of(idx))
+    err = _bind()(p(u), p(idx), p(pos), p(size), p(active), p(m_eff), p(out), p(valid),
+                  p(new_pos), k, m, cap, _build.stream_of(idx))
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return out, valid, new_pos

@@ -270,12 +270,13 @@ def gather_ar1_delta(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop, *,
     return _ar1_gather_kernel(xt, xp, idx, *params, round_bf16=rnd)
 
 
-def fy_draw(u, idx, pos, size, m: int, active=None, *, mode: str = "auto"):
+def fy_draw(u, idx, pos, size, m: int, active=None, *, mode: str = "auto", m_eff=None):
     """The m partial Fisher–Yates swaps of every active chain, in place on
-    ``idx`` (see :mod:`repro_torch.kernels.fy_draw`). Returns
+    ``idx`` (see :mod:`repro_torch.kernels.fy_draw`); ``m_eff`` (K,) int32
+    bounds each chain's valid lanes and advance. Returns
     ``(indices, valid, new_pos)``."""
     fn = _fy_kernel if use_kernel(mode, idx) else fy_draw_ref
-    return fn(u, idx, pos, size, m, active)
+    return fn(u, idx, pos, size, m, active, m_eff)
 
 
 def pgibbs_sweep(noise, u, u_pick, obs, h, phi, s2, *, h0: float = 0.0, mode: str = "auto"):

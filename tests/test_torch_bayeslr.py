@@ -1,6 +1,8 @@
 """The BayesLR slice end to end: the port's experiment module and chains
 against the JAX package's, on data made with numpy and carried across by
 :mod:`repro_torch.convert`."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -157,3 +159,112 @@ def test_run_chain_timed_and_exact_kernel():
     assert es.shape == (2, 3, 3) and bool((ei.rounds == 4).all())
     state, timed = ens.run_timed(1, ens.init(torch.from_numpy(w_true)), 4, block_every=3)
     assert timed["samples"].shape == (2, 4, 3) and timed["transitions_per_sec"] > 0
+
+
+# ---------------------------------------------------------------------------
+# MALA and the log-posterior gradient
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("subsample", [None, 100])
+def test_make_grad_fn_matches_jax_grad(subsample):
+    """The autograd gradient of the log posterior (or of its first-100-rows
+    estimate rescaled by N/100) against jax.grad of the reference's, for
+    one chain and a (K, D) batch: within 1e-5 of the largest component
+    (float32 sums over N rows in another order)."""
+    x, y, _ = _lr_numpy(500, 6, seed=3)
+    w = np.random.default_rng(4).normal(0, 0.5, (3, 6)).astype(np.float32)
+    jgrad = jbayeslr.make_grad_fn(jnp.asarray(x), jnp.asarray(y), subsample=subsample)
+    want = np.stack([np.asarray(jgrad(jnp.asarray(wi))) for wi in w])
+    tgrad = bayeslr.make_grad_fn(torch.from_numpy(x), torch.from_numpy(y), subsample=subsample)
+    tol = 1e-5 * np.abs(want).max()
+    np.testing.assert_allclose(tgrad(torch.from_numpy(w)).numpy(), want, rtol=0, atol=tol)
+    np.testing.assert_allclose(tgrad(torch.from_numpy(w[1])).numpy(), want[1], rtol=0, atol=tol)
+
+
+def test_mala_matches_jax_formula(monkeypatch):
+    """Given the same xi and the same gradient function, theta' equals the
+    reference's bit for bit (the same float32 operations), for one chain and
+    for a (K, D) batch. The q-correction (per chain in the batch) is the
+    difference of two log q terms of size ~D/2 = 3.5, each a sum over D in
+    another order: it agrees within 2e-6, a few float32 ulps of those
+    terms."""
+    from repro.core import proposals as jproposals
+    from repro_torch.core import MALA, proposals
+
+    rng = np.random.default_rng(5)
+    theta = rng.normal(0, 1, (4, 7)).astype(np.float32)
+    xi = rng.standard_normal((4, 7)).astype(np.float32)
+    step = 3e-3
+    jgrad = lambda th: -2.0 * th + 0.5 * jnp.tanh(th)
+    tgrad = lambda th: -2.0 * th + 0.5 * torch.tanh(th)
+    key = jax.random.key(0)
+    monkeypatch.setattr(jproposals, "_tree_randn_like", lambda k, t: jnp.asarray(xi[row]))
+    for row in range(4):
+        jp, jc = J.MALA(step, jgrad)(key, jnp.asarray(theta[row]))
+        monkeypatch.setattr(proposals, "_randn_like", lambda g, t: torch.from_numpy(xi[row]))
+        tp, tc = MALA(step, tgrad)(None, torch.from_numpy(theta[row]))
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        np.testing.assert_allclose(float(tc), float(jc), rtol=0, atol=2e-6)
+        monkeypatch.setattr(proposals, "_randn_like", lambda g, t: torch.from_numpy(xi))
+        bp, bc = MALA(step, tgrad)(None, torch.from_numpy(theta), batch_ndim=1)
+        assert bc.shape == (4,)
+        np.testing.assert_array_equal(bp[row].numpy(), np.asarray(jp))
+        np.testing.assert_allclose(float(bc[row]), float(jc), rtol=0, atol=2e-6)
+
+
+def test_mala_correction_is_per_chain_for_any_leaf_rank(monkeypatch):
+    """Through ``propose`` and ``propose_and_mu0`` with K chains, MALA's
+    correction is (K,) and each chain's equals the reference's one-chain
+    correction (within 2e-6, as above), whatever the rank of the leaves:
+    scalar chains (theta (K,)) and a tree whose leaves are (K,) and
+    (K, 3)."""
+    from repro.core import proposals as jproposals
+    from repro_torch.core import MALA, proposals, propose_and_mu0
+
+    rng = np.random.default_rng(8)
+    k, step = 5, 3e-2
+    trees = {
+        "scalar": {"a": rng.normal(0, 1, (k,))},
+        "mixed": {"a": rng.normal(0, 1, (k,)), "b": rng.normal(0, 1, (k, 3))},
+    }
+    jgrad = lambda th: {n: -1.5 * l + 0.3 * jnp.sin(l) for n, l in th.items()}
+    tgrad = lambda th: {n: -1.5 * l + 0.3 * torch.sin(l) for n, l in th.items()}
+    target = bayeslr.make_target(*(torch.from_numpy(a) for a in _lr_numpy(50, 2)[:2]))
+    target = dataclasses.replace(target, log_global=lambda a, b: torch.zeros((), dtype=torch.float32))
+    for name, theta in trees.items():
+        theta = {n: l.astype(np.float32) for n, l in theta.items()}
+        xi = {n: rng.standard_normal(l.shape).astype(np.float32) for n, l in theta.items()}
+        monkeypatch.setattr(proposals, "_randn_like", lambda g, t: {
+            n: torch.from_numpy(v) for n, v in xi.items()})
+        tt = {n: torch.from_numpy(l) for n, l in theta.items()}
+        _, corr = proposals.propose(MALA(step, tgrad), None, tt, batch_ndim=1)
+        _, mu0, log_u = propose_and_mu0(torch.Generator().manual_seed(0), tt, target,
+                                        MALA(step, tgrad), batch_shape=(k,))
+        assert corr.shape == (k,) and mu0.shape == (k,), name
+        torch.testing.assert_close(mu0, (log_u - corr) / target.num_sections, rtol=0, atol=0)
+        for row in range(k):
+            monkeypatch.setattr(jproposals, "_tree_randn_like", lambda key, t: {
+                n: jnp.asarray(v[row]) for n, v in xi.items()})
+            _, jc = J.MALA(step, jgrad)(jax.random.key(0),
+                                        {n: jnp.asarray(l[row]) for n, l in theta.items()})
+            np.testing.assert_allclose(float(corr[row]), float(jc), rtol=0, atol=2e-6,
+                                       err_msg=f"{name} chain {row}")
+
+
+def test_mala_chain_stays_finite():
+    """The reference's test_bayeslr_mala_proposal_runs in the port: 100
+    subsampled transitions with MALA(1e-4) on the subsampled gradient stay
+    finite; so do 20 steps of a 3-chain masked ensemble."""
+    from repro_torch.core import MALA
+
+    x, y, w_true = _lr_numpy(500, 2, seed=6)
+    data = convert.lr_data(x, y, x[:50], y[:50], w_true, device="cpu")
+    target = bayeslr.make_target(data.x_train, data.y_train)
+    mala = MALA(1e-4, bayeslr.make_grad_fn(data.x_train, data.y_train, subsample=100))
+    cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05)
+    _, samples, infos = run_chain(5, torch.zeros(2), target, mala, 100, config=cfg, device="cpu")
+    assert bool(torch.isfinite(samples).all()) and 0 < acceptance_rate(infos) <= 1
+    ens = ChainEnsemble(target, mala, 3, config=cfg, stepping="masked", device="cpu")
+    _, samples, infos = ens.run(5, ens.init(torch.zeros(2)), 20)
+    assert samples.shape == (3, 20, 2) and bool(torch.isfinite(samples).all())

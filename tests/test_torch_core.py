@@ -385,15 +385,63 @@ def test_fused_and_plain_routes_agree_on_cpu(lr):
 
 
 def test_deferred_paths_raise(lr):
-    for kw in (dict(stepping="masked"), dict(schedule=object()), dict(shard=True),
-               dict(shard=("chains", "data"))):
+    """The mesh paths wait for the distributed slice; masked stepping and
+    schedules are ported (tests/test_torch_schedule.py), and a schedule
+    that is not a ScheduleConfig is refused."""
+    for kw in (dict(shard=True), dict(shard=("chains", "data"))):
         with pytest.raises(NotImplementedError):
             ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", **kw)
+    with pytest.raises(TypeError):
+        ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", schedule=object())
     # composite cycles are ported; a cycle beside (target, proposal) is refused
     with pytest.raises((TypeError, ValueError)):
         ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", transition=object())
     with pytest.raises(NotImplementedError):
         build_target("gaussian_mean", None, 10, prior_logpdf=lambda t: t)
+
+
+
+_DIAGNOSTICS = ["split_rhat_KT", "split_rhat_KTP", "multichain_ess", "effective_sample_size",
+                "autocorrelation", "tail_latency_summary"]
+
+
+@pytest.mark.parametrize("name", _DIAGNOSTICS)
+def test_chain_diagnostics_match_jax(name):
+    """The ported chain diagnostics equal the reference's exactly on
+    numpy-seeded chains (AR(1) traces with mixed means, so R-hat, the
+    autocorrelation and Geyer's ESS are all away from their trivial values;
+    integer round counts with a long tail)."""
+    from repro_torch.core import stats
+
+    rng = np.random.default_rng(_DIAGNOSTICS.index(name))
+    k, t = 6, 401
+    x = np.zeros((k, t, 3))
+    for i in range(1, t):
+        x[:, i] = 0.8 * x[:, i - 1] + rng.standard_normal((k, 3))
+    x += rng.normal(0, 0.5, (k, 1, 3))
+    rounds = rng.geometric(0.35, (k, 50))
+    got, want = {
+        "split_rhat_KT": lambda m: m.split_rhat(x[..., 0]),
+        "split_rhat_KTP": lambda m: m.split_rhat(x.astype(np.float32)),
+        "multichain_ess": lambda m: m.multichain_ess(x[..., 1]),
+        "effective_sample_size": lambda m: m.effective_sample_size(x[2, :, 2]),
+        "autocorrelation": lambda m: m.autocorrelation(x[0, :, 0], max_lag=60),
+        "tail_latency_summary": lambda m: m.tail_latency_summary(rounds),
+    }[name](stats), None
+    want = {"split_rhat_KT": jstats.split_rhat(x[..., 0]),
+            "split_rhat_KTP": jstats.split_rhat(x.astype(np.float32)),
+            "multichain_ess": jstats.multichain_ess(x[..., 1]),
+            "effective_sample_size": jstats.effective_sample_size(x[2, :, 2]),
+            "autocorrelation": jstats.autocorrelation(x[0, :, 0], max_lag=60),
+            "tail_latency_summary": jstats.tail_latency_summary(rounds)}[name]
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    else:
+        np.testing.assert_array_equal(got, want)
+    if name.startswith("split_rhat"):
+        assert np.min(got) > 1.01  # the chains' offsets show
 
 
 @pytest.fixture

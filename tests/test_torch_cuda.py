@@ -518,6 +518,30 @@ def _swap_pairs(u, pos, size, m, cap):
     return p, np.minimum(p + np.minimum((u * span).astype(np.int64), span - 1), cap - 1)
 
 
+def _fy_rounds(case, dev, draw):
+    """Run a ``_FY_CASES`` case through ``draw(u, buf, pos, size, m, active)``
+    from its permuted buffers, round after round; returns the outputs of
+    every round and the final buffers."""
+    k, cap, size, pos, m, uni, inactive, rounds = _FY_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(list(_FY_CASES).index(case))
+    sizes = np.full(k, size, np.int32)
+    if k > 3:
+        sizes[3] = size * 19 // 20
+    size_t = torch.tensor(sizes, device=dev)
+    buf = torch.argsort(torch.rand(k, cap, generator=gen, device=dev), dim=1).int()
+    pos_t = torch.tensor(np.minimum(pos, sizes), dtype=torch.int32, device=dev)
+    outs = []
+    for _ in range(rounds):
+        u = torch.rand((k, m), generator=gen, dtype=torch.float64, device=dev)
+        if uni is not None:
+            u.fill_(uni)
+        active = torch.rand(k, generator=gen, device=dev) >= inactive
+        out = draw(u, buf, pos_t, size_t, m, active)
+        outs.append(out)
+        pos_t = out[2]
+    return outs, buf
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(_FY_CASES))
 def test_fy_draw_kernel_matches_plain(case, cuda_device):
@@ -525,37 +549,102 @@ def test_fy_draw_kernel_matches_plain(case, cuda_device):
     round: the same swaps from the same float64 uniforms, from permuted
     buffers, with some chains inactive where the case says so."""
     k, cap, size, pos, m, uni, inactive, rounds = _FY_CASES[case]
-    seed = list(_FY_CASES).index(case)
-    gen = torch.Generator(device=cuda_device).manual_seed(seed)
-    sizes = np.full(k, size, np.int32)
-    if k > 3:
-        sizes[3] = size * 19 // 20
-    size_t = torch.tensor(sizes, device=cuda_device)
-    start = torch.argsort(torch.rand(k, cap, generator=gen, device=cuda_device), dim=1).int()
-    bufs = [start.clone(), start.clone()]
-    p0 = torch.tensor(np.minimum(pos, sizes), dtype=torch.int32, device=cuda_device)
-    pos_ = [p0, p0.clone()]
+    if case in ("duplicate_targets", "target_in_window_ahead"):
+        u = np.full((k, m), uni)
+        p, j = _swap_pairs(u, np.zeros(k, np.int64), np.full(k, size), m, cap)
+        moved = j[0][j[0] != p[0]]
+        if case == "duplicate_targets":
+            assert len(np.unique(moved)) < len(moved)
+        else:
+            assert np.any((j[0] > p[0]) & (j[0] < m))
     ops.reset_launches()
-    for r in range(rounds):
-        u = torch.rand((k, m), generator=gen, dtype=torch.float64, device=cuda_device)
-        if uni is not None:
-            u.fill_(uni)
-        active = torch.rand(k, generator=gen, device=cuda_device) >= inactive
-        if r == 0 and case in ("duplicate_targets", "target_in_window_ahead"):
-            p, j = _swap_pairs(u.cpu().numpy(), pos_[0].cpu().numpy(), sizes, m, cap)
-            moved = j[0][j[0] != p[0]]
-            if case == "duplicate_targets":
-                assert len(np.unique(moved)) < len(moved)
-            else:
-                assert np.any((j[0] > p[0]) & (j[0] < int(pos_[0][0]) + m))
-        outs = [ops.fy_draw(u, bufs[i], pos_[i], size_t, m, active, mode=mode)
-                for i, mode in enumerate(("always", "never"))]
-        for a, b in zip(*outs):
-            assert torch.equal(a, b)
-        assert torch.equal(bufs[0], bufs[1])
-        pos_ = [outs[0][2], outs[1][2]]
-    assert bool((pos_[0] <= size_t).all()) and ops.launches["fy_draw"] == rounds
+    got, buf_k = _fy_rounds(case, cuda_device, lambda *a: ops.fy_draw(*a, mode="always"))
+    want, buf_p = _fy_rounds(case, cuda_device, lambda *a: ops.fy_draw(*a, mode="never"))
+    for a, b in zip(got, want):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(buf_k, buf_p)
+    assert ops.launches["fy_draw"] == rounds
     ref = torch.arange(cap, dtype=torch.int32, device=cuda_device)
+    assert all(torch.equal(row.sort().values, ref) for row in buf_k)  # still permutations
+
+
+def _fy_digest(dev) -> str:
+    """sha256 (first 16 hex digits) of the kernel's outputs and final
+    buffers over every ``_FY_CASES`` case, without ``m_eff``."""
+    outs = []
+    for case in _FY_CASES:
+        rounds, buf = _fy_rounds(case, dev, lambda *a: ops.fy_draw(*a, mode="always"))
+        outs += [t for r in rounds for t in r] + [buf]
+    return _outputs_digest(outs)
+
+
+# _fy_digest from the kernel before the per-chain m_eff existed, which a null
+# m_eff must reproduce bit for bit
+_FY_DIGEST = "ed8a1accdad73ed1"
+
+
+@pytest.mark.cuda
+def test_fy_draw_without_m_eff_reproduces_earlier_kernel_bits(cuda_device):
+    assert _fy_digest(cuda_device) == _FY_DIGEST
+
+
+# name: (K, capacity = size, m_max, rounds, inactive share). Each chain's
+# m_eff is drawn in [0, m_max] with chain 0 at 0 and chain 1 at m_max; the
+# pools of N = 1000 run out partway, N = 12214 is the BayesLR pool.
+_FY_BOUNDED_CASES = {
+    "K1_m100": (1, 12214, 100, 4, 0.0),
+    "K32_m100": (32, 12214, 100, 4, 0.2),
+    "K32_m400": (32, 12214, 400, 4, 0.2),
+    "K33_m400": (33, 12214, 400, 4, 0.2),
+    "K32_m400_runs_out": (32, 1000, 400, 6, 0.2),
+    "K33_m100_runs_out": (33, 1000, 100, 14, 0.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_FY_BOUNDED_CASES))
+def test_fy_draw_bounded_kernel_matches_plain(case, cuda_device):
+    """The per-chain m_eff: identical indices, valid flags, positions and
+    buffers, round after round, with ragged m_eff (0 and m_max among them)
+    and inactive chains; valid lanes never repeat an index within a
+    transition; m_eff = m_max everywhere equals no m_eff."""
+    k, n, m, rounds, inactive = _FY_BOUNDED_CASES[case]
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(list(_FY_BOUNDED_CASES).index(case) + 100)
+    m_eff = torch.randint(0, m + 1, (k,), generator=gen, device=dev, dtype=torch.int32)
+    m_eff[0] = 0
+    if k > 1:
+        m_eff[1] = m
+    size = torch.full((k,), n, dtype=torch.int32, device=dev)
+    start = torch.argsort(torch.rand(k, n, generator=gen, device=dev), dim=1).int()
+    bufs = [start.clone(), start.clone(), start.clone(), start.clone()]
+    pos = [torch.zeros(k, dtype=torch.int32, device=dev) for _ in range(4)]
+    seen = [set() for _ in range(k)]
+    ops.reset_launches()
+    for _ in range(rounds):
+        u = torch.rand((k, m), generator=gen, dtype=torch.float64, device=dev)
+        active = torch.rand(k, generator=gen, device=dev) >= inactive
+        outs = [ops.fy_draw(u, bufs[i], pos[i], size, m, active, mode=mode, m_eff=me)
+                for i, (mode, me) in enumerate((("always", m_eff), ("never", m_eff),
+                                                ("always", torch.full_like(m_eff, m)),
+                                                ("always", None)))]
+        for a, b in zip(outs[0], outs[1]):
+            assert torch.equal(a, b)
+        for a, b in zip(outs[2], outs[3]):
+            assert torch.equal(a, b)
+        assert torch.equal(bufs[0], bufs[1]) and torch.equal(bufs[2], bufs[3])
+        out, valid, new_pos = (t.cpu().numpy() for t in outs[0])
+        act, me, p0 = active.cpu().numpy(), m_eff.cpu().numpy(), pos[0].cpu().numpy()
+        for c in range(k):
+            assert valid[c].sum() == min(me[c], n - p0[c]) and not valid[c, me[c]:].any()
+            assert new_pos[c] == (min(p0[c] + me[c], n) if act[c] else p0[c])
+            if act[c]:
+                drawn = set(out[c][valid[c]].tolist())
+                assert not drawn & seen[c]
+                seen[c] |= drawn
+        pos = [o[2] for o in outs]
+    assert ops.launches["fy_draw"] == 3 * rounds
+    ref = torch.arange(n, dtype=torch.int32, device=dev)
     assert all(torch.equal(row.sort().values, ref) for row in bufs[0])  # still permutations
 
 
