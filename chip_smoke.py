@@ -37,6 +37,18 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
   G  the sublinear section count on dependent sections: h fixed at the true
      paths, the phi move at fixed theta for S = 200, 2000, 20000
      (N = 1e3, 1e4, 1e5), with one exact transition's time beside it;
+  A  (joint DP mixture) the Gibbs sweep kernel against its plain version at
+     K = 8 and K = 1 (N = 10 000, K_max = 20, P = 5 000, D = 2), the round
+     op with a ragged per-chain n_total and with a null one against saved
+     bits, the logit delta on [x, 1] (D + 1 = 3);
+  M  the joint DP mixture (Sec. 4.2), one replica, the reference's full
+     setting (N = 10 000, 1 000 test points, K_max = 20, Fig. 7's cycle with
+     batch 100, epsilon 0.1, sigma 0.3, half the points a sweep, 10 w moves
+     a cycle), 30 cycles: cycles/s, each component's time, the w moves'
+     evaluated fraction and rounds, test accuracy before and after; then 20
+     exact against 20 subsampled w moves from the final state;
+  N  the same program on K = 8 lock-step replicas, 30 cycles; then an
+     ensemble of one replica against the sequential run, bit for bit;
   A  (CE) the fused CE kernel against its plain version and the library
      composite (torch.matmul + F.cross_entropy): ragged and extreme shapes,
      fp32 and bf16, shared and per-chain tables, the gather form, and the
@@ -54,12 +66,12 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
 
 Phase A also holds the bounded Fisher–Yates draw (ragged per-chain m_eff,
 m_max = 100 and 400) against its plain version. Launch counts are set to 0
-before each of B-L and read after it; every
+before each of B-N and read after it; every
 kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels with their launches, errors and times. The full report
 goes to ``chiprun_out/chip_smoke.json``. ``--profile`` instead runs short
-windows of phases B, C, K, L, E, F, H, I and J under ``torch.profiler`` and reports
+windows of phases B, C, K, L, E, F, M, N, H, I and J under ``torch.profiler`` and reports
 the device's idle share (``chip_profile.json`` beside the report); the windows of
 H, I and J use the launcher's initial model.
 """
@@ -1023,6 +1035,322 @@ def phase_g(report):
 
 
 # ---------------------------------------------------------------------------
+# Phases M-N and their phase A cases: the joint DP mixture (Sec. 4.2)
+# ---------------------------------------------------------------------------
+
+JDPM_N, JDPM_N_TEST, JDPM_K, JDPM_CYCLES = 10_000, 1_000, 8, 30
+JDPM_W_TIMED = 20  # exact and subsampled w moves timed from phase M's final state
+# operations of one Gibbs step for one cluster at D = 2, transcendentals
+# counted as one: the predictive (mean, scatter, scale, Cholesky, solve,
+# two lgammas of ~30 each, logs) ~130, the label and CRP terms ~10, the
+# softmax, scan and pick ~10
+GIBBS_OPS = 150
+
+
+def gibbs_state(gen, data, cfg, k):
+    """K replicas of a phase-M-like state: three random clusters each, w
+    from the prior, log alpha 0, the statistics from z."""
+    import torch
+
+    from repro_torch.inference.niw import ClusterStats
+
+    dev = data.x.device
+    z = torch.randint(0, 3, (k, data.x.shape[0]), generator=gen, device=dev).to(torch.int32)
+    w = torch.randn((k, cfg.k_max, cfg.d + 1), generator=gen, device=dev)
+    return z, w, torch.zeros(k, device=dev), ClusterStats.from_assignments(data.x, z, cfg.k_max)
+
+
+def phase_a_jdpm(report, data):
+    """The joint DP mixture's kernels at the main path's shapes: the Gibbs
+    sweep against its plain version (K = 8 and K = 1, N = 10 000, K_max =
+    20, P = 5 000, D = 2) from the same staged randomness; the round op with
+    a ragged per-chain n_total against its plain version, and with a null
+    one (and a per-chain one equal to the scalar) against the saved bits of
+    tests/test_torch_cuda.py; the logit delta on the augmented rows [x, 1]
+    (D + 1 = 3) of phases M and N."""
+    import numpy as np
+    import torch
+
+    from repro_torch.experiments import jointdpm
+    from repro_torch.inference.niw import ClusterStats
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gibbs_z import (draw_sweep_randomness, first_divergence,
+                                             gibbs_z_sweep, gibbs_z_sweep_ref, sums_drift)
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_cuda as saved  # the round op's saved digests and their inputs
+
+    dev = torch.device("cuda")
+    cfg = jointdpm.JDPMConfig()
+    prior, w_sd = cfg.niw_prior(dev), math.sqrt(cfg.prior_var_w)
+    gen = torch.Generator(device=dev).manual_seed(70)
+    n, p, d = JDPM_N, JDPM_N // 2, cfg.d
+    print("phase A (joint DP mixture): the Gibbs sweep, the round op with a per-chain n_total, "
+          "the logit delta on [x, 1]")
+    # the kernel at K = 8 and at K = 1; the plain version once over the 9
+    # replicas of both (it is vectorised over replicas, so K = 8 alone takes
+    # about as long)
+    cases = []
+    for k in (JDPM_K, 1):
+        z, w, la, stats = gibbs_state(gen, data, cfg, k)
+        keys = torch.rand((k, n), generator=gen, dtype=torch.float64, device=dev)
+        points = torch.argsort(keys, dim=-1, stable=True)[:, :p].to(torch.int32).contiguous()
+        nrm, u = draw_sweep_randomness(gen, k, p, d, dev)
+        cases.append((z, w, la, stats, points, nrm, u))
+    cat = [torch.cat(parts) for parts in zip(*[c[:3] + c[4:] for c in cases])]
+    zp, wp, lap, points_p, nrm_p, u_p = cat
+    sp = ClusterStats(*(torch.cat(parts) for parts in zip(*[c[3] for c in cases])))
+    t0 = time.perf_counter()
+    cdf, mass = gibbs_z_sweep_ref(data.x, data.y, zp, wp, lap, sp, points_p, nrm_p, u_p, prior,
+                                  w_sd, record=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  gibbs_z_sweep plain version over the {JDPM_K + 1} replicas of both cases: "
+          f"{plain_ms / 1e3:.2f}s")
+    first = 0
+    for z, w, la, stats, points, nrm, u in cases:
+        k = z.shape[0]
+        rows = slice(first, first + k)
+        first += k
+        zk, wk, sk = z.clone(), w.clone(), ClusterStats(*(s.clone() for s in stats))
+
+        def reset():
+            zk.copy_(z)
+            wk.copy_(w)
+            for a, b in zip(sk, stats):
+                a.copy_(b)
+
+        run = lambda: gibbs_z_sweep(data.x, data.y, zk, wk, la, sk, points, nrm, u, prior, w_sd)
+        reset()
+        run()
+        torch.cuda.synchronize()
+        apart = first_divergence(points, u, zk, zp[rows], cdf[rows], mass[rows])
+        label = f"K={k} N={n} K_max={cfg.k_max} P={p} D={d}"
+        print(f"  gibbs_z_sweep {label}: replicas whose picks part from the plain version's: "
+              f"{[(r, t) for r, t, _ in apart]}")
+        check(all(b for _, _, b in apart), f"gibbs_z_sweep {label}: picks equal the plain "
+              "version's, or part first where the uniform lies within 1e-5 of a CDF boundary")
+        counts = torch.stack([torch.bincount(r.long(), minlength=cfg.k_max) for r in zk]).float()
+        drift = sums_drift(sk, ClusterStats.from_assignments(data.x, zk, cfg.k_max))
+        check(torch.equal(sk.n, counts) and drift <= 1e-5,
+              f"gibbs_z_sweep {label}: counts equal z's histogram; sums within 1e-5 of their "
+              f"largest magnitude of float64 sums from z ({drift:.2e})")
+        same = [r for r in range(k) if r not in {a for a, _, _ in apart}]
+        err = max([0.0] + [float((a[same] - b[rows][same]).abs().max()) for a, b in
+                           zip((*sk, wk), (*sp, wp))])
+        ms, host_ms = time_ms(run, 5, reset)
+        reset_ms, _ = time_ms(lambda: None, 5, reset)
+        ms -= reset_ms
+        byts = k * p * (4 + 4 * (d + 1) + 4 * (d + 1) + 4 + 4) + k * n * 4 \
+            + 2 * k * cfg.k_max * (1 + d + d * d + d + 1) * 4
+        record(report, "gibbs_z_sweep", label, err, ms, plain_ms, byts,
+               k * p * cfg.k_max * GIBBS_OPS, host_ms, plain_ms, k == JDPM_K,
+               step_us=ms * 1e3 / p, divergences=len(apart))
+        print(f"    a step (the dependent chain the sweep runs P times): {ms * 1e3 / p:.3f}us; "
+              f"state differences where the picks agree: {err:.2e}")
+
+    # the round op: each of 8 chains against its own pool size, as the w
+    # moves of phase N give them (N_k of a few hundred to a few thousand)
+    from repro_torch.kernels.t_test_round import t_test_round, t_test_round_ref
+
+    rng = np.random.default_rng(71)
+    k, m = 8, 100
+    sizes = np.array([40, 150, 480, 900, 1500, 2500, 3300, 4000], np.float32)
+    count = np.minimum(rng.integers(0, 400, k), sizes - 1).astype(np.float32)
+    count[:2] = 0
+    mean0 = rng.normal(0, 0.05, k).astype(np.float32)
+    state = [count, mean0, (np.maximum(count - 1, 0) * rng.uniform(0.5, 2, k)).astype(np.float32),
+             rng.normal(0, 0.05, k).astype(np.float32), np.full(k, 0.05, np.float32),
+             np.zeros(k, np.int32), np.zeros(k, bool), np.zeros(k, bool), np.ones(k, np.float32)]
+    base = [torch.tensor(a, device=dev) for a in state]
+    lt = torch.tensor((mean0[:, None] + rng.standard_normal((k, m))).astype(np.float32), device=dev)
+    vt = torch.tensor(np.arange(m)[None, :] < np.minimum(m, sizes - count)[:, None], device=dev)
+    nt = torch.tensor(sizes, device=dev)
+    sk2, sp2 = [b.clone() for b in base], [b.clone() for b in base]
+    reset_k = lambda: [s.copy_(b) for s, b in zip(sk2, base)]
+    reset_p = lambda: [s.copy_(b) for s, b in zip(sp2, base)]
+    run = lambda: t_test_round(lt, vt, *sk2[:5], nt, 1000, *sk2[5:])
+    plain = lambda: t_test_round_ref(lt, vt, *sp2[:5], nt, 1000, *sp2[5:])
+    reset_k(); run(); reset_p(); plain()
+    torch.cuda.synchronize()
+    check(bool(sk2[6][:2].all()), "t_test_round per-chain n_total: the pools of 40 and 150 are "
+          "exhausted by their round")
+    errs, rel_p = compare_round(sk2, sp2, f"K={k} m={m} per-chain n_total 40..4000")
+    (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 30, reset_k), \
+        time_ms(plain, 5, reset_p, queued=False)
+    reset_ms, _ = time_ms(lambda: None, 30, reset_k)
+    ms -= reset_ms
+    record(report, "t_test_round", f"K={k} m={m} per-chain n_total (M, N)", errs["pval"], ms,
+           plain_ms, k * m * 5 + k * 11 * 4 * 2, k * m * 8 + k * 200 * SF_ITER_FLOPS,
+           host_ms, plain_host_ms, False, pval_rel=rel_p)
+    for case in saved._ROUND_CASES:
+        scalar = saved._digest(saved._run_rounds(
+            case, dev, lambda *a: ops.t_test_round(*a, mode="always")))
+
+        def per_chain(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds, *rest):
+            ops.t_test_round(l, valid, count, mean, m2, mu0, eps, torch.full_like(mu0, n_total),
+                             max_rounds, *rest, mode="always")
+
+        chains = saved._digest(saved._run_rounds(case, dev, per_chain))
+        check(scalar == chains == saved._ROUND_DIGESTS[case],
+              f"t_test_round {case}: null n_total and a per-chain n_total equal to it give the "
+              f"saved bits ({saved._ROUND_DIGESTS[case]})")
+
+    # the logit delta on x_aug = [x, 1]: phase N's gathered round, phase M's one replica
+    x_aug, y = data.x_aug, data.y
+    for kk in (JDPM_K, 1):
+        w = torch.randn((kk, d + 1), generator=gen, device=dev)
+        wq = w + 0.3 * torch.randn((kk, d + 1), generator=gen, device=dev)
+        idx = torch.randint(0, n, (kk, 100), generator=gen, device=dev, dtype=torch.int32)
+        if kk == 1:
+            name, label = "logit_delta", f"rounds: m=100 of N={n} D=3 [x, 1] (M)"
+            run = lambda: ops.logit_delta(x_aug, y, w[0], wq[0], idx=idx[0])
+            plain = lambda: ops.logit_delta(x_aug, y, w[0], wq[0], idx=idx[0], mode="never")
+        else:
+            name, label = "batched_logit_delta", f"gather K={kk} m=100 of N={n} D=3 [x, 1] (N)"
+            run = lambda: ops.gather_and_delta(x_aug, y, idx, w, wq)
+            plain = lambda: ops.gather_and_delta(x_aug, y, idx, w, wq, mode="never")
+        lib = lambda: logit_library(x_aug, y, w, wq, idx=idx)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= 1e-5, f"{name} {label} within 1e-5 of its plain version")
+        (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 10)
+        lib_ms, _ = time_ms(lib, 30)
+        record(report, name, label, err, ms, plain_ms, kk * 100 * (3 * 4 + 4 + 4 + 4) + 2 * kk * 12,
+               kk * 100 * (4 * 3 + 30), host_ms, plain_host_ms, False, library_ms=lib_ms)
+
+
+def jdpm_w_summary(info) -> dict:
+    """Acceptance, mean n_evaluated / N_k and rounds of w moves (any leading
+    axes), and n_evaluated <= N_k on all of them."""
+    n_k = info.n_k.double().clamp_min(1.0)
+    return {"accept": float(info.accepted.double().mean()),
+            "frac_evaluated": float((info.n_evaluated.double() / n_k).mean()),
+            "rounds": float(info.rounds.double().mean()),
+            "within_pool": bool((info.n_evaluated <= info.n_k).all())}
+
+
+def phase_m(report, data):
+    """One replica of the paper's Fig. 7 program at the reference's full
+    setting; then exact against subsampled w moves from the final state."""
+    import numpy as np
+    import torch
+
+    from repro_torch.experiments import jointdpm as jd
+
+    cfg = jd.JDPMConfig()
+    print(f"phase M: joint DP mixture, one replica, N={JDPM_N} (test {JDPM_N_TEST}) D=2 "
+          f"K_max={cfg.k_max}, {JDPM_CYCLES} cycles: alpha MH, Gibbs over N/2 points, 10 "
+          "subsampled w moves (batch 100, epsilon 0.1, sigma 0.3)")
+    state0 = jd.init_state(80, data, cfg)
+
+    def run():
+        jd.run_posterior_sequential(81, data, cfg, 1, state0=state0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = jd.run_posterior_sequential(82, data, cfg, JDPM_CYCLES, state0=state0)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (state, samples, infos), wall = counted(report, "M", run)
+    acc0 = jd.accuracy(jd.predict_proba(state0, data.x_test, cfg), data.y_test)
+    acc1 = jd.accuracy(jd.predict_proba(state, data.x_test, cfg), data.y_test)
+    cyc = jd.make_inference_cycle(data, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    op_us = {}
+    for name, op in zip(cyc.names, cyc.ops):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            op.fn(gen, state)
+        torch.cuda.synchronize()
+        op_us[name] = (time.perf_counter() - t0) / 3 * 1e6
+    moves = {}
+    for exact in (False, True):
+        st, got = state, []
+        g = torch.Generator(device="cuda").manual_seed(84)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(JDPM_W_TIMED):
+            st, info = jd.subsampled_mh_w(g, st, data, cfg, batch_size=100, epsilon=0.1,
+                                          sigma_prop=0.3, exact=exact)
+            got.append(info)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / JDPM_W_TIMED * 1e6
+        summ = jdpm_w_summary(jd.WMoveInfo(*(torch.stack(f) for f in zip(*got))))
+        moves["exact" if exact else "subsampled"] = {"us_per_move": us, **summ}
+    r = {"cycles_per_s": JDPM_CYCLES / wall, "op_us": op_us, "w": jdpm_w_summary(infos["w"]),
+         "k_active_final": int(samples["k_active"][-1]), "alpha_final": float(state.alpha),
+         "accuracy_initial": acc0, "accuracy_final": acc1, "w_moves_from_final": moves}
+    report["phases"]["M"].update(r)
+    print(f"  cycles/s={r['cycles_per_s']:.2f}  within a cycle: Gibbs sweep {op_us['z']:.0f}us, "
+          f"alpha {op_us['alpha']:.0f}us, 10 w moves {op_us['w']:.0f}us")
+    print(f"  w moves: {r['w']}; final k_active={r['k_active_final']} alpha={r['alpha_final']:.4f}")
+    print(f"  test accuracy: initial {acc0:.4f}, final {acc1:.4f}")
+    for kind, v in moves.items():
+        print(f"  {JDPM_W_TIMED} {kind} w moves from the final state: {v['us_per_move']:.0f}us a "
+              f"move, n_evaluated / N_k {v['frac_evaluated']:.4f}, rounds {v['rounds']:.2f}")
+    finite = all(np.isfinite(samples[v].cpu().numpy()).all() for v in ("w", "alpha"))
+    check(finite and r["w"]["within_pool"] and 0.0 < r["w"]["accept"] < 1.0,
+          "phase M: samples finite, n_evaluated <= N_k, w moves accept and reject")
+    check(acc1 >= acc0 + 0.05 and acc1 > 0.58,
+          f"phase M: test accuracy rises by >= 0.05 and ends above 0.58 ({acc0:.4f} -> {acc1:.4f})")
+    check(moves["exact"]["frac_evaluated"] == 1.0 and moves["subsampled"]["within_pool"],
+          "phase M: exact w moves evaluate all N_k members")
+    return state0
+
+
+def phase_n(report, data, state0):
+    """K = 8 replicas of phase M's program in lock-step; then an ensemble of
+    one replica against the sequential run, bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch._device import tree_leaves, tree_map
+    from repro_torch.experiments import jointdpm as jd
+
+    cfg = jd.JDPMConfig()
+    print(f"phase N: joint DP mixture, K={JDPM_K} replicas in lock-step, {JDPM_CYCLES} cycles, "
+          "phase M's setting and initial state")
+
+    def run():
+        jd.run_posterior_ensemble(91, data, cfg, JDPM_K, 1, state0=state0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = jd.run_posterior_ensemble(92, data, cfg, JDPM_K, JDPM_CYCLES, state0=state0)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (state, samples, infos, diag), wall = counted(report, "N", run)
+    theta = state.theta
+    per = []
+    for k in range(JDPM_K):
+        one = tree_map(lambda l: l[k], theta)
+        acc = jd.accuracy(jd.predict_proba(one, data.x_test, cfg), data.y_test)
+        per.append({"accuracy_final": acc, "k_active_final": int(samples["k_active"][k, -1]),
+                    "alpha_final": float(theta.alpha[k]),
+                    **jdpm_w_summary(tree_map(lambda l: l[k], infos["w"]))})
+    r = {"cycles_per_s_summed": JDPM_K * JDPM_CYCLES / wall, "replicas": per,
+         "w": jdpm_w_summary(infos["w"])}
+    report["phases"]["N"].update(r)
+    print(f"  cycles/s summed over replicas={r['cycles_per_s_summed']:.2f}; w moves: {r['w']}")
+    for k, v in enumerate(per):
+        print(f"  replica {k}: {v}")
+    check(np.isfinite(samples["w"].cpu().numpy()).all() and r["w"]["within_pool"]
+          and 0.0 < r["w"]["accept"] < 1.0,
+          "phase N: samples finite, n_evaluated <= N_k, w moves accept and reject")
+
+    kw = dict(batch_size=100, w_moves=4)
+    _, s1, i1, _ = jd.run_posterior_ensemble(93, data, cfg, 1, 3, state0=state0, **kw)
+    _, s2, i2 = jd.run_posterior_sequential(93, data, cfg, 3, state0=state0, **kw)
+    same = all(torch.equal(a[0], b) for a, b in
+               zip(tree_leaves(s1) + tree_leaves(i1), tree_leaves(s2) + tree_leaves(i2)))
+    check(same, "phase N: an ensemble of one replica equals run_posterior_sequential, samples "
+          "and infos bit for bit, on the card (3 cycles)")
+
+
+# ---------------------------------------------------------------------------
 # Phases H-J: the LM slice (chatglm3-6b at full width)
 # ---------------------------------------------------------------------------
 
@@ -1297,7 +1625,7 @@ def profile_idle_share() -> dict:
     from repro_torch.core import (RandomWalk, ScheduleConfig, SubsampledMHConfig, run_chain,
                                   run_ensemble)
     from repro_torch.data import DataConfig, MarkovStream
-    from repro_torch.experiments import bayeslr, stochvol
+    from repro_torch.experiments import bayeslr, jointdpm, stochvol
     from repro_torch.models import init_params
     from repro_torch.runtime import step_generator
 
@@ -1321,6 +1649,9 @@ def profile_idle_share() -> dict:
     lr_target = bayeslr.make_target(lr.x_train, lr.y_train)
     lr_cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="stream")
     sv = stochvol.synth(10, num_series=200, length=5)
+    jdpm_cfg = jointdpm.JDPMConfig()
+    jdpm = jointdpm.synth(60, JDPM_N, JDPM_N_TEST)
+    jdpm0 = jointdpm.init_state(80, jdpm, jdpm_cfg)
     windows = {
         "B: BayesLR one chain, 100 transitions": lambda: run_chain(
             1, torch.zeros(50), lr_target, RandomWalk(0.05), 100, config=lr_cfg),
@@ -1338,6 +1669,10 @@ def profile_idle_share() -> dict:
             11, sv, 50),
         "F: stochvol K=32, 20 cycle steps": lambda: stochvol.run_posterior_ensemble(
             14, sv, num_chains=32, num_steps=20),
+        "M: joint DP mixture one replica, 3 cycles": lambda: jointdpm.run_posterior_sequential(
+            82, jdpm, jdpm_cfg, 3, state0=jdpm0),
+        f"N: joint DP mixture K={JDPM_K}, 2 cycles": lambda: jointdpm.run_posterior_ensemble(
+            92, jdpm, jdpm_cfg, JDPM_K, 2, state0=jdpm0),
         "H: chatglm3-6b train step (launcher defaults), 2 steps": lm_steps,
         "I: ce one chain, 5 transitions": lambda: run_chain(
             31, table, ce_target, RandomWalk(CE_SIGMA), 5, config=ce_cfg, collect=tiny),
@@ -1915,6 +2250,8 @@ def main() -> int:
         "gaussian_ar1_delta": "src/repro/kernels/gaussian_ar1.py:41",
         "fy_draw": "src/repro/core/samplers.py:62 (XLA fori_loop, not a pallas_call)",
         "pgibbs_sweep": "src/repro/kernels/pgibbs.py:58 (XLA-fused scan, not a pallas_call)",
+        "gibbs_z_sweep": "src/repro/experiments/jointdpm.py:103 (XLA fori_loop at :138, not a "
+                         "pallas_call)",
     }
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {
@@ -1926,9 +2263,10 @@ def main() -> int:
         "gaussian_ar1_delta": csrc + "gaussian_ar1_delta.cu",
         "fy_draw": csrc + "fy_draw.cu",
         "pgibbs_sweep": csrc + "pgibbs_sweep.cu",
+        "gibbs_z_sweep": csrc + "gibbs_z_sweep.cu",
     }
     report = {"card": card, "kind": kind, "phases": {p: {} for p in
-                                                      [*"BCDEFGHIJKL", "B'"]},
+                                                      [*"BCDEFGHIJKLMN", "B'"]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -1939,11 +2277,15 @@ def main() -> int:
           "stacked (D, 2) pair + softplus for the two logit kernels; null for the others, which "
           "no PyTorch call computes")
 
-    from repro_torch.experiments import bayeslr
+    from repro_torch.experiments import bayeslr, jointdpm
 
     phase_a_logit(report)
     phase_a(report)
     phase_a_sv(report)
+    jdpm_data = jointdpm.synth(60, JDPM_N, JDPM_N_TEST)
+    t_jdpm = time.perf_counter()
+    phase_a_jdpm(report, jdpm_data)
+    report["jdpm_seconds"] = {"A": time.perf_counter() - t_jdpm}
     data = bayeslr.synth_mnist_like(0)
     theta_b = phase_b(report, data)
     phase_b_mala(report, data, theta_b)
@@ -1955,6 +2297,13 @@ def main() -> int:
     phase_e(report)
     phase_f(report)
     phase_g(report)
+    t_jdpm = time.perf_counter()
+    jdpm_state0 = phase_m(report, jdpm_data)
+    report["jdpm_seconds"]["M"] = time.perf_counter() - t_jdpm
+    phase_n(report, jdpm_data, jdpm_state0)
+    report["jdpm_seconds"]["N"] = time.perf_counter() - t_jdpm - report["jdpm_seconds"]["M"]
+    print(f"  seconds taken by the joint DP mixture's phases: {report['jdpm_seconds']}")
+    del jdpm_data, jdpm_state0
     phase_a_ce(report)
     params, cfg = phase_h(report)
     target, theta = phase_i(report, params, cfg)
@@ -1972,6 +2321,9 @@ def main() -> int:
                         ("L", ("batched_logit_delta", "fy_draw", "t_test_round")),
                         ("D", ("logit_delta", "t_test_round")),
                         ("E", sv), ("F", sv), ("G", sv[:2] + sv[3:]),
+                        ("M", ("gibbs_z_sweep", "logit_delta", "fy_draw", "t_test_round")),
+                        ("N", ("gibbs_z_sweep", "batched_logit_delta", "fy_draw",
+                               "t_test_round")),
                         ("H", ("t_test_round",)),
                         ("I", ("fused_ce", "fy_draw", "t_test_round")),
                         ("J", ("batched_fused_ce", "fy_draw", "t_test_round"))):

@@ -38,6 +38,13 @@ def make_generator(seed, device: torch.device) -> torch.Generator:
     return gen
 
 
+def to_leaf(leaf, device) -> torch.Tensor:
+    """A theta leaf on ``device``: an int32 leaf (a mixture's assignments)
+    stays int32, every other leaf becomes float32."""
+    t = torch.as_tensor(leaf)
+    return t.to(device=device, dtype=torch.int32 if t.dtype == torch.int32 else torch.float32)
+
+
 # Theta is a tensor, or a dict / tuple / list of tensors.
 
 

@@ -2,7 +2,7 @@
 
 The counterpart of loading weights: the BayesLR data pool, a batch of chain
 positions theta (K, D), the stochastic-volatility data (obs, h_true) and
-theta ``{phi, sigma2, h}``, an LM's parameter tree and the ``ce`` family's
+theta ``{phi, sigma2, h}``, the joint DP mixture's data and state, an LM's parameter tree and the ``ce`` family's
 data (hidden states and next tokens), and the samplers' state (the
 stream's ``pos``; the Fisher–Yates ``idx``/``pos``/``size``; one state per component of a
 composite cycle), each handed over as numpy arrays and built into the
@@ -19,7 +19,9 @@ from ._device import resolve_device
 from .core.ensemble import EnsembleState
 from .core.samplers import FisherYatesState, StreamSliceState
 from .experiments.bayeslr import LRData
+from .experiments.jointdpm import JDPMData, JDPMState, augment
 from .experiments.stochvol import SVData
+from .inference.niw import ClusterStats
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -86,6 +88,24 @@ def sv_theta(theta, *, device=None) -> dict:
     chain axis on every leaf) as float32 tensors."""
     dev = resolve_device(device)
     return {name: _f32(theta[name], dev) for name in ("phi", "sigma2", "h")}
+
+
+def jdpm_data(x, y, x_test, y_test, *, device=None) -> JDPMData:
+    """A :class:`JDPMData` from the (N, D) points, (N,) labels in {-1, +1}
+    and the test split, with the w move's pool [x, 1] built once."""
+    dev = resolve_device(device)
+    x_t = _f32(x, dev)
+    return JDPMData(x_t, _f32(y, dev), _f32(x_test, dev), _f32(y_test, dev), augment(x_t))
+
+
+def jdpm_state(z, w, alpha, n, sum_x, sum_xxt, *, device=None) -> JDPMState:
+    """A :class:`JDPMState` from the reference's state (``state.z``,
+    ``state.w``, ``state.alpha`` and the three leaves of ``state.stats``),
+    with or without a leading (K,) replica axis on every leaf: z int32, the
+    rest float32."""
+    dev = resolve_device(device)
+    return JDPMState(z=_i32(z, dev), w=_f32(w, dev), alpha=_f32(alpha, dev),
+                     stats=ClusterStats(_f32(n, dev), _f32(sum_x, dev), _f32(sum_xxt, dev)))
 
 
 def cycle_samplers(states, *, device=None) -> tuple:

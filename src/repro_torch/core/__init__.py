@@ -24,6 +24,7 @@ from .samplers import (
     StreamSliceState,
     fy_draw,
     fy_draw_bounded,
+    fy_from_buffer,
     fy_init,
     fy_reset,
     make_bounded_draw,
@@ -74,7 +75,8 @@ __all__ = [
     "adaptive_max_rounds", "autocorrelation", "build_target", "controller_init",
     "controller_params", "controller_update", "effective_sample_size", "ensemble_summary",
     "exact_decide", "finish_transition", "finite_population_std_err", "from_iid_loglik",
-    "fy_draw", "fy_draw_bounded", "fy_init", "fy_reset", "get_family", "make_bounded_draw",
+    "fy_draw", "fy_draw_bounded", "fy_from_buffer", "fy_init", "fy_reset", "get_family",
+    "make_bounded_draw",
     "make_kernel", "make_sampler", "mh_step", "multichain_ess", "propose_and_mu0",
     "register_family", "registered_families", "run_chain", "run_chain_timed", "run_ensemble",
     "sequential_test", "split_rhat", "stream_draw", "stream_draw_bounded", "stream_init",

@@ -27,7 +27,7 @@ from typing import Any, Callable
 
 import torch
 
-from .._device import make_generator, resolve_device, tree_map
+from .._device import make_generator, resolve_device, to_leaf, tree_map
 from .chain import _stack
 from .samplers import make_sampler, sampler_fns
 from .subsampled_mh import SubsampledMHConfig, adaptive_max_rounds, subsampled_mh_step
@@ -150,7 +150,7 @@ def run_cycle_sequential(seed, theta0: Params, op_cycle: CycleOp, num_steps: int
     fns = [sampler_fns(op.cfg.sampler) if isinstance(op, SubsampledMHOp) else None
            for op in op_cycle.ops]
     samplers = list(init_cycle_samplers(op_cycle, device=dev))
-    theta = tree_map(lambda t: torch.as_tensor(t, dtype=torch.float32).to(dev), theta0)
+    theta = tree_map(lambda t: to_leaf(t, dev), theta0)
     samples, infos = [], []
     for _ in range(num_steps):
         step_infos = {}

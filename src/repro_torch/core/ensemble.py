@@ -75,7 +75,8 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from .._device import make_generator, resolve_device, tree_leaves, tree_map, tree_select
+from .._device import (make_generator, resolve_device, to_leaf, tree_leaves, tree_map,
+                      tree_select)
 from .chain import _stack
 from .composite import CycleOp, SubsampledMHOp, init_cycle_samplers
 from .mh import MHInfo
@@ -273,12 +274,13 @@ class ChainEnsemble:
 
     def init(self, theta0: Params, *, batched: bool = False) -> EnsembleState:
         """``theta0`` is one tree broadcast to all chains, or (``batched=True``)
-        a tree whose leaves already carry the (K,) axis."""
+        a tree whose leaves already carry the (K,) axis. Leaves become
+        float32, but int32 leaves stay int32."""
         dev = self._device
         K = self.num_chains
 
         def place(leaf):
-            leaf = torch.as_tensor(leaf, dtype=torch.float32).to(dev)
+            leaf = to_leaf(leaf, dev)
             return leaf.clone() if batched else leaf[None].repeat((K,) + (1,) * leaf.ndim)
 
         theta = tree_map(place, theta0)

@@ -53,6 +53,18 @@ def fy_init(n: int, size=None, *, device=None) -> FisherYatesState:
     )
 
 
+def fy_from_buffer(idx_buffer: torch.Tensor, size) -> FisherYatesState:
+    """Pool drawing from an explicit (padded) index buffer (..., capacity) of
+    logical ``size`` (an int, or an int tensor shaped like the leading
+    axes: a DP-mixture cluster's member count N_k, one per chain). The
+    buffer is used as given: draws swap it in place."""
+    idx = idx_buffer.to(torch.int32)
+    lead = idx.shape[:-1]
+    size = torch.broadcast_to(torch.as_tensor(size, device=idx.device).to(torch.int32), lead)
+    return FisherYatesState(idx, torch.zeros(lead, dtype=torch.int32, device=idx.device),
+                            size.contiguous())
+
+
 def fy_reset(state: FisherYatesState) -> FisherYatesState:
     """Rewind for a new transition; the buffer itself persists."""
     return FisherYatesState(state.idx, torch.zeros_like(state.pos), state.size)

@@ -51,7 +51,7 @@ def sequential_test(
     draw_fn: Callable,
     eval_fn: Callable[[torch.Tensor], torch.Tensor],
     sampler_state,
-    num_sections: int,
+    num_sections,
     batch_size: int,
     epsilon,
     max_rounds: int | None = None,
@@ -67,8 +67,11 @@ def sequential_test(
     eval_fn(idx) -> l, shaped mu0.shape + (m,)
 
     ``epsilon`` is a float or a per-chain tensor; ``mode`` is the kernel
-    dispatch of the draw and the round op. With ``batch_eff`` (an effective
-    batch <= ``batch_size``, () or per chain) and its
+    dispatch of the draw and the round op. ``num_sections`` is the pool
+    size N, an int or an int tensor shaped () or like ``mu0`` (each chain's
+    own N, as the DP mixture's w move has); a tensor needs an explicit
+    ``max_rounds``, since the round cap is a number the host knows. With
+    ``batch_eff`` (an effective batch <= ``batch_size``, () or per chain) and its
     ``draw_bounded_fn(gen, state, m_max, m_eff, active, mode=)``, rounds keep
     the shape ``batch_size`` but only ``batch_eff`` sections a chain are
     drawn, merged and consumed: the adaptive scheduler's buckets. Pass a
@@ -88,11 +91,18 @@ def sequential_test(
     """
     if batch_eff is not None and draw_bounded_fn is None:
         raise ValueError("batch_eff requires a matching draw_bounded_fn")
+    per_chain = isinstance(num_sections, torch.Tensor)
     if max_rounds is None:
-        max_rounds = int(math.ceil(int(num_sections) / batch_size))
+        if per_chain:
+            raise ValueError("num_sections is a tensor (a per-chain pool size); pass an "
+                             "explicit max_rounds")
+        max_rounds = int(math.ceil(num_sections / batch_size))
     mu0 = mu0.to(torch.float32).contiguous()
     shape, dev = mu0.shape, mu0.device
     f32 = dict(dtype=torch.float32, device=dev)
+    n_total = num_sections
+    if per_chain:  # the round op's (K,) float32 pool sizes
+        n_total = torch.broadcast_to(num_sections.to(**f32), shape).reshape(-1).contiguous()
     w = Welford.empty(shape, device=dev)
     rounds = torch.zeros(shape, dtype=torch.int32, device=dev)
     done = torch.zeros(shape, dtype=torch.bool, device=dev)
@@ -113,7 +123,7 @@ def sequential_test(
         ops.t_test_round(
             l.reshape(-1, batch_size), valid.reshape(-1, batch_size),
             flat(w.count), flat(w.mean), flat(w.m2), flat(mu0), flat(eps),
-            num_sections, max_rounds, flat(rounds), flat(done), flat(decision),
+            n_total, max_rounds, flat(rounds), flat(done), flat(decision),
             flat(pval), mode=mode,
         )
         if bool(done.all()):

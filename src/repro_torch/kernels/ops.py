@@ -41,6 +41,8 @@ from .fy_draw import fy_draw as _fy_kernel
 from .fy_draw import fy_draw_ref
 from .gaussian_ar1 import batched_gaussian_ar1_delta as _ar1_batched_kernel
 from .gaussian_ar1 import gather_ar1_delta as _ar1_gather_kernel
+from .gibbs_z import gibbs_z_sweep as _gibbs_z_kernel
+from .gibbs_z import gibbs_z_sweep_ref
 from .logit_loglik import logit_delta as _logit_kernel
 from .logit_loglik import select_rows
 from .pgibbs import pgibbs_sweep as _pgibbs_kernel
@@ -286,10 +288,20 @@ def pgibbs_sweep(noise, u, u_pick, obs, h, phi, s2, *, h0: float = 0.0, mode: st
     return fn(noise, u, u_pick, obs, h, phi, s2, h0=h0)
 
 
+def gibbs_z_sweep(x, y, z, w, log_alpha, stats, points, nrm, u, prior, w_sd: float, *,
+                  mode: str = "auto") -> None:
+    """One collapsed Gibbs sweep of every replica's assignments from given
+    random numbers, in place on z, w and the statistics (see
+    :mod:`repro_torch.kernels.gibbs_z`)."""
+    fn = _gibbs_z_kernel if use_kernel(mode, z) else gibbs_z_sweep_ref
+    fn(x, y, z, w, log_alpha, stats, points, nrm, u, prior, w_sd)
+
+
 def t_test_round(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds,
                  rounds, done, decision, pval, *, mode: str = "auto") -> None:
     """One lock-step sequential-test round, in place (see
-    :mod:`repro_torch.kernels.t_test_round`)."""
+    :mod:`repro_torch.kernels.t_test_round`); ``n_total`` is a number or a
+    (K,) float32 tensor of per-chain pool sizes."""
     fn = _t_test_kernel if use_kernel(mode, l) else t_test_round_ref
     fn(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds, rounds, done,
        decision, pval)

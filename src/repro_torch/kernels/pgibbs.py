@@ -28,7 +28,7 @@ import functools
 import torch
 
 from . import _build, ops
-from .ref import ar1_propagate, sv_obs_loglik
+from .ref import ar1_propagate, lane_order_cdf, sv_obs_loglik
 
 NAME = "pgibbs_sweep"
 MODES = ("fast", "compat")
@@ -53,44 +53,6 @@ def draw_sweep_randomness(gen: torch.Generator, k: int, s: int, t_len: int, p: i
     return noise, u, u_pick
 
 
-def _resampling_cdf(logw: torch.Tensor) -> torch.Tensor:
-    """The inclusive cumsum of softmax(logw) over the last axis (P
-    particles), with the kernel's float32 additions in the kernel's order.
-    Particle i = g + G r sits on lane g of a group of G lanes (G the
-    smallest power of two >= P, at most 32): the sum is each lane's partial
-    over r, then an xor butterfly across the group; the scan adds across the
-    group's lanes (Hillis-Steele) within each chunk r, plus the total of the
-    chunks before. So kernel and plain version resample alike wherever their
-    exponentials agree."""
-    p = logw.shape[-1]
-    g = 1
-    while g < min(p, 32):
-        g *= 2
-    r_n = -(-p // g)
-    e = torch.exp(logw - logw.amax(-1, keepdim=True))
-    pad = e.new_zeros(e.shape[:-1] + (r_n * g - p,))
-    lanes = torch.cat([e, pad], -1).unflatten(-1, (r_n, g))  # (..., r, lane)
-    tot = lanes[..., 0, :]
-    for r in range(1, r_n):
-        tot = tot + lanes[..., r, :]
-    lane = torch.arange(g, device=e.device)
-    off = g // 2
-    while off:
-        tot = tot + tot[..., lane ^ off]
-        off //= 2
-    v = lanes / tot[..., None, :1]  # every lane holds the same total
-    off = 1
-    while off < g:
-        v = torch.where(lane >= off, v + torch.roll(v, off, -1), v)
-        off *= 2
-    carry = torch.zeros_like(tot[..., :1])
-    chunks = []
-    for r in range(r_n):
-        chunks.append(carry + v[..., r, :])
-        carry = carry + v[..., r, g - 1:]
-    return torch.cat(chunks, -1)[..., :p].contiguous()
-
-
 def pgibbs_sweep_ref(noise, u, u_pick, obs, h, phi, s2, h0: float = 0.0) -> torch.Tensor:
     """Plain version of :func:`pgibbs_sweep`: a loop over T of (K, S, P)
     tensor steps, then the trace-back."""
@@ -104,7 +66,7 @@ def pgibbs_sweep_ref(noise, u, u_pick, obs, h, phi, s2, h0: float = 0.0) -> torc
         h_t = ar1_propagate(h_prev, noise[t], phi_b, s2_b)
         h_t = torch.cat([h[:, :, t, None], h_t[..., 1:]], dim=-1)  # the retained particle
         logw = sv_obs_loglik(obs[None, :, t, None], h_t)
-        cdf = _resampling_cdf(logw)
+        cdf = lane_order_cdf(logw)
         anc = torch.clamp_max(torch.searchsorted(cdf, u[t].contiguous()), p - 1)
         anc[..., 0] = 0
         hs.append(h_t)

@@ -60,6 +60,48 @@ def gather_and_delta_ref(x, y, idx, w_cur, w_prop) -> torch.Tensor:
     return batched_logit_delta_ref(x[idx], y[idx], w_cur, w_prop)
 
 
+def lane_order_cdf(logw: torch.Tensor) -> torch.Tensor:
+    """The inclusive cumsum of softmax(logw) over the last axis (P
+    particles or K_max clusters), with the float32 additions of a warp in
+    its order (the particle-Gibbs and the collapsed Gibbs sweep kernels).
+    Entry i = g + G r sits on lane g of a group of G lanes (G the smallest
+    power of two >= P, at most 32): the sum is each lane's partial over r,
+    then an xor butterfly across the group; the scan adds across the
+    group's lanes (Hillis-Steele) within each chunk r, plus the total of the
+    chunks before. A kernel that runs the butterfly and the scan over all
+    32 lanes with zeros past P adds the same nonzero terms in the same
+    order. So kernel and plain version pick alike wherever their
+    exponentials agree."""
+    p = logw.shape[-1]
+    g = 1
+    while g < min(p, 32):
+        g *= 2
+    r_n = -(-p // g)
+    e = torch.exp(logw - logw.amax(-1, keepdim=True))
+    pad = e.new_zeros(e.shape[:-1] + (r_n * g - p,))
+    lanes = torch.cat([e, pad], -1).unflatten(-1, (r_n, g))  # (..., r, lane)
+    tot = lanes[..., 0, :]
+    for r in range(1, r_n):
+        tot = tot + lanes[..., r, :]
+    lane = torch.arange(g, device=e.device)
+    off = g // 2
+    while off:
+        tot = tot + tot[..., lane ^ off]
+        off //= 2
+    v = lanes / tot[..., None, :1]  # every lane holds the same total
+    off = 1
+    while off < g:
+        v = torch.where(lane >= off, v + torch.roll(v, off, -1), v)
+        off *= 2
+    carry = torch.zeros_like(tot[..., :1])
+    chunks = []
+    for r in range(r_n):
+        chunks.append(carry + v[..., r, :])
+        carry = carry + v[..., r, g - 1:]
+    return torch.cat(chunks, -1)[..., :p].contiguous()
+
+
+
 # ---------------------------------------------------------------------------
 # The LM likelihood: per-token log softmax(h W^T)[target].
 #
@@ -202,11 +244,16 @@ def _c(v: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def lgamma_fp32(inp: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 Lanczos lgamma (g = 7, 8 terms) for inputs >= 0.5 (the
-    t-test reaches only a = df/2 >= 0.5 and b = 0.5), in the operation order
+    """XLA's float32 Lanczos lgamma (g = 7, 8 terms), in the operation order
     of XLA's compiled HLO: the base coefficient rounds to 1, each term is
-    c_i / (z + (i + 1)), and log t = log1p(z * (1/7.5)) + log 7.5."""
-    z = inp + (-1.0)
+    c_i / (z + (i + 1)), and log t = log1p(z * (1/7.5)) + log 7.5, with
+    z = x - 1. Below 0.5 XLA reflects, lgamma(x) = log pi - log|sin(pi x)|
+    - lgamma(1 - x), with z = -x and sin(pi x) taken on the fractional part
+    folded into [0, 0.5] (the DP concentration alpha reaches there). The
+    t-test reaches only a = df/2 >= 0.5 and b = 0.5, where the reflection's
+    selects leave the Lanczos value as it is."""
+    reflect = inp < 0.5
+    z = torch.where(reflect, -inp, inp + (-1.0))
     coeffs = torch.tensor(LANCZOS_COEFFS, dtype=F32, device=inp.device)
     acc = coeffs[0] / (z + 1.0) + 1.0
     for i in range(1, len(LANCZOS_COEFFS)):
@@ -214,7 +261,13 @@ def lgamma_fp32(inp: torch.Tensor) -> torch.Tensor:
     log_t = torch.log1p(z * _c(1.0 / (LANCZOS_G + 0.5), inp)) + _c(math.log(LANCZOS_G + 0.5), inp)
     t = z + (LANCZOS_G + 0.5)
     log_sqrt_2pi = _c((math.log(2.0) + math.log(math.pi)) / 2.0, inp)
-    return ((z + 0.5) - t / log_t) * log_t + log_sqrt_2pi + torch.log(acc)
+    log_y = ((z + 0.5) - t / log_t) * log_t + log_sqrt_2pi + torch.log(acc)
+    frac = inp.abs() - torch.floor(inp.abs())
+    frac = torch.where(frac > 0.5, 1.0 - frac, frac)
+    denom = torch.log(torch.sin(_c(math.pi, inp) * frac))
+    refl = torch.where(torch.isfinite(denom), (_c(math.log(math.pi), inp) - denom) - log_y, -denom)
+    out = torch.where(reflect, refl, log_y)
+    return torch.where(torch.isinf(inp), torch.full_like(out, math.inf), out)
 
 
 def betainc_fp32(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,

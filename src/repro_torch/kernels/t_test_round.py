@@ -10,6 +10,11 @@ launch with no new allocations):
   count, mean, m2, pval : (K,) f32      rounds : (K,) int32
   done, decision        : (K,) bool
 
+The pool size ``n_total`` is one number for every chain or a (K,) float32
+tensor, each chain's own (the DP mixture's w move tests over the N_k
+members of a randomly chosen expert). A number gives the kernel a null
+pointer and the bits of the scalar form.
+
 The CUDA source is ``csrc/t_test_round.cu``; :func:`t_test_round_ref` is the
 plain version, built from the float32 arithmetic in
 :mod:`repro_torch.kernels.ref`.
@@ -49,7 +54,7 @@ def t_test_round_ref(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds,
 def _bind():
     fn = _build.load("t_test_round").t_test_round
     P, I = _build.P, _build.I
-    fn.argtypes = [P, P, I, I, P, P, P, P, P, _build.FL, I, P, P, P, P, P]
+    fn.argtypes = [P, P, I, I, P, P, P, P, P, _build.FL, P, I, P, P, P, P, P]
     fn.restype = I
     return fn
 
@@ -57,8 +62,9 @@ def _bind():
 def t_test_round(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds,
                  rounds, done, decision, pval) -> None:
     """l (K, m) f32 deltas, valid (K, m) bool; mu0, eps (K,) f32;
-    ``n_total`` the pool size N, ``max_rounds`` the round cap. Updates the
-    state tensors in place; returns nothing."""
+    ``n_total`` the pool size N (a number, or a (K,) f32 tensor of
+    per-chain sizes), ``max_rounds`` the round cap. Updates the state
+    tensors in place; returns nothing."""
     if l.device.type == "cpu":
         return t_test_round_ref(l, valid, count, mean, m2, mu0, eps, n_total,
                                 max_rounds, rounds, done, decision, pval)
@@ -77,9 +83,13 @@ def t_test_round(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds,
     _build.require(rounds, "rounds", dev, (torch.int32,), vec)
     _build.require(done, "done", dev, (torch.bool,), vec)
     _build.require(decision, "decision", dev, (torch.bool,), vec)
+    per_chain = isinstance(n_total, torch.Tensor)
+    if per_chain:
+        _build.require(n_total, "n_total", dev, f32, vec)
     p = _build.ptr
     err = _bind()(p(l), p(valid), k, m, p(count), p(mean), p(m2), p(mu0), p(eps),
-                  float(n_total), int(max_rounds), p(rounds), p(done), p(decision),
-                  p(pval), _build.stream_of(l))
+                  0.0 if per_chain else float(n_total), p(n_total if per_chain else None),
+                  int(max_rounds), p(rounds), p(done), p(decision), p(pval),
+                  _build.stream_of(l))
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

@@ -872,3 +872,165 @@ def test_fused_ce_kernel_at_chatglm3_width(k, cuda_device):
     got, want = run("always"), run("never")
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(np.log(v)))
     assert ops.launches["fused_ce" if k == 1 else "batched_fused_ce"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The joint DP mixture: the collapsed Gibbs sweep, the round op with a
+# per-chain pool size, and the logit delta on the augmented rows [x, 1]
+# ---------------------------------------------------------------------------
+
+# (K replicas, N points, K_max, P steps, D, distinct points): the main
+# path's shape cut to N = 2000; one replica; three clusters all occupied (no
+# empty slot: slot 0 is the auxiliary); 32 clusters on a full warp at D = 3;
+# D = 1 with points that repeat within the sweep; P not a multiple of 32
+_GIBBS_CASES = {
+    "K8_N2000_P1000": (8, 2000, 20, 1000, 2, True),
+    "K1_N600_P300": (1, 600, 20, 300, 2, True),
+    "kmax3_full": (3, 500, 3, 500, 2, True),
+    "kmax32_D3": (4, 700, 32, 333, 3, True),
+    "D1_repeats": (2, 300, 5, 777, 1, False),
+}
+
+
+def _gibbs_inputs(case, dev):
+    """Data, state and staged randomness of one case, from numpy."""
+    from repro_torch.inference.niw import ClusterStats, NIWPrior
+
+    k, n, k_max, p, d, distinct = _GIBBS_CASES[case]
+    rng = np.random.default_rng([k, n, k_max, p, d])
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    centers = rng.normal(0, 2.5, (4, d))
+    x = centers[rng.integers(0, 4, n)] + 0.7 * rng.standard_normal((n, d))
+    y = np.where(rng.uniform(size=n) < 0.5, 1.0, -1.0)
+    z = rng.integers(0, min(3, k_max), (k, n)).astype(np.int32)
+    z_t = torch.tensor(z, device=dev)
+    stats = ClusterStats.from_assignments(f32(x), z_t, k_max)
+    w = rng.standard_normal((k, k_max, d + 1))
+    log_alpha = np.log(rng.uniform(0.3, 2.0, k))
+    if distinct:
+        points = np.stack([rng.permutation(n)[:p] for _ in range(k)])
+    else:
+        points = rng.integers(0, n, (k, p))
+    nrm = rng.standard_normal((k, p, d + 1))
+    u = rng.uniform(size=(k, p))
+    prior = NIWPrior(torch.zeros(d, device=dev), 0.1, 4.0, torch.eye(d, device=dev))
+    return (f32(x), f32(y), z_t, f32(w), f32(log_alpha), stats,
+            torch.tensor(points.astype(np.int32), device=dev), f32(nrm), f32(u), prior)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_GIBBS_CASES))
+def test_gibbs_z_kernel_matches_plain(case, cuda_device):
+    """The sweep from the same state and random numbers, one launch: every
+    replica's picks equal the plain version's, or the first pick that
+    differs has its uniform within 1e-5 of a CDF boundary (the math
+    functions round differently; everything after it follows another
+    state). The kernel's counts equal its z's histogram exactly and its
+    sums are within 1e-5 of their largest magnitude of sums recomputed from
+    its z in float64 (float32 adds and removes round to the running sum's
+    ulp); with distinct points, points outside the sweep keep their
+    cluster."""
+    from repro_torch.inference.niw import ClusterStats
+    from repro_torch.kernels.gibbs_z import first_divergence, gibbs_z_sweep_ref, sums_drift
+
+    x, y, z, w, la, stats, points, nrm, u, prior = _gibbs_inputs(case, cuda_device)
+    k_max = w.shape[1]
+    zk, wk = z.clone(), w.clone()
+    sk = ClusterStats(*(s.clone() for s in stats))
+    ops.reset_launches()
+    ops.gibbs_z_sweep(x, y, zk, wk, la, sk, points, nrm, u, prior, 1.0, mode="always")
+    assert ops.launches["gibbs_z_sweep"] == 1
+    zp, wp = z.clone(), w.clone()
+    sp = ClusterStats(*(s.clone() for s in stats))
+    cdf, mass = gibbs_z_sweep_ref(x, y, zp, wp, la, sp, points, nrm, u, prior, 1.0, record=True)
+    if _GIBBS_CASES[case][5]:
+        for r, t, borderline in first_divergence(points, u, zk, zp, cdf, mass):
+            assert borderline, f"replica {r} picks apart at step {t}, away from a CDF boundary"
+        visited = torch.zeros_like(z, dtype=torch.bool).scatter_(1, points.long(), True)
+        assert torch.equal(zk[~visited], z[~visited])
+    else:
+        assert float((zk == zp).float().mean()) >= 0.9
+    assert bool(((zk >= 0) & (zk < k_max)).all())
+    counts = torch.stack([torch.bincount(r.long(), minlength=k_max) for r in zk]).float()
+    assert torch.equal(sk.n, counts)
+    assert sums_drift(sk, ClusterStats.from_assignments(x, zk, k_max)) <= 1e-5
+    assert bool(torch.isfinite(wk).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _ROUND_CASES)
+def test_round_kernel_per_chain_n_total_gives_scalar_bits(case, cuda_device):
+    """A (K,) ``n_total`` holding the scalar everywhere gives, bit for bit,
+    the outputs of the scalar form (the block-per-chain kernel's digest)."""
+    def per_chain(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds, *rest):
+        sizes = torch.full_like(mu0, float(n_total))
+        ops.t_test_round(l, valid, count, mean, m2, mu0, eps, sizes, max_rounds, *rest,
+                         mode="always")
+
+    assert _digest(_run_rounds(case, cuda_device, per_chain)) == _ROUND_DIGESTS[case]
+
+
+@pytest.mark.cuda
+def test_round_kernel_ragged_n_total_matches_plain(cuda_device):
+    """K = 8 chains of the DP mixture's w move, m = 100, each against its
+    own pool size N_k (40 .. 5000), some exhausted within the three rounds:
+    counts, rounds, done flags and decisions identical to the plain
+    version's; mean, m2 and p-value within 1e-4 relative."""
+    rng = np.random.default_rng(19)
+    k, m = 8, 100
+    sizes = np.array([40, 150, 260, 400, 999, 1500, 3000, 5000], np.float32)
+    count = np.minimum(rng.integers(0, 300, k), sizes - 1).astype(np.float32)
+    count[:3] = np.float32([0, 100, 200])
+    mean = rng.normal(0, 0.05, k).astype(np.float32)
+    m2 = (np.maximum(count - 1, 0) * rng.uniform(0.5, 2.0, k)).astype(np.float32)
+    mu0 = rng.normal(0, 0.05, k).astype(np.float32)
+    left = np.maximum(sizes - count, 0)
+    batches = []
+    for r in range(3):
+        l = (mean[:, None] + rng.standard_normal((k, m))).astype(np.float32)
+        valid = np.arange(m)[None, :] < np.minimum(m, left - r * m)[:, None]
+        batches.append((l, valid))
+    outs = []
+    for mode in ("always", "never"):
+        st = [torch.tensor(a, device=cuda_device) for a in (count, mean, m2)]
+        rest = [torch.zeros(k, dtype=torch.int32, device=cuda_device),
+                torch.zeros(k, dtype=torch.bool, device=cuda_device),
+                torch.zeros(k, dtype=torch.bool, device=cuda_device),
+                torch.ones(k, device=cuda_device)]
+        after = []
+        for l, valid in batches:
+            ops.t_test_round(torch.tensor(l, device=cuda_device),
+                             torch.tensor(valid, device=cuda_device), *st,
+                             torch.tensor(mu0, device=cuda_device),
+                             torch.full((k,), 0.05, device=cuda_device),
+                             torch.tensor(sizes, device=cuda_device), 123, *rest, mode=mode)
+            after.append([t.clone() for t in st + rest])
+        outs.append(after)
+    assert bool(outs[0][-1][4][:2].all())  # the two smallest pools are exhausted
+    for g, w in zip(*outs):
+        for i in (0, 3, 4, 5):  # count, rounds, done, decision
+            assert torch.equal(g[i], w[i])
+        for i in (1, 2, 6):  # mean, m2, pval
+            torch.testing.assert_close(g[i], w[i], rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_logit_delta_on_augmented_rows(cuda_device):
+    """The DP mixture's w move scores x_aug = [x, 1] (N = 10 000, D + 1 = 3):
+    the gathered K = 8 round and the one-replica form against the plain
+    version, and the one-replica form equal bit for bit to the gathered
+    form's row at K = 1 (what an ensemble of one replica relies on)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    n, k, m = 10_000, 8, 100
+    x = torch.randn(n, 2, generator=gen, device=cuda_device) * 2.0
+    x_aug = torch.cat([x, torch.ones(n, 1, device=cuda_device)], 1).contiguous()
+    y = torch.where(torch.rand(n, generator=gen, device=cuda_device) < 0.5, 1.0, -1.0)
+    w = torch.randn(k, 3, generator=gen, device=cuda_device)
+    wp = w + 0.3 * torch.randn(k, 3, generator=gen, device=cuda_device)
+    idx = torch.randint(0, n, (k, m), generator=gen, device=cuda_device, dtype=torch.int32)
+    for mode_run in (lambda mode: ops.gather_and_delta(x_aug, y, idx, w, wp, mode=mode),
+                     lambda mode: ops.logit_delta(x_aug, y, w[0], wp[0], idx=idx[0], mode=mode)):
+        torch.testing.assert_close(mode_run("always"), mode_run("never"), rtol=FP32_TOL,
+                                   atol=FP32_TOL)
+    one = ops.logit_delta(x_aug, y, w[0], wp[0], idx=idx[0], mode="always")
+    assert torch.equal(one, ops.gather_and_delta(x_aug, y, idx[:1], w[:1], wp[:1], mode="always")[0])

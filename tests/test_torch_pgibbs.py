@@ -204,12 +204,12 @@ def test_plain_resampling_cdf_follows_the_kernel_order(p):
     """The plain sweep's CDF adds in the kernel's order (so the two resample
     alike on the card): bit for bit the lane-by-lane transcription above,
     given the same exponentials, and within rounding of a plain cumsum."""
-    from repro_torch.kernels.pgibbs import _resampling_cdf
+    from repro_torch.kernels.ref import lane_order_cdf
 
     rng = np.random.default_rng(p)
     for _ in range(5):
         logw = torch.tensor((3.0 * rng.standard_normal((1, p))).astype(np.float32))
-        got = _resampling_cdf(logw)[0].numpy()
+        got = lane_order_cdf(logw)[0].numpy()
         e = torch.exp(logw - logw.amax(-1, keepdim=True))[0].numpy()
         np.testing.assert_array_equal(got, _lane_order_cdf(e))
         np.testing.assert_allclose(got, np.cumsum(e / e.sum()), rtol=0, atol=1e-6)
