@@ -1063,7 +1063,9 @@ def gibbs_state(gen, data, cfg, k):
 def phase_a_jdpm(report, data):
     """The joint DP mixture's kernels at the main path's shapes: the Gibbs
     sweep against its plain version (K = 8 and K = 1, N = 10 000, K_max =
-    20, P = 5 000, D = 2) from the same staged randomness; the round op with
+    20, P = 5 000, D = 2) from the same staged randomness, and on the card
+    cases of tests/test_torch_cuda.py against the saved bits of the earlier
+    sweep kernel; the round op with
     a ragged per-chain n_total against its plain version, and with a null
     one (and a per-chain one equal to the scalar) against the saved bits of
     tests/test_torch_cuda.py; the logit delta on the augmented rows [x, 1]
@@ -1078,7 +1080,7 @@ def phase_a_jdpm(report, data):
                                              gibbs_z_sweep, gibbs_z_sweep_ref, sums_drift)
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    import test_torch_cuda as saved  # the round op's saved digests and their inputs
+    import test_torch_cuda as saved  # the round op's and the sweep's saved digests, their inputs
 
     dev = torch.device("cuda")
     cfg = jointdpm.JDPMConfig()
@@ -1148,6 +1150,12 @@ def phase_a_jdpm(report, data):
                step_us=ms * 1e3 / p, divergences=len(apart))
         print(f"    a step (the dependent chain the sweep runs P times): {ms * 1e3 / p:.3f}us; "
               f"state differences where the picks agree: {err:.2e}")
+    # the card cases of tests/test_torch_cuda.py against the bits of the kernel
+    # that recomputed every cluster's whole predictive at every step
+    for case in saved._GIBBS_CASES:
+        check(saved._gibbs_digest(case, dev) == saved._GIBBS_DIGESTS[case],
+              f"gibbs_z_sweep {case}: z, w and the statistics equal the earlier kernel's bits "
+              f"({saved._GIBBS_DIGESTS[case]})")
 
     # the round op: each of 8 chains against its own pool size, as the w
     # moves of phase N give them (N_k of a few hundred to a few thousand)

@@ -9,6 +9,15 @@ term under w, the auxiliary slot under a fresh prior draw), pick one, and add
 the point back. The steps depend on each other, so the whole sweep is one
 launch (``csrc/gibbs_z_sweep.cu``), one block a replica.
 
+The kernel splits each cluster's predictive into a term of its count alone
+(a table over 0 .. N), a state of its statistics (mean, Cholesky factor,
+log det, df) and a tail in the point, and computes the state for the next
+step's possible outcomes while the current step picks. :func:`count_table`,
+:func:`cluster_state` and :func:`predictive_tail` are that split in plain
+PyTorch; composed they give the bits of
+:func:`repro_torch.inference.niw.predictive_all_clusters`, which the tests
+check (the split reorders no operation).
+
 The wrapper takes the random numbers from the caller (:func:`draw_sweep_
 randomness`: the auxiliary expert's D + 1 standard normals and one uniform a
 step), so the kernel and the plain version :func:`gibbs_z_sweep_ref` are
@@ -35,15 +44,58 @@ import math
 import torch
 
 from . import _build
-from .ref import _softplus, lane_order_cdf
+from .ref import _softplus, lane_order_cdf, lgamma_fp32
 
 NAME = "gibbs_z_sweep"
 MAX_CLUSTERS = 32  # one lane a cluster
 MAX_D = 4  # the kernel's instantiations
-MAX_POINTS = 227 * 1024  # z is staged in shared memory, one byte a point
+MAX_POINTS = 227 * 1024  # the interface's limit on N
 
 __all__ = ["gibbs_z_sweep", "gibbs_z_sweep_ref", "draw_sweep_randomness", "first_divergence",
-           "sums_drift"]
+           "sums_drift", "count_table", "cluster_state", "predictive_tail"]
+
+_LOG_PI = 1.1447298858494002
+
+
+def count_table(prior, d: int, n_max: int) -> torch.Tensor:
+    """The predictive's terms that depend on the count n alone, for n = 0 ..
+    n_max (n_max + 1,): lgamma((df + D) / 2) - lgamma(df / 2) - D/2 (log df
+    + log pi), df = v0 + n - D + 1, in the predictive's operation order."""
+    n = torch.arange(n_max + 1, dtype=torch.float32, device=prior.m0.device)
+    df = prior.v0 + n - d + 1.0
+    return lgamma_fp32((df + d) / 2.0) - lgamma_fp32(df / 2.0) - 0.5 * d * (torch.log(df) + _LOG_PI)
+
+
+def cluster_state(stats, prior, table: torch.Tensor):
+    """Each cluster's predictive state from its statistics (leading axes as
+    ``stats``): the mean mn (..., K, D), the lower Cholesky factor of the
+    scale (..., K, D, D), ``a`` = the count's table entry - log det / 2,
+    ``c`` = (df + D) / 2 and df (..., K). The counts must be integers
+    within the table."""
+    f32 = torch.float32
+    d = stats.sum_x.shape[-1]
+    m0, s0 = prior.m0.to(f32), prior.s0.to(f32)
+    kn = prior.k0 + stats.n
+    vn = prior.v0 + stats.n
+    mn = (prior.k0 * m0 + stats.sum_x) / kn[..., None]
+    sn = (s0 + stats.sum_xxt + prior.k0 * torch.outer(m0, m0)
+          - kn[..., None, None] * (mn[..., :, None] * mn[..., None, :]))
+    df = vn - d + 1.0
+    scale = sn * (kn + 1.0)[..., None, None] / (kn * df)[..., None, None]
+    scale = scale + 1e-6 * torch.eye(d, dtype=f32, device=scale.device)
+    chol = torch.linalg.cholesky_ex(scale)[0]
+    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    return mn, chol, table[stats.n.long()] - 0.5 * logdet, 0.5 * (df + d), df
+
+
+def predictive_tail(x: torch.Tensor, state) -> torch.Tensor:
+    """The predictive of x (..., D) under every cluster of ``state``
+    (:func:`cluster_state`) -> (..., K): the part that depends on x."""
+    mn, chol, a, c, df = state
+    diff = torch.linalg.solve_triangular(chol, (x[..., None, :] - mn)[..., None],
+                                         upper=False)[..., 0]
+    quad = (diff * diff).sum(-1)
+    return a - c * torch.log1p(quad / df)
 
 
 def draw_sweep_randomness(gen: torch.Generator, k: int, p: int, d: int, device):
@@ -165,7 +217,7 @@ def gibbs_z_sweep(x, y, z, w, log_alpha, stats, points, nrm, u, prior, w_sd: flo
     if not 1 <= d <= MAX_D:
         raise ValueError(f"the sweep kernel takes 1 <= D <= {MAX_D}, got {d}")
     if n > MAX_POINTS:
-        raise ValueError(f"the sweep kernel stages z in shared memory: N <= {MAX_POINTS}, got {n}")
+        raise ValueError(f"the sweep kernel takes N <= {MAX_POINTS}, got {n}")
     dev, f32 = z.device, (torch.float32,)
     _build.require(x, "x", dev, f32, (n, d))
     _build.require(y, "y", dev, f32, (n,))

@@ -879,43 +879,124 @@ def test_fused_ce_kernel_at_chatglm3_width(k, cuda_device):
 # per-chain pool size, and the logit delta on the augmented rows [x, 1]
 # ---------------------------------------------------------------------------
 
-# (K replicas, N points, K_max, P steps, D, distinct points): the main
-# path's shape cut to N = 2000; one replica; three clusters all occupied (no
-# empty slot: slot 0 is the auxiliary); 32 clusters on a full warp at D = 3;
-# D = 1 with points that repeat within the sweep; P not a multiple of 32
+# (K replicas, N points, K_max, P steps, D, points): the main path's shape
+# cut to N = 2000; one replica; three clusters all occupied (no empty slot:
+# slot 0 is the auxiliary); 32 clusters on a full warp at D = 3; D = 1 with
+# points that repeat within the sweep; P not a multiple of 32; each point
+# visited twice in a row at K_max = 4 (the next step's old cluster is the
+# one this step picks, and the auxiliary slot moves often); a cluster of a
+# single point whose removal empties it, at K_max = 4, so that the
+# auxiliary lands on it; D = 4 at K_max = 12; sweeps of one and two points.
+# Points are "distinct" (a prefix of a permutation),
+# "random" (with repeats), "pairs" or "singleton" (distinct, and the
+# replica's r-th visited point alone in cluster K_max - 1 before the sweep)
 _GIBBS_CASES = {
-    "K8_N2000_P1000": (8, 2000, 20, 1000, 2, True),
-    "K1_N600_P300": (1, 600, 20, 300, 2, True),
-    "kmax3_full": (3, 500, 3, 500, 2, True),
-    "kmax32_D3": (4, 700, 32, 333, 3, True),
-    "D1_repeats": (2, 300, 5, 777, 1, False),
+    "K8_N2000_P1000": (8, 2000, 20, 1000, 2, "distinct"),
+    "K1_N600_P300": (1, 600, 20, 300, 2, "distinct"),
+    "kmax3_full": (3, 500, 3, 500, 2, "distinct"),
+    "kmax32_D3": (4, 700, 32, 333, 3, "distinct"),
+    "D1_repeats": (2, 300, 5, 777, 1, "random"),
+    "kmax4_pairs": (3, 400, 4, 600, 2, "pairs"),
+    "kmax4_singleton": (4, 500, 4, 400, 2, "singleton"),
+    "kmax12_D4": (2, 800, 12, 400, 4, "distinct"),
+    "P1": (3, 200, 6, 1, 2, "distinct"),
+    "P2": (3, 200, 6, 2, 3, "distinct"),
 }
+_SINGLETON_STEPS = (0, 1, 37, 399)  # the step at which each replica visits its lone point
+# beyond shared memory: N = 60 000 puts the count table in device memory, N =
+# 232 000 z as well (the kernel keeps both in shared memory where they fit)
+_GIBBS_LARGE = {"N60000_table_in_device_memory": (2, 60_000, 8, 300, 2, "distinct"),
+                "N232000_z_in_device_memory": (1, 232_000, 8, 300, 2, "distinct")}
 
 
 def _gibbs_inputs(case, dev):
     """Data, state and staged randomness of one case, from numpy."""
     from repro_torch.inference.niw import ClusterStats, NIWPrior
 
-    k, n, k_max, p, d, distinct = _GIBBS_CASES[case]
+    k, n, k_max, p, d, kind = {**_GIBBS_CASES, **_GIBBS_LARGE}[case]
     rng = np.random.default_rng([k, n, k_max, p, d])
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     centers = rng.normal(0, 2.5, (4, d))
     x = centers[rng.integers(0, 4, n)] + 0.7 * rng.standard_normal((n, d))
     y = np.where(rng.uniform(size=n) < 0.5, 1.0, -1.0)
     z = rng.integers(0, min(3, k_max), (k, n)).astype(np.int32)
-    z_t = torch.tensor(z, device=dev)
-    stats = ClusterStats.from_assignments(f32(x), z_t, k_max)
     w = rng.standard_normal((k, k_max, d + 1))
     log_alpha = np.log(rng.uniform(0.3, 2.0, k))
-    if distinct:
-        points = np.stack([rng.permutation(n)[:p] for _ in range(k)])
-    else:
+    if kind == "random":
         points = rng.integers(0, n, (k, p))
+    elif kind == "pairs":
+        points = np.stack([np.repeat(rng.permutation(n)[:p // 2], 2) for _ in range(k)])
+    else:
+        points = np.stack([rng.permutation(n)[:p] for _ in range(k)])
+    if kind == "singleton":
+        for r in range(k):
+            z[r, points[r, _SINGLETON_STEPS[r]]] = k_max - 1
     nrm = rng.standard_normal((k, p, d + 1))
     u = rng.uniform(size=(k, p))
+    z_t = torch.tensor(z, device=dev)
+    stats = ClusterStats.from_assignments(f32(x), z_t, k_max)
     prior = NIWPrior(torch.zeros(d, device=dev), 0.1, 4.0, torch.eye(d, device=dev))
     return (f32(x), f32(y), z_t, f32(w), f32(log_alpha), stats,
             torch.tensor(points.astype(np.int32), device=dev), f32(nrm), f32(u), prior)
+
+
+def _gibbs_digest(case, dev) -> str:
+    """sha256 (first 16 hex digits) of z, w, n, sum_x and sum_xxt after one
+    launch of the sweep kernel on the case's inputs."""
+    from repro_torch.inference.niw import ClusterStats
+
+    x, y, z, w, la, stats, points, nrm, u, prior = _gibbs_inputs(case, dev)
+    sk = ClusterStats(*(s.clone() for s in stats))
+    ops.gibbs_z_sweep(x, y, z, w, la, sk, points, nrm, u, prior, 1.0, mode="always")
+    return _outputs_digest([z, w, *sk])
+
+
+# _gibbs_digest of each case from the kernel that recomputed every
+# cluster's whole predictive at every step on one warp, which the kernel
+# that speculates the next step must reproduce bit for bit
+_GIBBS_DIGESTS = {"K8_N2000_P1000": "0d3f854f9722765b", "K1_N600_P300": "d6fe913711fe614d",
+                  "kmax3_full": "f8c8afeadcaf27f2", "kmax32_D3": "ebc083fc56ad2e7a",
+                  "D1_repeats": "cad4fcf2c2844676", "kmax4_pairs": "dc153e3d8c90911d",
+                  "kmax4_singleton": "b9064f96cd87f5a8", "kmax12_D4": "9ab6ef5bedaee3da",
+                  "P1": "a5c39d58faf44d50", "P2": "e07cd78f119d8012"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_GIBBS_CASES))
+def test_gibbs_z_kernel_reproduces_parent_bits(case, cuda_device):
+    """z, w and the statistics after one launch equal, bit for bit, what
+    the kernel that recomputed the whole predictive at every step gave
+    from the same inputs: caching and speculating change when each float32
+    value is computed, not how."""
+    assert _gibbs_digest(case, cuda_device) == _GIBBS_DIGESTS[case]
+
+
+def _check_gibbs_against_plain(case, dev):
+    from repro_torch.inference.niw import ClusterStats
+    from repro_torch.kernels.gibbs_z import first_divergence, gibbs_z_sweep_ref, sums_drift
+
+    x, y, z, w, la, stats, points, nrm, u, prior = _gibbs_inputs(case, dev)
+    k_max = w.shape[1]
+    zk, wk = z.clone(), w.clone()
+    sk = ClusterStats(*(s.clone() for s in stats))
+    ops.reset_launches()
+    ops.gibbs_z_sweep(x, y, zk, wk, la, sk, points, nrm, u, prior, 1.0, mode="always")
+    assert ops.launches["gibbs_z_sweep"] == 1
+    zp, wp = z.clone(), w.clone()
+    sp = ClusterStats(*(s.clone() for s in stats))
+    cdf, mass = gibbs_z_sweep_ref(x, y, zp, wp, la, sp, points, nrm, u, prior, 1.0, record=True)
+    if {**_GIBBS_CASES, **_GIBBS_LARGE}[case][5] in ("distinct", "singleton"):
+        for r, t, borderline in first_divergence(points, u, zk, zp, cdf, mass):
+            assert borderline, f"replica {r} picks apart at step {t}, away from a CDF boundary"
+        visited = torch.zeros_like(z, dtype=torch.bool).scatter_(1, points.long(), True)
+        assert torch.equal(zk[~visited], z[~visited])
+    else:
+        assert float((zk == zp).float().mean()) >= 0.9
+    assert bool(((zk >= 0) & (zk < k_max)).all())
+    counts = torch.stack([torch.bincount(r.long(), minlength=k_max) for r in zk]).float()
+    assert torch.equal(sk.n, counts)
+    assert sums_drift(sk, ClusterStats.from_assignments(x, zk, k_max)) <= 1e-5
+    assert bool(torch.isfinite(wk).all())
 
 
 @pytest.mark.cuda
@@ -930,31 +1011,16 @@ def test_gibbs_z_kernel_matches_plain(case, cuda_device):
     its z in float64 (float32 adds and removes round to the running sum's
     ulp); with distinct points, points outside the sweep keep their
     cluster."""
-    from repro_torch.inference.niw import ClusterStats
-    from repro_torch.kernels.gibbs_z import first_divergence, gibbs_z_sweep_ref, sums_drift
+    _check_gibbs_against_plain(case, cuda_device)
 
-    x, y, z, w, la, stats, points, nrm, u, prior = _gibbs_inputs(case, cuda_device)
-    k_max = w.shape[1]
-    zk, wk = z.clone(), w.clone()
-    sk = ClusterStats(*(s.clone() for s in stats))
-    ops.reset_launches()
-    ops.gibbs_z_sweep(x, y, zk, wk, la, sk, points, nrm, u, prior, 1.0, mode="always")
-    assert ops.launches["gibbs_z_sweep"] == 1
-    zp, wp = z.clone(), w.clone()
-    sp = ClusterStats(*(s.clone() for s in stats))
-    cdf, mass = gibbs_z_sweep_ref(x, y, zp, wp, la, sp, points, nrm, u, prior, 1.0, record=True)
-    if _GIBBS_CASES[case][5]:
-        for r, t, borderline in first_divergence(points, u, zk, zp, cdf, mass):
-            assert borderline, f"replica {r} picks apart at step {t}, away from a CDF boundary"
-        visited = torch.zeros_like(z, dtype=torch.bool).scatter_(1, points.long(), True)
-        assert torch.equal(zk[~visited], z[~visited])
-    else:
-        assert float((zk == zp).float().mean()) >= 0.9
-    assert bool(((zk >= 0) & (zk < k_max)).all())
-    counts = torch.stack([torch.bincount(r.long(), minlength=k_max) for r in zk]).float()
-    assert torch.equal(sk.n, counts)
-    assert sums_drift(sk, ClusterStats.from_assignments(x, zk, k_max)) <= 1e-5
-    assert bool(torch.isfinite(wk).all())
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(_GIBBS_LARGE))
+def test_gibbs_z_kernel_beyond_shared_memory(case, cuda_device):
+    """As test_gibbs_z_kernel_matches_plain, where the count table (N =
+    60 000) or also z (N = 232 000, up to MAX_POINTS) no longer fit in a
+    block's shared memory and live in device memory."""
+    _check_gibbs_against_plain(case, cuda_device)
 
 
 @pytest.mark.cuda
