@@ -1040,11 +1040,17 @@ def phase_g(report):
 
 JDPM_N, JDPM_N_TEST, JDPM_K, JDPM_CYCLES = 10_000, 1_000, 8, 30
 JDPM_W_TIMED = 20  # exact and subsampled w moves timed from phase M's final state
-# operations of one Gibbs step for one cluster at D = 2, transcendentals
-# counted as one: the predictive (mean, scatter, scale, Cholesky, solve,
-# two lgammas of ~30 each, logs) ~130, the label and CRP terms ~10, the
-# softmax, scan and pick ~10
-GIBBS_OPS = 150
+
+
+def gibbs_ops(k, p, n, k_max):
+    """Operations a sweep of K replicas needs at D = 2, transcendentals
+    counted as one: each step, for every cluster, the predictive's tail
+    (the solve, the quadratic form, a log) ~13, the CRP and label terms
+    ~13 and its share of the softmax, scan and pick ~6; for the two clusters
+    the step changes, the point's removal or addition ~11 and the
+    predictive state (mean, scatter, Cholesky factor, log det) ~60; once,
+    the count's terms of the counts 0 .. N (two lgammas of ~30 and a log)."""
+    return k * p * (k_max * 32 + 2 * 71) + (n + 1) * 65
 
 
 def gibbs_state(gen, data, cfg, k):
@@ -1146,13 +1152,13 @@ def phase_a_jdpm(report, data):
         byts = k * p * (4 + 4 * (d + 1) + 4 * (d + 1) + 4 + 4) + k * n * 4 \
             + 2 * k * cfg.k_max * (1 + d + d * d + d + 1) * 4
         record(report, "gibbs_z_sweep", label, err, ms, plain_ms, byts,
-               k * p * cfg.k_max * GIBBS_OPS, host_ms, plain_ms, k == JDPM_K,
+               gibbs_ops(k, p, n, cfg.k_max), host_ms, plain_ms, k == JDPM_K,
                step_us=ms * 1e3 / p, divergences=len(apart))
         print(f"    a step (the dependent chain the sweep runs P times): {ms * 1e3 / p:.3f}us; "
               f"state differences where the picks agree: {err:.2e}")
     # the card cases of tests/test_torch_cuda.py against the bits of the kernel
     # that recomputed every cluster's whole predictive at every step
-    for case in saved._GIBBS_CASES:
+    for case in saved._GIBBS_DIGESTS:
         check(saved._gibbs_digest(case, dev) == saved._GIBBS_DIGESTS[case],
               f"gibbs_z_sweep {case}: z, w and the statistics equal the earlier kernel's bits "
               f"({saved._GIBBS_DIGESTS[case]})")

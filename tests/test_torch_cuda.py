@@ -903,9 +903,14 @@ _GIBBS_CASES = {
     "P2": (3, 200, 6, 2, 3, "distinct"),
 }
 _SINGLETON_STEPS = (0, 1, 37, 399)  # the step at which each replica visits its lone point
-# beyond shared memory: N = 60 000 puts the count table in device memory, N =
-# 232 000 z as well (the kernel keeps both in shared memory where they fit)
-_GIBBS_LARGE = {"N60000_table_in_device_memory": (2, 60_000, 8, 300, 2, "distinct"),
+# beyond shared memory: the kernel keeps z's bytes and then the count table
+# over as many counts as fit in a block's shared memory, and a count past the
+# table computes its terms where it needs them. N = 60 000: the table holds
+# counts up to ~42 800, every count of the case (~20 000 a cluster); N =
+# 150 000: up to ~20 300, the clusters' ~50 000 past it; N = 232 000: z in
+# device memory, the table up to ~57 800, the clusters' ~77 000 past it
+_GIBBS_LARGE = {"N60000_table_cut_short": (2, 60_000, 8, 300, 2, "distinct"),
+                "N150000_counts_past_the_table": (2, 150_000, 8, 300, 2, "distinct"),
                 "N232000_z_in_device_memory": (1, 232_000, 8, 300, 2, "distinct")}
 
 
@@ -958,11 +963,14 @@ _GIBBS_DIGESTS = {"K8_N2000_P1000": "0d3f854f9722765b", "K1_N600_P300": "d6fe913
                   "kmax3_full": "f8c8afeadcaf27f2", "kmax32_D3": "ebc083fc56ad2e7a",
                   "D1_repeats": "cad4fcf2c2844676", "kmax4_pairs": "dc153e3d8c90911d",
                   "kmax4_singleton": "b9064f96cd87f5a8", "kmax12_D4": "9ab6ef5bedaee3da",
-                  "P1": "a5c39d58faf44d50", "P2": "e07cd78f119d8012"}
+                  "P1": "a5c39d58faf44d50", "P2": "e07cd78f119d8012",
+                  "N60000_table_cut_short": "16acba088d51a2e9",
+                  "N150000_counts_past_the_table": "d97dfa0549bcba06",
+                  "N232000_z_in_device_memory": "4d669fcc772281b3"}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(_GIBBS_CASES))
+@pytest.mark.parametrize("case", [*_GIBBS_CASES, *_GIBBS_LARGE])
 def test_gibbs_z_kernel_reproduces_parent_bits(case, cuda_device):
     """z, w and the statistics after one launch equal, bit for bit, what
     the kernel that recomputed the whole predictive at every step gave
@@ -1017,9 +1025,9 @@ def test_gibbs_z_kernel_matches_plain(case, cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(_GIBBS_LARGE))
 def test_gibbs_z_kernel_beyond_shared_memory(case, cuda_device):
-    """As test_gibbs_z_kernel_matches_plain, where the count table (N =
-    60 000) or also z (N = 232 000, up to MAX_POINTS) no longer fit in a
-    block's shared memory and live in device memory."""
+    """As test_gibbs_z_kernel_matches_plain, where the count table no
+    longer holds every count 0 .. N (N = 60 000, 150 000) and z's bytes no
+    longer fit in a block's shared memory (N = 232 000, up to MAX_POINTS)."""
     _check_gibbs_against_plain(case, cuda_device)
 
 

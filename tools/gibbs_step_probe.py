@@ -44,13 +44,14 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(HERE, "src"))
 PARENT = os.path.join(HERE, "build", "gibbs_probe", "parent.cu")
 
-STUB_PREDICTIVE = ("      const float feat = predictive<D>(var, xs, pr, tab, n);\n",
+STUB_PREDICTIVE = ("      const float feat = predictive<D>(var, xs, pr, tab, tmax);\n",
                    "      const float feat = var.ct * 1e-3f + xs[0];\n")
 STUB_LABEL = ("  return -(fmaxf(arg, 0.0f) + log1pf(expf(-fabsf(arg))));\n",
               "  return arg * 1e-3f;\n")
 STUB_PICK = ("      const int knew = pick(logp, own, u);\n",
              "      const int knew = min((int)(u * (float)kmax), kmax - 1);\n")
-IEEE = ("constexpr bool kFastSpec = true;\n", "constexpr bool kFastSpec = false;\n")
+IEEE = (("    state_of<D, true>(s, pr, tn, o, ok);\n", "    state_of<D, false>(s, pr, tn, o, ok);\n"),
+        ("    feat = tail_of<D, true>(o, xi, ok);\n", "    feat = tail_of<D, false>(o, xi, ok);\n"))
 
 
 def replaced(src: str, *pairs) -> str:
@@ -79,7 +80,7 @@ def main() -> int:
     hdr = (_build.CSRC / "lgamma_xla.cuh").read_text()
     variants = {"parent": open(PARENT).read(), "new": src,
                 "pick": replaced(src, STUB_PREDICTIVE, STUB_LABEL),
-                "spec": replaced(src, STUB_PICK), "ieee": replaced(src, IEEE),
+                "spec": replaced(src, STUB_PICK), "ieee": replaced(src, *IEEE),
                 "handover": replaced(src, STUB_PREDICTIVE, STUB_LABEL, STUB_PICK)}
     root = os.path.join(HERE, "build", "gibbs_probe")
     procs = {}
