@@ -62,16 +62,27 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      states of MarkovStream sequences), 50 transitions, then the fused route
      against ``fused_kernels="never"`` on 20 fixed proposals;
   J  the same target on K=8 lock-step chains with per-chain (8, V, D) fp32
-     tables, 20 steps.
+     tables, 20 steps;
+  P  compiled programs (``repro_torch.ppl``): the BayesLR program on B's
+     data, compiled onto the ``logit`` family, held bit for bit to B's
+     hand-built target on C's 200 fixed proposals, then K=32 lock-step
+     chains at C's settings for 200 steps (the pair-delta kernel) and one
+     chain for 200 transitions (the graph route); an AR(1) program over
+     N = 1e5 transition factors, compiled onto ``gaussian_ar1``, K=32 chains
+     for 30 steps with the Fisher–Yates sampler, then the fused route
+     against ``fused_kernels="never"`` on 200 fixed proposals;
+  S  the Sec. 3.3 safeguard (``trial_run_report``) from B's last sample on
+     B's hand-built target, then on P's compiled program: 20 trials, batch
+     100, epsilon 0.05.
 
 Phase A also holds the bounded Fisher–Yates draw (ragged per-chain m_eff,
 m_max = 100 and 400) against its plain version. Launch counts are set to 0
-before each of B-N and read after it; every
+before each of B-S and read after it; every
 kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels with their launches, errors and times. The full report
 goes to ``chiprun_out/chip_smoke.json``. ``--profile`` instead runs short
-windows of phases B, C, K, L, E, F, M, N, H, I and J under ``torch.profiler`` and reports
+windows of phases B, C, P, K, L, E, F, M, N, H, I and J under ``torch.profiler`` and reports
 the device's idle share (``chip_profile.json`` beside the report); the windows of
 H, I and J use the launcher's initial model.
 """
@@ -516,21 +527,26 @@ def phase_a_sv(report):
                                 ("F's round", 32, 1000, ("fp32", "bf16", "fp32 pools, bf16")),
                                 ("G's round", 1, 10_000, ("fp32",)),
                                 ("G's round", 1, 100_000, ("fp32",)),
+                                ("P's round", 32, 100_000, ("fp32",)),
                                 ("G's exact pass", 1, 1000, ("fp32",)),
                                 ("G's exact pass", 1, 10_000, ("fp32",)),
                                 ("G's exact pass", 1, 100_000,
                                  ("fp32", "bf16", "fp32 pools, bf16")),
                                 ("pre-gathered", 32, 100, ("fp32",))]:
         for prec in precs:
-            pools = [0.3 * torch.randn(k, n, generator=gen, device=dev) for _ in range(2)]
+            # P's shape draws from a generator of its own, so the other
+            # cases' inputs do not depend on it
+            g = torch.Generator(device=dev).manual_seed(2) if what == "P's round" else gen
+            pools = [0.3 * torch.randn(k, n, generator=g, device=dev) for _ in range(2)]
             if prec == "bf16":
                 pools = [p.to(torch.bfloat16) for p in pools]
             bx = 2 if prec == "bf16" else 4
             precision = "fp32" if prec == "fp32" else "bf16"
-            phi = 0.9 + 0.05 * torch.rand(k, generator=gen, device=dev)
-            s2 = 0.005 + 0.01 * torch.rand(k, generator=gen, device=dev)
+            phi = 0.9 + 0.05 * torch.rand(k, generator=g, device=dev)
+            s2 = 0.005 + 0.01 * torch.rand(k, generator=g, device=dev)
             par = (phi, s2, phi + 0.01, s2 * 1.05)
-            if k == 1:
+            shared = k == 1 or what == "P's round"
+            if shared:
                 pools = [p[0] for p in pools]  # shared (N,) pools
             if what == "pre-gathered":
                 fn = lambda xt, xp, par=par, mode="always", p=precision: \
@@ -543,11 +559,11 @@ def phase_a_sv(report):
                 byts, m, label = n * (2 * bx + 4) + 16, n, f"{what} range N={n} {prec}"
             else:
                 m = 100
-                idx = torch.randint(0, n, (k, m), generator=gen, device=dev, dtype=torch.int32)
+                idx = torch.randint(0, n, (k, m), generator=g, device=dev, dtype=torch.int32)
                 fn = lambda xt, xp, idx=idx, par=par, mode="always", p=precision: \
                     ops.gather_ar1_delta(xt, xp, idx, *par, mode=mode, precision=p)
                 byts = k * m * (2 * bx + 4 + 4) + k * 16
-                label = f"{what} K={k} m={m} of N={n} {'shared' if k == 1 else 'per-chain'} {prec}"
+                label = f"{what} K={k} m={m} of N={n} {'shared' if shared else 'per-chain'} {prec}"
             ar1.append((label, fn, pools, byts, k * m * 16, what == "G's exact pass",
                         (k, n, prec, what) == (32, 1000, "fp32", "F's round")))
             if what == "G's exact pass" and prec == "fp32":
@@ -916,14 +932,11 @@ def phase_f(report):
     import numpy as np
     import torch
 
-    from repro_torch.core import finish_transition
-    from repro_torch.core.samplers import batch_sampler_state, fy_init, sampler_fns
     from repro_torch.experiments import stochvol
 
     print("phase F: stochastic volatility, K=32 chains in lock-step, 500 cycle steps")
     k, steps = 32, 500
     data = stochvol.synth(10, num_series=200, length=5)
-    n = data.obs.numel()
 
     def run():
         stochvol.run_posterior_ensemble(0, data, num_chains=k, num_steps=8)  # warm-up
@@ -958,28 +971,8 @@ def phase_f(report):
     g = torch.Generator(device="cuda").manual_seed(15)
     theta_p, _ = op.proposal(g, theta)
     log_u = torch.log(torch.rand(200, generator=g, device="cuda").clamp_min(1e-20))
-    mu0 = (log_u - op.target.log_global(theta, theta_p)) / n
-    reset_fn, draw_fn = sampler_fns("fy")
-    out = {}
-    for route in ("auto", "never"):
-        sampler = batch_sampler_state(fy_init(n), 200)
-        gen = torch.Generator(device="cuda").manual_seed(16)
-        _, _, info = finish_transition(gen, theta, theta_p, mu0, log_u, sampler, op.target, op.cfg,
-                                       reset_fn, draw_fn, max_rounds=op.max_rounds, mode=route,
-                                       eval_fn=op.target.local_round(theta, theta_p, ensemble=True,
-                                                                     mode=route))
-        out[route] = info
-    a, b = out["auto"], out["never"]
-    differ = (a.accepted != b.accepted) | (a.n_evaluated != b.n_evaluated)
-    eps = op.cfg.epsilon
-    borderline = ((b.pvalue - eps).abs() <= 1e-3 * eps) | ((a.pvalue - eps).abs() <= 1e-3 * eps)
-    n_diff = int(differ.sum())
-    report["phases"]["F"]["fused_vs_plain_differ"] = n_diff
-    print(f"  fused vs never on 200 phi proposals: {n_diff} differ in decision or n_evaluated; "
-          f"max |mu_hat diff| {float((a.mu_hat - b.mu_hat).abs().max()):.3e}; "
-          f"acceptance {float(a.accepted.float().mean()):.3f}")
-    check(not bool((differ & ~borderline).any()),
-          "fused and plain routes agree on every proposal whose p-value is not within 0.1% of epsilon")
+    report["phases"]["F"]["fused_vs_plain_differ"] = fused_vs_never(
+        op.target, theta, theta_p, log_u, op.cfg, "phase F phi", gen_seed=16)
 
 
 G_EXACT_STEPS = 20  # exact transitions timed at each N: host time varies between them
@@ -1623,6 +1616,317 @@ def phase_j(report, target, theta):
     check(0.0 < r["accept"] < 1.0, "phase J: the chains accept and reject")
 
 
+# ---------------------------------------------------------------------------
+# Phases P and S: compiled programs (repro_torch.ppl) and the Sec. 3.3 safeguard
+# ---------------------------------------------------------------------------
+
+P_STEPS = 200  # P's K=32 lock-step steps, and its one chain's transitions
+# phase G's largest N; K=32 lock-step steps, each close to the pool's 1 000
+# rounds (the slowest of 32 chains' tests nearly always exhausts it)
+P_AR1_N, P_AR1_STEPS = 100_000, 30
+P_AR1_PHI, P_AR1_SIGMA, P_AR1_RW = 0.9, 0.3, 0.002  # posterior sd of phi ~0.0014
+
+
+def bayeslr_program(x, y):
+    """The paper's BayesLR as a probabilistic program (the program of the
+    reference's ``make_ppl_workload``, at Sec. 4.1's width): w ~ N(0,
+    PRIOR_VAR I), y_i ~ Logit(x_i . w), compiled onto the ``logit`` family."""
+    import torch
+
+    from repro_torch.experiments import bayeslr
+    from repro_torch.ppl import Trace, compile_partitioned_target, dists
+
+    n, d = x.shape
+    tr = Trace()
+    w = tr.sample("w", dists.mvnormal_diag, tr.constant("mu_w", torch.zeros(d)),
+                  tr.constant("sig_w", math.sqrt(bayeslr.PRIOR_VAR) * torch.ones(d)),
+                  value=torch.zeros(d))
+    with tr.plate("data", n):
+        xn = tr.constant("x", x)
+        z = tr.det("z", lambda xx, ww: xx @ ww, xn, w)
+        yn = tr.sample("y", dists.bernoulli_logits, z, value=y)
+        tr.observe(yn, y)
+    return compile_partitioned_target(tr, w)
+
+
+def ar1_program(series, sigma: float):
+    """An AR(1) state-space program, x_t ~ Normal(phi x_{t-1}, sigma) over
+    the transition factors of one observed series, phi ~ Normal(0, 1): the
+    target is phi, compiled onto the ``gaussian_ar1`` family."""
+    import torch
+
+    from repro_torch.ppl import Trace, compile_partitioned_target, dists
+
+    tr = Trace()
+    phi = tr.sample("phi", dists.normal, tr.constant("m0", 0.0), tr.constant("s0", 1.0),
+                    value=torch.tensor(0.5))
+    sig = tr.constant("sigma", sigma)
+    with tr.plate("steps", len(series) - 1):
+        mu = tr.det("mu", lambda xp, ph: ph * xp, tr.constant("x_prev", series[:-1]), phi)
+        xt = tr.sample("x", dists.normal, mu, sig, value=series[1:])
+        tr.observe(xt, series[1:])
+    return compile_partitioned_target(tr, phi)
+
+
+def ar1_series(seed: int, n: int):
+    """x_0 = 0, x_t = P_AR1_PHI x_{t-1} + P_AR1_SIGMA eps_t: n transition
+    factors, on the card."""
+    import numpy as np
+    import torch
+
+    eps = P_AR1_SIGMA * np.random.default_rng(seed).standard_normal(n + 1)
+    x = np.zeros(n + 1, np.float32)
+    for t in range(1, n + 1):
+        x[t] = P_AR1_PHI * x[t - 1] + eps[t]
+    return torch.tensor(x, device="cuda")
+
+
+def fused_vs_never(target, theta, theta_p, log_u, cfg, label, gen_seed=None):
+    """The fused route ("always") against the batched plain route ("never")
+    on a batch of fixed proposals (a leading batch axis on theta, theta' and
+    log u), each a whole sequential test under ``cfg``; with the
+    Fisher–Yates sampler both routes draw from a generator seeded
+    ``gen_seed``. A difference in decision or n_evaluated is allowed only
+    where a p-value lies within 0.1% of epsilon. Returns the count of
+    proposals that differ."""
+    import torch
+
+    from repro_torch.core import finish_transition
+    from repro_torch.core.samplers import batch_sampler_state, fy_init, sampler_fns, stream_init
+
+    n, b = target.num_sections, log_u.shape[0]
+    mu0 = (log_u - target.log_global(theta, theta_p)) / n
+    reset_fn, draw_fn = sampler_fns(cfg.sampler)
+    out = {}
+    for route in ("always", "never"):
+        state = batch_sampler_state(fy_init(n) if cfg.sampler == "fy" else stream_init(n), b)
+        gen = None if gen_seed is None else torch.Generator(device="cuda").manual_seed(gen_seed)
+        _, _, info = finish_transition(gen, theta, theta_p, mu0, log_u, state, target, cfg,
+                                       reset_fn, draw_fn, max_rounds=-(-n // cfg.batch_size),
+                                       mode=route,
+                                       eval_fn=target.local_round(theta, theta_p, ensemble=True,
+                                                                  mode=route))
+        out[route] = info
+    a, c = out["always"], out["never"]
+    differ = (a.accepted != c.accepted) | (a.n_evaluated != c.n_evaluated)
+    eps = cfg.epsilon
+    borderline = ((c.pvalue - eps).abs() <= 1e-3 * eps) | ((a.pvalue - eps).abs() <= 1e-3 * eps)
+    n_diff = int(differ.sum())
+    print(f"  {label}: fused vs never on {b} proposals: {n_diff} differ in decision or "
+          f"n_evaluated; max |mu_hat diff| {float((a.mu_hat - c.mu_hat).abs().max()):.3e}; "
+          f"acceptance {float(a.accepted.float().mean()):.3f}")
+    check(not bool((differ & ~borderline).any()),
+          f"{label}: fused and plain routes agree on every proposal whose p-value is not within "
+          "0.1% of epsilon")
+    return n_diff
+
+
+def phase_p(report, data, c_samples, c_infos):
+    """Compiled programs at full width: the BayesLR program on B/C's data
+    (its K=32 rounds through the logit kernel, one chain through the graph)
+    and an AR(1) program over N = 1e5 transition factors (K=32 rounds
+    through the AR(1) kernel). The K=32 run starts as C does (seed, start
+    and settings), so its steps are compared with C's first ones; host time
+    is compared a lock-step round, since early steps run fewer rounds."""
+    import numpy as np
+    import torch
+
+    from repro_torch._device import make_generator
+    from repro_torch.core import (ChainEnsemble, RandomWalk, SubsampledMHConfig, acceptance_rate,
+                                  ensemble_summary, finish_transition, run_chain)
+    from repro_torch.core.samplers import batch_sampler_state, sampler_fns, stream_init
+    from repro_torch.experiments import bayeslr
+
+    dev = torch.device("cuda")
+    n, d = data.x_train.shape
+    k = 32
+    print(f"phase P: compiled programs (repro_torch.ppl): BayesLR N={n} D={d}, K={k} x "
+          f"{P_STEPS} steps and one chain x {P_STEPS}; AR(1) N={P_AR1_N}, K={k} x {P_AR1_STEPS}")
+    laps = [("start", time.perf_counter())]  # where the phase's seconds go
+    t0 = time.perf_counter()
+    target = bayeslr_program(data.x_train, data.y_train)
+    compile_s = time.perf_counter() - t0
+    check(target.family == "logit", f"the BayesLR program compiles onto the logit family "
+          f"({compile_s:.3f}s)")
+    hand = bayeslr.make_target(data.x_train, data.y_train)
+
+    # C's 200 fixed proposals: the compiled (K, m) rounds are the hand-built
+    # target's bit for bit, and so is a whole sequential test from one mu0
+    cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="stream")
+    rng = np.random.default_rng(7)
+    flat = c_samples.reshape(-1, d)
+    theta = torch.tensor(flat[rng.integers(0, len(flat), 200)], device=dev)
+    theta_p = theta + 0.05 * torch.tensor(rng.standard_normal((200, d)), dtype=torch.float32,
+                                          device=dev)
+    log_u = torch.tensor(np.log(rng.uniform(1e-20, 1.0, 200)), dtype=torch.float32, device=dev)
+    idx = torch.tensor(rng.integers(0, n, (200, 100)), dtype=torch.int32, device=dev)
+    check(torch.equal(target.log_local_ensemble(theta, theta_p, idx),
+                      hand.log_local_ensemble(theta, theta_p, idx)),
+          "compiled log_local_ensemble equals bayeslr.make_target's bit for bit on 200 proposals")
+    g_err = float((target.log_global(theta, theta_p) - hand.log_global(theta, theta_p)).abs().max())
+    check(g_err <= 1e-4, f"compiled log_global within 1e-4 of the hand prior's difference "
+          f"(max {g_err:.2e})")
+    mu0 = (log_u - hand.log_global(theta, theta_p)) / n
+    reset_fn, draw_fn = sampler_fns("stream")
+    infos = [finish_transition(None, theta, theta_p, mu0, log_u,
+                               batch_sampler_state(stream_init(n), 200), t, cfg, reset_fn, draw_fn,
+                               max_rounds=-(-n // 100),
+                               eval_fn=t.local_round(theta, theta_p, ensemble=True))[2]
+             for t in (target, hand)]
+    check(all(torch.equal(a, b) for a, b in zip(*infos)),
+          "a sequential test of the compiled target from the hand-built target's mu0 gives its "
+          "infos bit for bit")
+    laps.append(("BayesLR compiled and held to the hand-built target", time.perf_counter()))
+
+    def run():
+        gen = make_generator(3, dev)
+        ens = ChainEnsemble(target, RandomWalk(0.05), k, config=cfg)
+        theta0 = 0.5 * torch.randn(k, d, generator=gen, device=dev)  # as phase C starts
+        t0 = time.perf_counter()
+        _, samples, infos = ens.run(gen, ens.init(theta0, batched=True), P_STEPS)
+        torch.cuda.synchronize()
+        return samples.cpu().numpy(), infos, time.perf_counter() - t0
+
+    samples, infos, wall = counted(report, "P", run)
+    summ = ensemble_summary(infos)
+    c = report["phases"]["C"]
+    c_round_ms = 32 * 1000 / c["transitions_per_s"] / c["lockstep_rounds"] * 1e3
+    same = [f for f in ("accepted", "n_evaluated", "rounds")
+            if torch.equal(getattr(infos, f), getattr(c_infos, f)[:, :P_STEPS])]
+    r = {"family": target.family, "compile_s": compile_s, "log_global_max_err": g_err,
+         "transitions_per_s": k * P_STEPS / wall, "accept": summ["accept_rate_overall"],
+         "mean_rounds": summ["mean_rounds_overall"],
+         "mean_n_evaluated_frac": summ["mean_n_evaluated_overall"] / n,
+         "lockstep_rounds": int(infos.rounds.long().max(0).values.sum()),
+         "equals_c_first_steps": bool(np.array_equal(samples, c_samples[:, :P_STEPS])),
+         "infos_equal_c_first_steps": same}
+    r["ms_per_lockstep_round"] = wall / r["lockstep_rounds"] * 1e3
+    report["phases"]["P"].update(r)
+    print(f"  compiled K={k}: transitions/s={r['transitions_per_s']:.1f} (C over its 1000 steps, "
+          f"hand-built, {c['transitions_per_s']:.1f}); {r['lockstep_rounds']} lock-step rounds, "
+          f"{r['ms_per_lockstep_round']:.4f} ms a round (C {c_round_ms:.4f}); rounds a transition "
+          f"{r['mean_rounds']:.2f}; n_evaluated/N={r['mean_n_evaluated_frac']:.4f}; acceptance "
+          f"{r['accept']:.3f}; samples equal C's first {P_STEPS} steps: "
+          f"{r['equals_c_first_steps']}, info fields equal: {same}")
+    check(bool(np.isfinite(samples).all()) and samples.shape == (k, P_STEPS, d),
+          f"phase P samples finite, shape {samples.shape}")
+    check(0.05 < r["accept"] < 0.95, "phase P acceptance in (0.05, 0.95)")
+    laps.append((f"BayesLR K={k}", time.perf_counter()))
+
+    def run_one():
+        t0 = time.perf_counter()
+        _, samples, infos = run_chain(1, torch.zeros(d), target, RandomWalk(0.05), P_STEPS,
+                                      config=cfg)
+        torch.cuda.synchronize()
+        return samples, infos, time.perf_counter() - t0
+
+    samples, infos, wall = counted(report, "P1", run_one)
+    b = report["phases"]["B"]
+    b_round_ms = 1000 / b["transitions_per_s"] / (1000 * b["mean_rounds"]) * 1e3
+    r1 = {"transitions_per_s": P_STEPS / wall, "accept": acceptance_rate(infos),
+          "mean_rounds": float(infos.rounds.float().mean()),
+          "mean_n_evaluated_frac": float(infos.n_evaluated.float().mean()) / n}
+    r1["ms_per_round"] = wall / (P_STEPS * r1["mean_rounds"]) * 1e3
+    report["phases"]["P1"].update(r1)
+    print(f"  compiled, one chain (the graph route): transitions/s={r1['transitions_per_s']:.1f} "
+          f"(B over its 1000, hand-built, {b['transitions_per_s']:.1f}); "
+          f"{r1['ms_per_round']:.4f} ms a round (B {b_round_ms:.4f}); rounds a transition "
+          f"{r1['mean_rounds']:.2f}; acceptance {r1['accept']:.3f}")
+    check(bool(torch.isfinite(samples).all()) and samples.shape == (P_STEPS, d),
+          f"phase P one-chain samples finite, shape {tuple(samples.shape)}")
+    laps.append(("BayesLR one chain", time.perf_counter()))
+
+    # the AR(1) program
+    series = ar1_series(17, P_AR1_N)
+    t0 = time.perf_counter()
+    ar1 = ar1_program(series, P_AR1_SIGMA)
+    compile_s = time.perf_counter() - t0
+    check(ar1.family == "gaussian_ar1", f"the AR(1) program compiles onto the gaussian_ar1 "
+          f"family ({compile_s:.3f}s)")
+    ar1_cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="fy")
+    laps.append(("AR(1) series made and compiled", time.perf_counter()))
+
+    def run_ar1():
+        gen = make_generator(19, dev)
+        ens = ChainEnsemble(ar1, RandomWalk(P_AR1_RW), k, config=ar1_cfg)
+        theta0 = P_AR1_PHI + 0.01 * torch.randn(k, generator=gen, device=dev)
+        t0 = time.perf_counter()
+        _, samples, infos = ens.run(gen, ens.init(theta0, batched=True), P_AR1_STEPS)
+        torch.cuda.synchronize()
+        return samples, infos, time.perf_counter() - t0
+
+    samples, infos, wall = counted(report, "P-AR1", run_ar1)
+    summ = ensemble_summary(infos)
+    phi = samples.cpu().numpy()
+    ra = {"family": ar1.family, "compile_s": compile_s, "N": P_AR1_N,
+          "transitions_per_s": k * P_AR1_STEPS / wall, "accept": summ["accept_rate_overall"],
+          "mean_rounds": summ["mean_rounds_overall"],
+          "mean_n_evaluated_frac": summ["mean_n_evaluated_overall"] / P_AR1_N,
+          "phi_mean_2nd_half": float(phi[:, P_AR1_STEPS // 2:].mean())}
+    print(f"  compiled AR(1) K={k}: transitions/s={ra['transitions_per_s']:.1f}; rounds a "
+          f"transition {ra['mean_rounds']:.2f}; n_evaluated/N={ra['mean_n_evaluated_frac']:.4f}; "
+          f"acceptance {ra['accept']:.3f}; phi over the second half {ra['phi_mean_2nd_half']:.4f} "
+          f"(generating {P_AR1_PHI})")
+    check(np.isfinite(phi).all() and phi.shape == (k, P_AR1_STEPS),
+          f"phase P AR(1) samples finite, shape {phi.shape}")
+    check(0.0 < ra["accept"] < 1.0, "phase P AR(1): the chains accept and reject")
+    laps.append((f"AR(1) K={k}", time.perf_counter()))
+    rng = np.random.default_rng(18)
+    theta = torch.tensor(phi.reshape(-1)[rng.integers(0, phi.size, 200)], device=dev)
+    theta_p = theta + P_AR1_RW * torch.tensor(rng.standard_normal(200), dtype=torch.float32,
+                                              device=dev)
+    log_u = torch.tensor(np.log(rng.uniform(1e-20, 1.0, 200)), dtype=torch.float32, device=dev)
+    ra["fused_vs_plain_differ"] = fused_vs_never(ar1, theta, theta_p, log_u, ar1_cfg,
+                                                 "phase P AR(1)", gen_seed=20)
+    report["phases"]["P-AR1"].update(ra)
+    laps.append(("AR(1) fused vs never", time.perf_counter()))
+    secs = {name: t - laps[i][1] for i, (name, t) in enumerate(laps[1:])}
+    report["phases"]["P"]["seconds"] = secs
+    print("  phase P's seconds: " + "; ".join(f"{name} {v:.2f}" for name, v in secs.items()))
+    return target
+
+
+def phase_s(report, data, theta_b, compiled):
+    """The Sec. 3.3 safeguard at full width: ``trial_run_report`` from B's
+    last sample on B's hand-built target (the exact pass the pair delta's
+    range form, the rounds the one-chain pair delta), then on phase P's
+    compiled program (the graph route, its exact pass included)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RandomWalk, trial_run_report
+    from repro_torch.experiments import bayeslr
+
+    eps, trials = 0.05, 20
+    print(f"phase S: the Sec. 3.3 safeguard, N={data.x_train.shape[0]} D={data.x_train.shape[1]}, "
+          f"from B's last sample, RW 0.05, batch 100, epsilon {eps}, {trials} trials")
+    hand = bayeslr.make_target(data.x_train, data.y_train)
+    reports = {}
+    for phase, target in (("S", hand), ("S-compiled", compiled)):
+        def run(target=target):
+            t0 = time.perf_counter()
+            rep = trial_run_report(23, theta_b, target, RandomWalk(0.05), batch_size=100,
+                                   epsilon=eps, num_trials=trials)
+            torch.cuda.synchronize()
+            return rep, time.perf_counter() - t0
+
+        rep, secs = counted(report, phase, run)
+        fields = dataclasses.asdict(rep)
+        report["phases"][phase].update(fields, seconds=secs)
+        reports[phase] = fields
+        print(f"  {phase}: {secs:.3f}s; " + "; ".join(f"{k}={v}" for k, v in fields.items()))
+        check(rep.decision_error_rate <= max(2 * eps, 0.1),
+              f"phase {phase}: decision-error rate {rep.decision_error_rate} <= max(2 epsilon, 0.1)")
+        check(0.0 < rep.mean_fraction_evaluated <= 1.0,
+              f"phase {phase}: 0 < mean fraction evaluated <= 1")
+        check(bool(np.isfinite(rep.jb_stat_mean) and np.isfinite(rep.jb_pvalue_min)),
+              f"phase {phase}: the Jarque-Bera fields are finite")
+    same = [k for k in reports["S"] if reports["S"][k] == reports["S-compiled"][k]]
+    print(f"  hand-built beside compiled: equal fields {same}")
+
+
 def profile_idle_share() -> dict:
     """``--profile``: short windows of the main paths under torch.profiler
     (device activity only): wall time, summed device time of every kernel
@@ -1634,10 +1938,11 @@ def profile_idle_share() -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch._device import make_generator
     from repro_torch.bayes import TrainConfig, make_train_step
     from repro_torch.configs import ARCHS
-    from repro_torch.core import (RandomWalk, ScheduleConfig, SubsampledMHConfig, run_chain,
-                                  run_ensemble)
+    from repro_torch.core import (ChainEnsemble, RandomWalk, ScheduleConfig, SubsampledMHConfig,
+                                  run_chain, run_ensemble)
     from repro_torch.data import DataConfig, MarkovStream
     from repro_torch.experiments import bayeslr, jointdpm, stochvol
     from repro_torch.models import init_params
@@ -1662,6 +1967,14 @@ def profile_idle_share() -> dict:
     lr = bayeslr.synth_mnist_like(0)
     lr_target = bayeslr.make_target(lr.x_train, lr.y_train)
     lr_cfg = SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="stream")
+    lr_compiled = bayeslr_program(lr.x_train, lr.y_train)
+
+    def compiled_lr_steps():  # phase P's K=32 run, started as phase C starts
+        gen = make_generator(3, lr.x_train.device)
+        ens = ChainEnsemble(lr_compiled, RandomWalk(0.05), 32, config=lr_cfg)
+        theta0 = 0.5 * torch.randn(32, 50, generator=gen, device=lr.x_train.device)
+        ens.run(gen, ens.init(theta0, batched=True), 20)
+
     sv = stochvol.synth(10, num_series=200, length=5)
     jdpm_cfg = jointdpm.JDPMConfig()
     jdpm = jointdpm.synth(60, JDPM_N, JDPM_N_TEST)
@@ -1672,6 +1985,7 @@ def profile_idle_share() -> dict:
         "C: BayesLR K=32, 20 steps": lambda: bayeslr.run_posterior_ensemble(
             3, lr, num_chains=32, num_steps=20, batch_size=100, epsilon=0.05, sampler="stream",
             sigma=0.05),
+        "P: compiled BayesLR program K=32, 20 steps": compiled_lr_steps,
         "K: BayesLR K=32 masked, 20 steps": lambda: bayeslr.run_posterior_ensemble(
             3, lr, num_chains=32, num_steps=20, batch_size=100, epsilon=0.05, sampler="stream",
             sigma=0.05, stepping="masked"),
@@ -1845,8 +2159,7 @@ def phase_c(report, data):
     import numpy as np
     import torch
 
-    from repro_torch.core import SubsampledMHConfig, finish_transition
-    from repro_torch.core.samplers import sampler_fns, stream_init, batch_sampler_state
+    from repro_torch.core import SubsampledMHConfig
     from repro_torch.experiments import bayeslr
 
     print("phase C: K=32 chains in lock-step, 1000 steps")
@@ -1886,26 +2199,8 @@ def phase_c(report, data):
     theta_p = theta + 0.05 * torch.tensor(rng.standard_normal((200, 50)), dtype=torch.float32,
                                           device="cuda")
     log_u = torch.tensor(np.log(rng.uniform(1e-20, 1.0, 200)), dtype=torch.float32, device="cuda")
-    mu0 = (log_u - target.log_global(theta, theta_p)) / n
-    reset_fn, draw_fn = sampler_fns("stream")
-    out = {}
-    for route in ("auto", "never"):
-        sampler = batch_sampler_state(stream_init(n), 200)
-        _, _, info = finish_transition(None, theta, theta_p, mu0, log_u, sampler, target, cfg,
-                                       reset_fn, draw_fn, max_rounds=-(-n // cfg.batch_size),
-                                       mode=route,
-                                       eval_fn=target.local_round(theta, theta_p, ensemble=True,
-                                                                  mode=route))
-        out[route] = info
-    a, b = out["auto"], out["never"]
-    differ = (a.accepted != b.accepted) | (a.n_evaluated != b.n_evaluated)
-    borderline = ((b.pvalue - 0.05).abs() <= 1e-3 * 0.05) | ((a.pvalue - 0.05).abs() <= 1e-3 * 0.05)
-    n_diff = int(differ.sum())
-    report["phases"]["C"]["fused_vs_plain_differ"] = n_diff
-    print(f"  fused vs never on 200 proposals: {n_diff} differ in decision or n_evaluated; "
-          f"max |mu_hat diff| {float((a.mu_hat - b.mu_hat).abs().max()):.3e}")
-    check(not bool((differ & ~borderline).any()),
-          "fused and plain routes agree on every proposal whose p-value is not within 0.1% of epsilon")
+    report["phases"]["C"]["fused_vs_plain_differ"] = fused_vs_never(
+        target, theta, theta_p, log_u, cfg, "phase C")
     return samples, infos, wall
 
 
@@ -2280,7 +2575,8 @@ def main() -> int:
         "gibbs_z_sweep": csrc + "gibbs_z_sweep.cu",
     }
     report = {"card": card, "kind": kind, "phases": {p: {} for p in
-                                                      [*"BCDEFGHIJKLMN", "B'"]},
+                                                      [*"BCDEFGHIJKLMN", "B'", "P", "P1",
+                                                       "P-AR1", "S", "S-compiled"]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -2305,6 +2601,7 @@ def main() -> int:
     phase_b_mala(report, data, theta_b)
     c_out = phase_c(report, data)
     phase_k(report, data, c_out)
+    c_samples, c_infos = c_out[0], c_out[1]  # phase P starts as C does
     del c_out
     phase_l(report, data)
     phase_d(report)
@@ -2325,6 +2622,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_j(report, target, theta)
     del target, theta
+    torch.cuda.empty_cache()
+    t_ps = time.perf_counter()
+    compiled = phase_p(report, data, c_samples, c_infos)
+    phase_s(report, data, theta_b, compiled)
+    report["p_s_seconds"] = time.perf_counter() - t_ps
+    print(f"  seconds taken by phases P and S: {report['p_s_seconds']:.1f}")
+    del compiled
     for name, e in report["kernels"].items():
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
     sv = ("gaussian_ar1_delta", "fy_draw", "pgibbs_sweep", "t_test_round")
@@ -2340,9 +2644,18 @@ def main() -> int:
                                "t_test_round")),
                         ("H", ("t_test_round",)),
                         ("I", ("fused_ce", "fy_draw", "t_test_round")),
-                        ("J", ("batched_fused_ce", "fy_draw", "t_test_round"))):
+                        ("J", ("batched_fused_ce", "fy_draw", "t_test_round")),
+                        ("P", ("batched_logit_delta", "t_test_round")),
+                        ("P1", ("t_test_round",)),
+                        ("P-AR1", ("gaussian_ar1_delta", "fy_draw", "t_test_round")),
+                        ("S", ("logit_delta", "fy_draw", "t_test_round")),
+                        ("S-compiled", ("fy_draw", "t_test_round"))):
         got = report["phases"][phase]["launches"]
         check(all(got.get(n, 0) > 0 for n in need), f"phase {phase} went through {need}")
+    for phase in ("P1", "S-compiled"):  # one chain of a compiled program: the graph route
+        got = report["phases"][phase]["launches"]
+        check(got.get("logit_delta", 0) == got.get("batched_logit_delta", 0) == 0,
+              f"phase {phase} scored its rounds on the graph, with no pair-delta kernel")
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -6,7 +6,8 @@ names (``repro_torch.core.ensemble`` is the counterpart of
 Hopper live in :mod:`repro_torch.kernels`; entry points put their tensors on
 the card unless told ``device="cpu"``.
 """
-from . import bayes, checkpoint, configs, convert, core, data, experiments, inference, kernels, models, runtime
+from . import (bayes, checkpoint, configs, convert, core, data, experiments, inference, kernels,
+               models, ppl, runtime)
 
 __all__ = ["bayes", "checkpoint", "configs", "convert", "core", "data", "experiments",
-           "inference", "kernels", "models", "runtime"]
+           "inference", "kernels", "models", "ppl", "runtime"]

@@ -4,8 +4,9 @@ Covered so far: samplers (with the bounded draws), Welford and the
 Student-t test, the sequential test, the subsampled and exact MH
 transitions, the proposals (random walk, MALA, independence), the
 single-chain drivers, the ``logit``, ``gaussian_ar1`` and ``ce`` target
-families, composite cycles, the adaptive scheduler, and the ensemble in
-lock-step (single kernels and cycles) and masked stepping.
+families, composite cycles, the adaptive scheduler, the ensemble in
+lock-step (single kernels and cycles) and masked stepping, and the Sec. 3.3
+safeguard's trial-run report.
 """
 from .chain import acceptance_rate, run_chain, run_chain_timed
 from .composite import (
@@ -19,6 +20,7 @@ from .composite import (
 from .ensemble import ChainEnsemble, EnsembleState, run_ensemble
 from .mh import MHInfo, exact_decide, mh_step
 from .proposals import MALA, IndependentGaussian, RandomWalk
+from .safeguard import TrialReport, trial_run_report
 from .samplers import (
     FisherYatesState,
     StreamSliceState,
@@ -48,6 +50,7 @@ from .stats import (
     effective_sample_size,
     ensemble_summary,
     finite_population_std_err,
+    jarque_bera,
     multichain_ess,
     split_rhat,
     student_t_sf,
@@ -71,15 +74,15 @@ __all__ = [
     "SweepOp", "cycle", "init_cycle_samplers", "run_cycle_sequential", "FisherYatesState",
     "IndependentGaussian", "KernelFamily", "MALA", "MHInfo", "PartitionedTarget",
     "RandomWalk", "ScheduleConfig", "SeqTestResult", "StreamSliceState",
-    "SubsampledMHConfig", "SubsampledMHInfo", "Welford", "acceptance_rate",
+    "SubsampledMHConfig", "SubsampledMHInfo", "TrialReport", "Welford", "acceptance_rate",
     "adaptive_max_rounds", "autocorrelation", "build_target", "controller_init",
     "controller_params", "controller_update", "effective_sample_size", "ensemble_summary",
     "exact_decide", "finish_transition", "finite_population_std_err", "from_iid_loglik",
     "fy_draw", "fy_draw_bounded", "fy_from_buffer", "fy_init", "fy_reset", "get_family",
-    "make_bounded_draw",
+    "jarque_bera", "make_bounded_draw",
     "make_kernel", "make_sampler", "mh_step", "multichain_ess", "propose_and_mu0",
     "register_family", "registered_families", "run_chain", "run_chain_timed", "run_ensemble",
     "sequential_test", "split_rhat", "stream_draw", "stream_draw_bounded", "stream_init",
     "stream_reset", "student_t_sf", "subsampled_mh_step", "tail_latency_summary",
-    "test_round_decision", "two_sided_t_pvalue",
+    "test_round_decision", "trial_run_report", "two_sided_t_pvalue",
 ]

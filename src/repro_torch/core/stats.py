@@ -4,7 +4,8 @@ The tensor functions follow ``repro.core.stats`` in float32. The Student-t
 tail is the JAX package's float32 recurrence (see
 :mod:`repro_torch.kernels.ref`), not the exact tail: the two differ by up to
 6e-2 relative at df = 1e5, and the port reproduces the reference's
-decisions. The chain diagnostics are host-side numpy, as in the reference.
+decisions. The chain diagnostics and the safeguard's Jarque–Bera test are
+host-side numpy, as in the reference.
 """
 from __future__ import annotations
 
@@ -172,3 +173,24 @@ def ensemble_summary(infos) -> dict:
         out["mean_batch_eff"] = be.mean(axis=1)
         out["final_batch_eff"] = be[:, -1]
     return out
+
+
+def jarque_bera(x) -> tuple[float, float]:
+    """Jarque–Bera normality statistic and asymptotic chi2(2) p-value, on the
+    host in float64.
+
+    Used by the Sec. 3.3 safeguard: the sequential t-test assumes the
+    mini-batch means are approximately normal; heavy-tailed {l_i} break it.
+    """
+    x = _np(x)
+    n = len(x)
+    mu = x.mean()
+    s = x.std()
+    if s == 0 or n < 8:
+        return 0.0, 1.0
+    z = (x - mu) / s
+    skew = np.mean(z**3)
+    kurt = np.mean(z**4) - 3.0
+    jb = n / 6.0 * (skew**2 + kurt**2 / 4.0)
+    # chi2(2) survival = exp(-jb/2)
+    return float(jb), float(np.exp(-jb / 2.0))

@@ -8,6 +8,7 @@ machine with a card and no JAX:
 Without a card every test skips (the CUDA kernels have no CPU mode).
 """
 import hashlib
+import warnings
 
 import numpy as np
 import pytest
@@ -24,6 +25,29 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card; the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _device_kernels(fn):
+    """``(fn(), the device kernels that one call of fn launches)``, read by
+    ``torch.profiler``. ``fn`` (pure) runs once before the window: a
+    kernel's first launch in a process loads its library and module, and a
+    window around that first launch can come back with the host's events
+    but none from the device. A capture with no device event at all is
+    taken once more; a second fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            return out, kernels
+        warnings.warn("torch.profiler recorded no device event; capturing again")
+    pytest.fail("torch.profiler recorded no device event in two captures")
 
 
 def _round_state(rng, k, m, max_count):
@@ -243,8 +267,6 @@ def test_bf16_logit_call_is_one_launch(rows, cuda_device):
     """precision="bf16" rounds the pair (and fp32 rows) in the kernel: each
     form is one launch on the card, with no cast in front of it, and within
     1e-5 of the plain route, which rounds copies."""
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device=cuda_device).manual_seed(7)
     n, d, k, m = 12214, 50, 32, 100
     x, y = _pool(gen, cuda_device, n, d, torch.bfloat16 if rows == "bf16" else torch.float32)
@@ -261,11 +283,7 @@ def test_bf16_logit_call_is_one_launch(rows, cuda_device):
     for run in forms:
         want = run("never")
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            got = run("always")
-            torch.cuda.synchronize()
-        kernels = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        got, kernels = _device_kernels(lambda: run("always"))
         assert len(kernels) == 1 and "pair_delta_kernel" in kernels[0], kernels
         torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL)
 
@@ -461,8 +479,6 @@ def test_bf16_ar1_call_is_one_launch(cuda_device):
     """precision="bf16" on fp32 pools rounds them in the kernel: each form
     is one launch on the card, with no cast in front of it, and its bits are
     the kernel's on pools cast with x.to(torch.bfloat16)."""
-    from torch.profiler import ProfilerActivity, profile
-
     rng = np.random.default_rng(5)
     k, m, n = 32, 100, 1000
     pools = [torch.tensor((0.3 * rng.standard_normal((k, n))).astype(np.float32),
@@ -483,11 +499,7 @@ def test_bf16_ar1_call_is_one_launch(cuda_device):
     for run in forms:
         want = run(cast, "fp32")
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            got = run(pools, "bf16")
-            torch.cuda.synchronize()
-        kernels = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        got, kernels = _device_kernels(lambda: run(pools, "bf16"))
         assert len(kernels) == 1 and "ar1_" in kernels[0], kernels
         assert torch.equal(got, want)
 
@@ -1108,3 +1120,83 @@ def test_logit_delta_on_augmented_rows(cuda_device):
                                    atol=FP32_TOL)
     one = ops.logit_delta(x_aug, y, w[0], wp[0], idx=idx[0], mode="always")
     assert torch.equal(one, ops.gather_and_delta(x_aug, y, idx[:1], w[:1], wp[:1], mode="always")[0])
+
+
+def _compiled_program(name, dev, n):
+    """A compiled BayesLR (D = 50) or AR(1) program on the card, written
+    against ``repro_torch.ppl``, on data made from a seed."""
+    from repro_torch.ppl import Trace, compile_partitioned_target, dists
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tr = Trace(device=dev)
+    if name == "logit":
+        d = 50
+        x = torch.randn(n, d, generator=gen, device=dev) / d ** 0.5
+        y = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, 1.0, -1.0)
+        v = tr.sample("w", dists.mvnormal_diag, tr.constant("mu_w", torch.zeros(d)),
+                      tr.constant("sig_w", torch.full((d,), 0.1 ** 0.5)), value=torch.zeros(d))
+        with tr.plate("data", n):
+            z = tr.det("z", lambda xx, ww: xx @ ww, tr.constant("x", x), v)
+            tr.observe(tr.sample("y", dists.bernoulli_logits, z, value=y), y)
+    else:
+        eps = 0.3 * np.random.default_rng(9).standard_normal(n + 1)
+        series = np.zeros(n + 1, np.float32)
+        for t in range(1, n + 1):  # x_t = 0.8 x_{t-1} + 0.3 eps_t
+            series[t] = 0.8 * series[t - 1] + eps[t]
+        series = torch.tensor(series, device=dev)
+        v = tr.sample("phi", dists.normal, tr.constant("m0", 0.0), tr.constant("s0", 1.0),
+                      value=torch.tensor(0.5))
+        sigma = tr.constant("sigma", 0.3)
+        with tr.plate("steps", n):
+            mu = tr.det("mu", lambda xp, ph: ph * xp, tr.constant("x_prev", series[:-1]), v)
+            tr.observe(tr.sample("x", dists.normal, mu, sigma, value=series[1:]), series[1:])
+    return compile_partitioned_target(tr, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["logit", "ar1"])
+def test_compiled_program_ensemble_kernel_matches_plain(name, cuda_device):
+    """A compiled program's (K, m) rounds (K = 32, m = 100) launch its
+    family's kernel and agree with the plain route (the pair delta within
+    1e-5, the AR(1) delta as its own card cases hold it)."""
+    target = _compiled_program(name, cuda_device, 12214 if name == "logit" else 100_000)
+    assert target.family == {"logit": "logit", "ar1": "gaussian_ar1"}[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    k, m, n = 32, 100, target.num_sections
+    shape = (k, 50) if name == "logit" else (k,)
+    th = (0.3 if name == "logit" else 0.05) * torch.randn(shape, generator=gen, device=cuda_device)
+    thp = th + 0.05 * torch.randn(shape, generator=gen, device=cuda_device)
+    if name == "ar1":
+        th, thp = th + 0.5, thp + 0.5
+    idx = torch.randint(0, n, (k, m), generator=gen, device=cuda_device, dtype=torch.int32)
+    ops.reset_launches()
+    got = target.log_local_ensemble(th, thp, idx, mode="always")
+    kernel = {"logit": "batched_logit_delta", "ar1": "gaussian_ar1_delta"}[name]
+    assert ops.launches[kernel] == 1, dict(ops.launches)
+    want = target.log_local_ensemble(th, thp, idx, mode="never")
+    tol = dict(rtol=FP32_TOL, atol=FP32_TOL) if name == "logit" else dict(rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got, want, **tol)
+    assert target.log_global(th, thp).shape == (k,)
+
+
+@pytest.mark.cuda
+def test_trial_run_report_runs_the_kernels(cuda_device):
+    """The safeguard on a hand-built logit target: its exact pass is the
+    pair delta's range form, its rounds the one-chain pair delta, the
+    Fisher–Yates draw and the round op."""
+    from repro_torch.core import RandomWalk, trial_run_report
+    from repro_torch.experiments import bayeslr
+
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    n, d = 2000, 5
+    x, y = _pool(gen, cuda_device, n, d, torch.float32)
+    target = bayeslr.make_target(x, y)
+    assert target.range_sections
+    ops.reset_launches()
+    rep = trial_run_report(12, torch.zeros(d), target, RandomWalk(0.05), batch_size=50,
+                           epsilon=0.05, num_trials=5)
+    torch.cuda.synchronize()
+    for name in ("logit_delta", "fy_draw", "t_test_round"):
+        assert ops.launches[name] > 0, dict(ops.launches)
+    assert rep.num_trials == 5 and 0.0 < rep.mean_fraction_evaluated <= 1.0
+    assert np.isfinite(rep.jb_stat_mean) and 0.0 <= rep.jb_pvalue_min <= 1.0
