@@ -73,21 +73,37 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      against ``fused_kernels="never"`` on 200 fixed proposals;
   S  the Sec. 3.3 safeguard (``trial_run_report``) from B's last sample on
      B's hand-built target, then on P's compiled program: 20 trials, batch
-     100, epsilon 0.05.
+     100, epsilon 0.05;
+  Q  posterior serving through ``repro_torch.launch.serve.serve_posterior``
+     at the front end's non-smoke defaults (K=8, refresh 64, window 128,
+     min_draws 512, 8-row requests, max_batch 16, deadline 250 ms): BayesLR
+     (N=12 000, D=20, batch 500) for 400 requests (Q), the same with a
+     background refresh, then the refresh's rate alone and beside a query
+     loop (Q-bg), chunked refreshes against one offline run and a checkpoint
+     round trip on the card, bit for bit (Q-resume), then stochvol, the
+     joint DP mixture and the compiled BayesLR program at their non-smoke
+     sizes for 400 requests each (Q-sv, Q-jdpm, Q-ppl); every served batch
+     of a default class is held to float64 numpy on the same draws, and in
+     Q, Q-sv, Q-jdpm and Q-ppl the first and tenth call of each kernel
+     wrapper at each call shape is copied as it runs and replayed through
+     the kernel and its plain version at phase A's tolerances.
 
 Phase A also holds the bounded Fisher–Yates draw (ragged per-chain m_eff,
 m_max = 100 and 400) against its plain version. Launch counts are set to 0
-before each of B-S and read after it; every
+before each of B-Q and read after it; every
 kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels with their launches, errors and times. The full report
 goes to ``chiprun_out/chip_smoke.json``. ``--profile`` instead runs short
 windows of phases B, C, P, K, L, E, F, M, N, H, I and J under ``torch.profiler`` and reports
 the device's idle share (``chip_profile.json`` beside the report); the windows of
-H, I and J use the launcher's initial model.
+H, I and J use the launcher's initial model. Then ``profile_q_bg`` times Q's
+background refresh beside queries and beside other host loads (the host
+timeline of both threads, the GIL's switch interval, the device's idle share).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -95,6 +111,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1927,6 +1944,564 @@ def phase_s(report, data, theta_b, compiled):
     print(f"  hand-built beside compiled: equal fields {same}")
 
 
+# ---------------------------------------------------------------------------
+# Phase Q: posterior serving (repro_torch.serving, repro_torch.launch.serve)
+# ---------------------------------------------------------------------------
+
+Q_QUERIES = 400  # the front end's non-smoke default, for every workload
+Q_BG_COMMITS, Q_BG_MAX_S = 3, 15.0  # background commits timed beside queries, cap
+Q_BG_TICK_S = 0.005  # beside them, 8 requests are submitted every tick (1 600/s offered)
+Q_SLOW_TICK_S = 0.02  # profile_q_bg's lighter load (400/s offered)
+Q_RESUME_STEPS = (64, 32, 16)  # refresh blocks held against one offline run of their sum
+# the calls of each kernel wrapper replayed against plain; the Gibbs sweep's
+# plain version takes ~7 s a call at N=5 000, so its first call only
+Q_HELD_CALLS = {"gibbs_z_sweep": (1,)}
+Q_HELD_DEFAULT = (1, 10)
+# the kernels each Q phase must launch
+Q_NEEDS = {"Q": ("batched_logit_delta", "t_test_round"),
+           "Q-bg": ("batched_logit_delta", "t_test_round"),
+           "Q-resume": ("batched_logit_delta", "t_test_round"),
+           "Q-sv": ("gaussian_ar1_delta", "pgibbs_sweep", "fy_draw", "t_test_round"),
+           "Q-jdpm": ("gibbs_z_sweep", "batched_logit_delta", "fy_draw", "t_test_round"),
+           "Q-ppl": ("batched_logit_delta", "fy_draw", "t_test_round")}
+# each kernel wrapper of kernels/ops.py that serving reaches -> the kernel it launches
+SERVED_WRAPPERS = {"logit_delta": "logit_delta", "gather_and_delta": "batched_logit_delta",
+                   "batched_logit_delta": "batched_logit_delta",
+                   "gather_ar1_delta": "gaussian_ar1_delta",
+                   "batched_gaussian_ar1_delta": "gaussian_ar1_delta", "fy_draw": "fy_draw",
+                   "pgibbs_sweep": "pgibbs_sweep", "gibbs_z_sweep": "gibbs_z_sweep",
+                   "t_test_round": "t_test_round"}
+
+
+def _copy_tree(a):
+    """``a`` with every tensor in it cloned (tuples, named tuples, lists and
+    dicts rebuilt; anything else shared)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(_copy_tree(v) for v in a))
+    if isinstance(a, (tuple, list)):
+        return type(a)(_copy_tree(v) for v in a)
+    if isinstance(a, dict):
+        return {k: _copy_tree(v) for k, v in a.items()}
+    return a
+
+
+def _call_shape(a):
+    """A call's shape: each tensor's shape and dtype, a range's length, a
+    number's value."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return "x".join(map(str, a.shape)) + ":" + str(a.dtype).removeprefix("torch.")
+    if isinstance(a, range):
+        return f"range({a.start}, {a.stop})"
+    if isinstance(a, dict):
+        return ",".join(f"{k}={_call_shape(v)}" for k, v in sorted(a.items()))
+    if isinstance(a, (tuple, list)):
+        return "(" + ",".join(_call_shape(v) for v in a) + ")"
+    return repr(a) if isinstance(a, (int, float, bool, str)) or a is None else type(a).__name__
+
+
+@contextlib.contextmanager
+def capture_served_calls():
+    """While open, each call of a wrapper in ``SERVED_WRAPPERS`` whose rank
+    among that wrapper's calls is in ``Q_HELD_CALLS`` (default
+    ``Q_HELD_DEFAULT``) keeps a copy of its
+    arguments, taken before it runs (several update their inputs in
+    place); a serving workload calls each wrapper at one shape, apart from
+    the mixture's pools of cluster members. Yields the list of ``(wrapper,
+    args, kwargs)``; the calls themselves run as they would, each paying a
+    counter's increment."""
+    from repro_torch.kernels import ops
+
+    seen, calls, lock = dict.fromkeys(SERVED_WRAPPERS, 0), [], threading.Lock()
+    originals = {name: getattr(ops, name) for name in SERVED_WRAPPERS}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            with lock:
+                seen[name] = rank = seen[name] + 1
+            if rank in Q_HELD_CALLS.get(name, Q_HELD_DEFAULT):
+                calls.append((name, _copy_tree(args), _copy_tree(kwargs)))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(ops, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+
+
+def hold_served_calls(report, phase, calls) -> set:
+    """Each captured call again on two copies of its inputs, through the
+    kernel and through its plain version, held at phase A's tolerances: the
+    logit deltas 1e-5, the AR(1) delta 1e-4 of max |l|, the draw exactly
+    (outputs and its buffer), the particle sweep with at most 1% of paths
+    apart, the Gibbs sweep's picks equal or parting where a uniform lies
+    within 1e-5 of a CDF boundary (counts exact, sums 1e-5), the round op as
+    ``compare_round``. Returns the kernels held."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gibbs_z import first_divergence, gibbs_z_sweep_ref, sums_drift
+    from repro_torch.inference.niw import ClusterStats
+
+    held = set()
+    for name, args, kwargs in calls:
+        kern = SERVED_WRAPPERS[name]
+        ka, kk, pa, pk = (_copy_tree(a) for a in (args, kwargs, args, kwargs))
+        kk["mode"], pk["mode"] = "always", "never"
+        if name == "gibbs_z_sweep":
+            ops.gibbs_z_sweep(*ka, **kk)
+            pk.pop("mode")
+            cdf, mass = gibbs_z_sweep_ref(*pa, **pk, record=True)
+        else:
+            got, want = getattr(ops, name)(*ka, **kk), getattr(ops, name)(*pa, **pk)
+        torch.cuda.synchronize()
+        label = f"{phase} served {name}{_call_shape(args)}"
+        if kern in ("logit_delta", "batched_logit_delta"):
+            err = float((got - want).abs().max())
+            check(err <= 1e-5, f"{label}: within 1e-5 of its plain version ({err:.2e})")
+        elif kern == "gaussian_ar1_delta":
+            err = float((got - want).abs().max())
+            check(err <= 1e-4 * max(1.0, float(want.abs().max())),
+                  f"{label}: within 1e-4 (relative to max |l|) of its plain version ({err:.2e})")
+        elif kern == "fy_draw":
+            pairs = list(zip(got, want)) + [(a, b) for a, b in zip(ka, pa)
+                                             if isinstance(a, torch.Tensor)]
+            err = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+                      for a, b in pairs)
+            check(all(torch.equal(a, b) for a, b in pairs),
+                  f"{label}: indices, valid flags, positions and buffer identical")
+        elif kern == "pgibbs_sweep":
+            frac = 1.0 - float((got == want).all(-1).float().mean())
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()) and frac <= 0.01,
+                  f"{label}: finite, {frac:.3e} of the paths apart (at most 1%)")
+        elif kern == "gibbs_z_sweep":
+            x, z_k, w_k, s_k, points, u = ka[0], ka[2], ka[3], ka[5], ka[6], ka[8]
+            z_p, w_p, s_p = pa[2], pa[3], pa[5]
+            apart = first_divergence(points, u, z_k, z_p, cdf, mass)
+            check(all(b for _, _, b in apart), f"{label}: picks equal the plain version's, or "
+                  "part first where the uniform lies within 1e-5 of a CDF boundary "
+                  f"({[(r, t) for r, t, _ in apart]})")
+            k_max = w_k.shape[1]
+            counts = torch.stack([torch.bincount(r.long(), minlength=k_max) for r in z_k]).float()
+            drift = sums_drift(s_k, ClusterStats.from_assignments(x, z_k, k_max))
+            check(torch.equal(s_k.n, counts) and drift <= 1e-5,
+                  f"{label}: counts equal z's histogram; sums within 1e-5 ({drift:.2e})")
+            same = [r for r in range(z_k.shape[0]) if r not in {a for a, _, _ in apart}]
+            err = max([0.0] + [float((a[same] - b[same]).abs().max())
+                               for a, b in zip((*s_k, w_k), (*s_p, w_p))])
+        else:  # t_test_round: count, mean, m2, mu0, eps, rounds, done, decision, pval
+            pick = lambda a: [a[i] for i in (2, 3, 4, 5, 6, 9, 10, 11, 12)]
+            errs, _ = compare_round(pick(ka), pick(pa), label)
+            err = max(errs.values())
+        e = report["kernels"][kern]
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["cases"].append({"case": label, "max_abs_err": err, "served": True})
+        held.add(kern)
+    print(f"  phase {phase}: {len(calls)} served calls held against their plain versions "
+          f"({sorted(held)})")
+    check(set(Q_NEEDS[phase]) <= held,
+          f"phase {phase}: every kernel it launches was held at its served shapes")
+    return held
+
+
+def serve_args(workload: str, *extra: str):
+    """The front end's arguments at its non-smoke defaults: K=8, refresh 64,
+    window 128, min_draws 512, 8 rows a request, max_batch 16, 250 ms."""
+    from repro_torch.launch import serve
+
+    return serve.build_parser().parse_args(["--workload", workload, "--seed", "0", *extra])
+
+
+def serve_phase(report, phase, workload, *extra, hold=True):
+    """``serve_posterior`` in-process as one counted phase; its parity check
+    (float64 offline from the same draws) fails the phase. With ``hold``,
+    kernel calls of the phase are captured and held against their plain
+    versions after it (``hold_served_calls``)."""
+    from repro_torch.launch import serve
+
+    out = {}
+    with capture_served_calls() if hold else contextlib.nullcontext([]) as calls:
+        rc = counted(report, phase,
+                     lambda: serve.serve_posterior(serve_args(workload, *extra), out))
+    check(rc == 0 and "report" in out, f"phase {phase}: serve_posterior returned 0 ({rc})")
+    classes = {cls: {k: e[k] for k in ("count", "p50_ms", "p95_ms", "p99_ms", "deadline_hit_rate",
+                                       "mean_batch_size", "staleness_mean_s")}
+               for cls, e in out["report"]["classes"].items()}
+    r = {k: out[k] for k in ("warm_s", "served", "wall_s", "req_per_s", "parity_max_abs",
+                             "steps_during_serve")}
+    r.update(classes=classes, errors=out["report"]["errors"],
+             snapshot_staleness_s=out["snapshot"]["staleness_s"])
+    report["phases"][phase].update(r)
+    print(f"  phase {phase}: warm {r['warm_s']:.3f}s, {r['served']} requests at "
+          f"{r['req_per_s']:.1f}/s, parity max|delta| {r['parity_max_abs']}; per class "
+          + "; ".join(f"{c} p50/p95/p99 {e['p50_ms']:.3f}/{e['p95_ms']:.3f}/{e['p99_ms']:.3f} ms "
+                      f"deadline_hit {e['deadline_hit_rate']} staleness {e['staleness_mean_s']}"
+                      for c, e in classes.items()))
+    check(r["errors"] == 0 and r["parity_max_abs"] is not None,
+          f"phase {phase}: {workload} served {r['served']} requests, none failed, parity held")
+    if hold:
+        hold_served_calls(report, phase, calls)
+    return out
+
+
+def paced_queries(pool, done, ticks=None, tick_s=Q_BG_TICK_S) -> dict:
+    """Beside the pool's background refresh (started here, stopped at the
+    end), submit 8 BayesLR requests every ``tick_s`` and serve them at
+    once, until ``done(commits, elapsed_s)``: the queue, the commits seen
+    ((time, steps_done) at each), the requests submitted, the wall seconds
+    and their span on the wall clock, and the CPU seconds of the query
+    (calling) and refresh threads. A list ``ticks`` receives each tick's
+    (start, end) before its sleep."""
+    import torch
+
+    from repro_torch.serving import RequestQueue
+
+    resident, wl = pool.resident("bayeslr"), pool.workload("bayeslr")
+    queue = RequestQueue(pool)
+    gen = torch.Generator().manual_seed(7)
+    classes = sorted(wl.query_specs)
+    commits = []
+    pool.start()
+    refresh_clock = time.pthread_getcpuclockid(resident._thread.ident)
+    cpu0 = (time.thread_time(), time.clock_gettime(refresh_clock))
+    steps0, t0, i = resident.steps_done, time.perf_counter(), 0
+    while not done(commits, time.perf_counter() - t0):
+        tick = time.perf_counter()
+        for _ in range(8):
+            cls = classes[i % len(classes)]
+            queue.submit("bayeslr", cls, wl.query_specs[cls].make_queries(gen, 8))
+            i += 1
+        queue.drain()
+        if ticks is not None:
+            ticks.append((tick, time.perf_counter()))
+        steps = resident.steps_done
+        if steps != (commits[-1][1] if commits else steps0):
+            commits.append((time.perf_counter(), steps))
+        time.sleep(max(0.0, t0 + (i // 8) * tick_s - time.perf_counter()))
+    wall = time.perf_counter() - t0
+    cpu = (time.thread_time() - cpu0[0], time.clock_gettime(refresh_clock) - cpu0[1])
+    pool.stop()
+    return {"queue": queue, "commits": commits, "steps0": steps0, "submitted": i, "wall": wall,
+            "window": (t0, t0 + wall), "query_cpu_s": cpu[0], "refresh_cpu_s": cpu[1]}
+
+
+def refresh_rate(pool, run) -> float:
+    """Transitions/s summed over the chains of a ``paced_queries`` run:
+    from the first commit seen to the last, or, with one commit, its steps
+    over the whole window."""
+    k, commits = pool.config.num_chains, run["commits"]
+    if len(commits) >= 2:
+        (ta, sa), (tb, sb) = commits[0], commits[-1]
+        return k * (sb - sa) / (tb - ta)
+    return k * ((commits[0][1] if commits else run["steps0"]) - run["steps0"]) / run["wall"]
+
+
+def refresh_alone(pool, times: int = 3) -> float:
+    """Transitions/s summed over the chains of ``times`` refreshes in a row."""
+    import torch
+
+    resident = pool.resident("bayeslr")
+    t0 = time.perf_counter()
+    for _ in range(times):
+        resident.refresh()
+    torch.cuda.synchronize()
+    return times * pool.config.num_chains * pool.config.refresh_steps / (
+        time.perf_counter() - t0)
+
+
+def phase_q_bg(pool):
+    """The Q pool's refresh alone, then a background refresh beside a paced
+    query load (8 requests every ``Q_BG_TICK_S``, served at once) until
+    ``Q_BG_COMMITS`` refreshes commit: transitions/s of each (the second
+    timed from the first commit seen to the last), and the latency of the
+    queries served meanwhile. The load offered (1 600 requests/s) is more
+    than one host thread serves beside the refresh: the query thread's CPU
+    share says how busy it was."""
+    k = pool.config.num_chains
+    alone = refresh_alone(pool)
+    run = paced_queries(pool, lambda commits, elapsed: len(commits) >= Q_BG_COMMITS
+                        or elapsed >= Q_BG_MAX_S)
+    rep, commits, i, wall = run["queue"].slo_report(), run["commits"], run["submitted"], run["wall"]
+    check(len(commits) >= 1 and rep["errors"] == 0,
+          f"phase Q-bg: the background refresh committed {len(commits)} times while {i} queries "
+          "were served, none failed")
+    beside = {"transitions_per_s_refresh_alone": alone,
+              "transitions_per_s_beside_queries": refresh_rate(pool, run),
+              "refreshes_beside_queries": len(commits), "queries_beside_refresh": i,
+              "req_per_s_beside_refresh": i / wall,
+              "query_thread_cpu_share": run["query_cpu_s"] / wall,
+              "refresh_thread_cpu_share": run["refresh_cpu_s"] / wall,
+              "classes_beside_refresh": {c: {q: e[q] for q in ("p50_ms", "p95_ms", "p99_ms",
+                                                               "deadline_hit_rate")}
+                                         for c, e in rep["classes"].items()}}
+    print(f"  phase Q-bg: refresh alone {alone:.1f} transitions/s summed over {k} chains; beside "
+          f"{i} queries in {wall:.2f}s ({i / wall:.1f} req/s): "
+          f"{beside['transitions_per_s_beside_queries']:.1f} transitions/s over "
+          f"{len(commits)} commits; CPU share of the query thread "
+          f"{beside['query_thread_cpu_share']:.3f}, of the refresh thread "
+          f"{beside['refresh_thread_cpu_share']:.3f}; query latency "
+          f"{beside['classes_beside_refresh']}")
+    return beside
+
+
+def phase_q_resume(report):
+    """Resumption on the card, bit for bit: refreshes of 64, 32 and 16 steps
+    equal one offline run of 112 (window and theta) on a CUDA generator
+    seeded alike; then ``pool.save`` -> a fresh pool's ``restore`` -> 16
+    more steps on each equal each other."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import EnsemblePool, FreshnessPolicy, ServingConfig
+
+    def make_pool():
+        cfg = ServingConfig(num_chains=8, refresh_steps=64, window=128, seed=3,
+                            freshness=FreshnessPolicy(min_draws=512))
+        pool = EnsemblePool(cfg)
+        pool.add_workload("bayeslr")
+        return pool
+
+    def run():
+        pool = make_pool()
+        res, wl = pool.resident("bayeslr"), pool.workload("bayeslr")
+        for n in Q_RESUME_STEPS:
+            res.refresh(n)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        state, samples, _ = wl.ensemble.run(gen, wl.ensemble.init(wl.theta0),
+                                            sum(Q_RESUME_STEPS))
+        chunked = (np.array_equal(res.snapshot().draws, samples.cpu().numpy())
+                   and torch.equal(res.state.theta, state.theta)
+                   and torch.equal(res._gen_state, gen.get_state()))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+            pool.save(tmp)
+            other = make_pool()
+            other.restore(tmp)
+        a, b = res, other.resident("bayeslr")
+        a.refresh(16)
+        b.refresh(16)
+        restored = (a._gen_state.numel() == 16 and torch.equal(a.state.theta, b.state.theta)
+                    and np.array_equal(a.snapshot().draws, b.snapshot().draws))
+        return chunked, restored
+
+    chunked, restored = counted(report, "Q-resume", run)
+    report["phases"]["Q-resume"].update(chunked_equals_one_shot=chunked,
+                                        restored_equals_original=restored)
+    check(chunked, f"phase Q-resume: refreshes of {Q_RESUME_STEPS} equal one offline run of "
+          f"{sum(Q_RESUME_STEPS)} steps bit for bit (window, theta, generator state)")
+    check(restored, "phase Q-resume: save -> restore -> 16 steps equals 16 more steps of the "
+          "saved pool bit for bit (16-byte CUDA generator state)")
+
+
+def phase_q(report):
+    """Posterior serving through the front end: BayesLR at the reference
+    front end's non-smoke defaults (Q), the same with a background refresh
+    (Q-bg), resumption (Q-resume), then stochvol, the joint DP mixture and
+    a compiled program at their non-smoke sizes, 400 requests each; the
+    kernel calls of Q, Q-sv, Q-jdpm and Q-ppl held against plain."""
+    print(f"phase Q: posterior serving (repro_torch.launch.serve), bayeslr at N=12000 D=20 "
+          f"batch 500, K=8 refresh 64 window 128 min_draws 512, {Q_QUERIES} requests of 8 rows, "
+          "max_batch 16, deadline 250 ms")
+    secs = {}
+    t0 = time.perf_counter()
+    serve_phase(report, "Q", "bayeslr", "--queries", str(Q_QUERIES))
+    secs["Q"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = serve_phase(report, "Q-bg", "bayeslr", "--queries", str(Q_QUERIES), "--background",
+                      hold=False)
+    report["phases"]["Q-bg"].update(phase_q_bg(out["pool"]))
+    del out
+    secs["Q-bg"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_q_resume(report)
+    secs["Q-resume"] = time.perf_counter() - t0
+    for phase, workload in (("Q-sv", "stochvol"), ("Q-jdpm", "jointdpm"), ("Q-ppl", "ppl")):
+        t0 = time.perf_counter()
+        serve_phase(report, phase, workload, "--queries", str(Q_QUERIES))
+        secs[phase] = time.perf_counter() - t0
+    report["q_seconds"] = secs
+    print("  seconds taken by phase Q: " + "; ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"; total {sum(secs.values()):.1f}")
+
+
+Q_PROFILE_S = 3.0  # each window of the paced load in ``profile_q_bg``
+Q_SWITCH_INTERVALS = (5e-3, 5e-4, 5e-5)  # sys.setswitchinterval tried; 5e-3 is Python's own
+
+
+@contextlib.contextmanager
+def round_clock():
+    """While open, each call of ``ops.t_test_round`` (one a round of the
+    sequential test) records, as it starts, (native thread id, wall clock,
+    that thread's CPU clock). Yields the list."""
+    from repro_torch.kernels import ops
+
+    marks, orig = [], ops.t_test_round
+
+    def call(*args, **kwargs):
+        marks.append((threading.get_native_id(), time.perf_counter(), time.thread_time()))
+        return orig(*args, **kwargs)
+
+    ops.t_test_round = call
+    try:
+        yield marks
+    finally:
+        ops.t_test_round = orig
+
+
+def round_stats(marks, window, ticks=()) -> dict:
+    """A thread's rounds from ``round_clock`` marks (the thread with the
+    most) that start and end inside ``window`` (start, end on the wall
+    clock): rounds/s, each round's wall in ms at p50 / p90 / p99, and the
+    share of the rounds' wall the thread spent off the CPU (waiting for a
+    lock, the GIL among them, or asleep; from sums over the window: a
+    thread's CPU clock may advance in scheduler ticks). With the query
+    ticks of ``paced_queries``, the median wall of rounds that overlap a
+    tick against those that do not, and the share of the window the query
+    thread spent in ticks."""
+    import bisect
+
+    if not marks:
+        return {"rounds": 0}
+    tid = statistics.mode(m[0] for m in marks)
+    rows = [(t, c) for th, t, c in marks if th == tid and window[0] <= t <= window[1]]
+    wall_s = window[1] - window[0]
+    spans = [(a[0], b[0], b[0] - a[0], b[1] - a[1]) for a, b in zip(rows, rows[1:])]
+    walls = sorted(x[2] for x in spans)
+    out = {"rounds": len(spans), "rounds_per_s": len(spans) / wall_s,
+           "wall_ms": {f"p{q}": 1e3 * walls[min(len(walls) - 1, int(q / 100 * len(walls)))]
+                       for q in (50, 90, 99)} if walls else None,
+           "off_cpu_share": 1.0 - sum(x[3] for x in spans) / max(sum(walls), 1e-12)}
+    if ticks:
+        starts = [a for a, _ in ticks]
+
+        def overlaps(a, b):  # the last tick to start before the round ends
+            i = bisect.bisect_left(starts, b)
+            return i > 0 and ticks[i - 1][1] > a
+
+        hit = [w for a, b, w, _ in spans if overlaps(a, b)]
+        miss = [w for a, b, w, _ in spans if not overlaps(a, b)]
+        out.update(rounds_overlapping_queries=len(hit),
+                   wall_ms_p50_overlapping_queries=1e3 * statistics.median(hit) if hit else None,
+                   wall_ms_p50_between_queries=1e3 * statistics.median(miss) if miss else None,
+                   query_thread_busy_share=sum(b - a for a, b in ticks) / wall_s)
+    return out
+
+
+def profile_q_bg() -> dict:
+    """``--profile``'s serving window: Q's BayesLR pool (K=8, refresh 64,
+    window 128), its refresh alone and a background refresh beside the
+    paced query load of Q-bg, for ``Q_PROFILE_S`` each. The device's idle
+    share comes from torch.profiler (CUDA activity, which covers both
+    threads); the host timeline of both threads from the round op's calls
+    in the refresh thread and the query ticks in the calling thread (the
+    profiler records host ops of the thread that opened it only), and from
+    each thread's CPU clock. Then the paced load again at each GIL switch
+    interval of ``Q_SWITCH_INTERVALS`` (a thread that waits for the GIL
+    asks its holder to drop it after one interval: if the refresh's rounds
+    wait out the interval, a shorter one raises their rate), at a lighter
+    load (``Q_SLOW_TICK_S``), and beside two contenders in place of the
+    queries: pure Python, which holds the GIL and makes no CUDA call
+    (at the longest and shortest interval), and loops of short (~10 us) and
+    long (~1 ms) kernels on a stream of its own, each waited for with the
+    GIL released: the long ones leave the GIL free ~100x longer for the
+    same time in CUDA's synchronisation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import EnsemblePool, FreshnessPolicy, ServingConfig
+
+    pool = EnsemblePool(ServingConfig(num_chains=8, refresh_steps=64, window=128,
+                                      freshness=FreshnessPolicy(min_draws=512), seed=0))
+    resident = pool.add_workload("bayeslr")
+    pool.warm()
+    paced_queries(pool, lambda commits, elapsed: elapsed >= 0.5)  # first calls: stream, cuBLAS
+
+    def device_idle(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = lambda e: getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+        busy = sum(dev(e) for e in prof.key_averages()) / 1e6
+        return {"wall_s": wall, "device_busy_s": busy,
+                "idle_share": None if busy <= 0 else 1.0 - busy / wall}
+
+    def alone():
+        t0 = time.perf_counter()
+        resident.refresh()
+        return t0, time.perf_counter()
+
+    def beside(ticks=None, tick_s=Q_BG_TICK_S):
+        return paced_queries(pool, lambda commits, elapsed: elapsed >= Q_PROFILE_S, ticks, tick_s)
+
+    def queries(label, tick_s=Q_BG_TICK_S):
+        ticks = []
+        with round_clock() as marks:
+            run = beside(ticks, tick_s)
+        rep = run["queue"].slo_report()
+        out[label] = {**round_stats(marks, run["window"], ticks),
+                      "req_per_s": run["submitted"] / run["wall"],
+                      "refresh_thread_cpu_share": run["refresh_cpu_s"] / run["wall"],
+                      "query_thread_cpu_share": run["query_cpu_s"] / run["wall"],
+                      "latency_ms": {c: {q: e[q] for q in ("p50_ms", "p99_ms")}
+                                     for c, e in rep["classes"].items()}}
+
+    side = torch.cuda.Stream()
+
+    def kernel_wait(cycles):
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(cycles)
+        side.synchronize()
+
+    def contender(label, work):
+        """The background refresh while the calling thread runs ``work``."""
+        with round_clock() as marks:
+            pool.start()
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < Q_PROFILE_S:
+                work()
+            t1 = time.perf_counter()
+            pool.stop()
+        out[label] = round_stats(marks, (t0, t1))
+
+    out = {"idle_refresh_alone": device_idle(alone),
+           "idle_beside_queries": device_idle(beside)}
+    with round_clock() as marks:
+        window = alone()
+    out["refresh_alone"] = round_stats(marks, window)
+    default = sys.getswitchinterval()
+    try:
+        for interval in Q_SWITCH_INTERVALS:
+            sys.setswitchinterval(interval)
+            queries(f"beside_queries_switch_{interval:g}")
+        sys.setswitchinterval(default)
+        queries(f"beside_queries_tick_{Q_SLOW_TICK_S:g}", Q_SLOW_TICK_S)
+        for interval in (Q_SWITCH_INTERVALS[0], Q_SWITCH_INTERVALS[-1]):
+            sys.setswitchinterval(interval)
+            contender(f"beside_python_switch_{interval:g}", lambda: sum(range(2000)))
+        sys.setswitchinterval(default)
+        contender("beside_short_kernels", lambda: kernel_wait(20_000))  # ~10 us each
+        contender("beside_long_kernels", lambda: kernel_wait(2_000_000))  # ~1 ms each
+    finally:
+        sys.setswitchinterval(default)
+    for name, r in out.items():
+        print(f"  Q-bg {name}: {json.dumps(r, default=float)}")
+    return out
+
+
 def profile_idle_share() -> dict:
     """``--profile``: short windows of the main paths under torch.profiler
     (device activity only): wall time, summed device time of every kernel
@@ -2544,9 +3119,11 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         print("device idle share under torch.profiler (no checks; not the default run)")
         prof = profile_idle_share()
+        print("serving: Q-bg's refresh beside paced queries, the host timeline of both threads")
+        q_bg = profile_q_bg()
         os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
         with open(os.path.join(HERE, "chiprun_out", "chip_profile.json"), "w") as f:
-            json.dump({"card": card, "windows": prof}, f, indent=1, default=float)
+            json.dump({"card": card, "windows": prof, "q_bg": q_bg}, f, indent=1, default=float)
         print(card)
         return 0
 
@@ -2576,7 +3153,8 @@ def main() -> int:
     }
     report = {"card": card, "kind": kind, "phases": {p: {} for p in
                                                       [*"BCDEFGHIJKLMN", "B'", "P", "P1",
-                                                       "P-AR1", "S", "S-compiled"]},
+                                                       "P-AR1", "S", "S-compiled", "Q", "Q-bg",
+                                                       "Q-sv", "Q-jdpm", "Q-ppl", "Q-resume"]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -2629,6 +3207,8 @@ def main() -> int:
     report["p_s_seconds"] = time.perf_counter() - t_ps
     print(f"  seconds taken by phases P and S: {report['p_s_seconds']:.1f}")
     del compiled
+    torch.cuda.empty_cache()
+    phase_q(report)
     for name, e in report["kernels"].items():
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
     sv = ("gaussian_ar1_delta", "fy_draw", "pgibbs_sweep", "t_test_round")
@@ -2649,7 +3229,8 @@ def main() -> int:
                         ("P1", ("t_test_round",)),
                         ("P-AR1", ("gaussian_ar1_delta", "fy_draw", "t_test_round")),
                         ("S", ("logit_delta", "fy_draw", "t_test_round")),
-                        ("S-compiled", ("fy_draw", "t_test_round"))):
+                        ("S-compiled", ("fy_draw", "t_test_round")),
+                        *Q_NEEDS.items()):
         got = report["phases"][phase]["launches"]
         check(all(got.get(n, 0) > 0 for n in need), f"phase {phase} went through {need}")
     for phase in ("P1", "S-compiled"):  # one chain of a compiled program: the graph route

@@ -7,7 +7,7 @@ Hopper live in :mod:`repro_torch.kernels`; entry points put their tensors on
 the card unless told ``device="cpu"``.
 """
 from . import (bayes, checkpoint, configs, convert, core, data, experiments, inference, kernels,
-               models, ppl, runtime)
+               models, ppl, runtime, serving)
 
 __all__ = ["bayes", "checkpoint", "configs", "convert", "core", "data", "experiments",
-           "inference", "kernels", "models", "ppl", "runtime"]
+           "inference", "kernels", "models", "ppl", "runtime", "serving"]

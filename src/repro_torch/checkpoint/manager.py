@@ -5,21 +5,24 @@ Layout (the port's own): ``<dir>/step_<N>/`` holds ``manifest.json`` and one
 raw-bytes file per leaf, its dtype and shape in the manifest (bf16 is
 written as its 16-bit pattern). A save goes to a ``.tmp`` directory renamed
 into place, so a preemption during a save never damages the latest
-checkpoint. ``save_async`` comes with a later slice.
+checkpoint. ``save_async`` copies to the host on the caller's thread and
+writes on a daemon thread.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 from typing import Any
 
 import numpy as np
 import torch
 
 _SEP = "__"
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
-           "int32": torch.int32, "int64": torch.int64, "bool": torch.bool}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "int32": torch.int32, "int64": torch.int64,
+           "uint8": torch.uint8, "bool": torch.bool}
 _BITS = {torch.bfloat16: torch.int16, torch.float16: torch.int16}
 
 
@@ -120,5 +123,11 @@ def _cleanup(ckpt_dir: str, keep: int) -> None:
         shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
 
 
-def save_async(*args, **kw):
-    raise NotImplementedError("save_async comes with a later slice")
+def save_async(ckpt_dir: str, step: int, state: Any, keep: int = 3) -> threading.Thread:
+    """Copy ``state`` to the host now (cheap), write it on a daemon thread;
+    returns the thread (``join`` it before reading the checkpoint)."""
+    host = {name: torch.as_tensor(leaf).detach().cpu().clone()
+            for name, leaf in _flatten(state).items()}
+    t = threading.Thread(target=save, args=(ckpt_dir, step, host, keep), daemon=True)
+    t.start()
+    return t

@@ -5,8 +5,8 @@ positions theta (K, D), the stochastic-volatility data (obs, h_true) and
 theta ``{phi, sigma2, h}``, the joint DP mixture's data and state, an LM's parameter tree and the ``ce`` family's
 data (hidden states and next tokens), and the samplers' state (the
 stream's ``pos``; the Fisher–Yates ``idx``/``pos``/``size``; one state per component of a
-composite cycle), each handed over as numpy arrays and built into the
-port's types on a given device. Taking numpy keeps this module free of JAX:
+composite cycle) and a serving resident's checkpointed state, each handed
+over as numpy arrays and built into the port's types on a given device. Taking numpy keeps this module free of JAX:
 call ``np.asarray`` on the reference's arrays first (``jax.tree.map`` for a
 tree).
 """
@@ -146,3 +146,23 @@ def ce_data(h, targets, *, device=None) -> tuple[torch.Tensor, torch.Tensor]:
     h_t = h if isinstance(h, torch.Tensor) else _float_leaf(h, dev)
     t_t = targets if isinstance(targets, torch.Tensor) else _i32(targets, dev)
     return h_t.to(dev).reshape(-1, h_t.shape[-1]), t_t.to(dev, torch.int32).reshape(-1)
+
+
+def resident_state(flat: dict, *, seed: int = 0, device=None) -> dict:
+    """A serving resident's state from the reference's: ``flat`` holds the
+    leaves of a reference ``ResidentEnsemble.state_dict()`` as numpy, keyed
+    as the reference's checkpoint names them (``theta``, ``sampler__0``,
+    ``controller__...``, ``draws...``, ``steps_done``, ``key_data``), e.g.
+    one resident's subtree of a reference checkpoint. Returns the leaves
+    :meth:`repro_torch.serving.ResidentEnsemble.load_flat` takes: the same
+    names and arrays, with ``gen_state`` in place of ``key_data``. A JAX key
+    cannot become a generator's state, so the chains go on from a fresh
+    generator seeded with ``seed`` on ``device`` (the device the resident
+    runs on): theta, sampler state, controller and window carry over, the
+    random stream does not."""
+    dev = resolve_device(device)
+    out = {name: np.asarray(leaf) for name, leaf in flat.items() if name != "key_data"}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    out["gen_state"] = gen.get_state().numpy().copy()
+    return out

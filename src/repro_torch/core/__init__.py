@@ -52,6 +52,7 @@ from .stats import (
     finite_population_std_err,
     jarque_bera,
     multichain_ess,
+    slo_summary,
     split_rhat,
     student_t_sf,
     tail_latency_summary,
@@ -82,7 +83,7 @@ __all__ = [
     "jarque_bera", "make_bounded_draw",
     "make_kernel", "make_sampler", "mh_step", "multichain_ess", "propose_and_mu0",
     "register_family", "registered_families", "run_chain", "run_chain_timed", "run_ensemble",
-    "sequential_test", "split_rhat", "stream_draw", "stream_draw_bounded", "stream_init",
-    "stream_reset", "student_t_sf", "subsampled_mh_step", "tail_latency_summary",
+    "sequential_test", "slo_summary", "split_rhat", "stream_draw", "stream_draw_bounded",
+    "stream_init", "stream_reset", "student_t_sf", "subsampled_mh_step", "tail_latency_summary",
     "test_round_decision", "trial_run_report", "two_sided_t_pvalue",
 ]

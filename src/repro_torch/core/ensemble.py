@@ -60,10 +60,21 @@ leaves the generator where lock-step leaves it. With the Fisher–Yates
 sampler the rounds draw from the same generator, so the superstep draws
 each start's u and proposal where the stream stands: masked and lock-step
 agree in distribution only (for K = 1 they coincide, and equal
-``run_chain``). The reference's "chain k equals a sequential run with key
-k" and its resumable ``step_keys`` schedule rest on JAX's splittable keys and
-wait for the serving slice; the ``shard=`` mesh paths wait for the
-distributed slice. Each raises ``NotImplementedError``.
+``run_chain``).
+
+Resuming: the reference resumes through ``step_keys``, where
+``fold_in(chain_key, t)`` keys step t whatever the chunking. Here the
+resumable schedule is the generator itself: ``run(gen, state, n)`` continues
+the stream of the generator it is given, so runs of n1, n2, ... steps on one
+generator equal one run of n1 + n2 + ... steps bit for bit, in lock-step with
+either sampler and masked with the ``stream`` sampler (with or without a
+schedule). Masked with Fisher–Yates draws its rounds from the same stream
+and a chunk boundary moves where chains start their steps, so chunked and
+one-shot runs agree in distribution only. The serving layer's
+``ResidentEnsemble`` refreshes this way. The reference's "chain k equals a
+sequential run with key k" rests on splittable keys and stays a deliberate
+divergence: here the K chains share one generator. The ``shard=`` mesh paths
+wait for the distributed slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -523,12 +534,18 @@ class ChainEnsemble:
             mu0, log_u = torch.where(sel, mu0_n, mu0), torch.where(sel, log_u_n, log_u)
         return theta_prop, mu0, log_u
 
-    def run_timed(self, seed, state: EnsembleState, num_steps: int, block_every: int = 1):
+    def run_timed(self, seed, state: EnsembleState, num_steps: int, block_every: int = 1, *,
+                  start_step: int = 0, on_block=None):
         """Host-chunked loop recording the wall clock, synchronising the
         device after every block. One warm-up transition on a copy of the
         state (with its own generator) builds the kernels outside the timed
-        window. Returns (state, dict) with ``transitions_per_sec`` summed
-        over chains."""
+        window. ``seed`` is an int or a generator: pass the same generator
+        and the returned state again to continue one run bit for bit.
+        ``on_block(state, samples, infos, steps_done)`` (optional) runs after
+        every block inside the timed window; ``steps_done`` counts from
+        ``start_step``, which only numbers the steps (the generator carries
+        the schedule). Returns (state, dict) with ``transitions_per_sec``
+        summed over chains and ``next_step``, ``start_step + num_steps``."""
         gen = make_generator(seed, self._device)
         dev_sync = torch.cuda.synchronize if self._device.type == "cuda" else (lambda: None)
         warm = tree_map(lambda l: l.clone() if isinstance(l, torch.Tensor) else l, state)
@@ -544,6 +561,8 @@ class ChainEnsemble:
             samples_blocks.append(samples)
             infos_blocks.append(infos)
             done += n
+            if on_block is not None:
+                on_block(state, samples, infos, start_step + done)
         wall = time.perf_counter() - t0
         cat = lambda blocks: tree_map(lambda *ls: torch.cat(ls, dim=1), *blocks)
         return state, {
@@ -551,6 +570,7 @@ class ChainEnsemble:
             "infos": cat(infos_blocks),
             "wall": wall,
             "transitions_per_sec": self.num_chains * num_steps / max(wall, 1e-12),
+            "next_step": start_step + num_steps,
         }
 
 

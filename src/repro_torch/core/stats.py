@@ -4,11 +4,13 @@ The tensor functions follow ``repro.core.stats`` in float32. The Student-t
 tail is the JAX package's float32 recurrence (see
 :mod:`repro_torch.kernels.ref`), not the exact tail: the two differ by up to
 6e-2 relative at df = 1e5, and the port reproduces the reference's
-decisions. The chain diagnostics and the safeguard's Jarque–Bera test are
-host-side numpy, as in the reference.
+decisions. The chain diagnostics, the safeguard's Jarque–Bera test and the
+serving layer's SLO and EWMA helpers are host-side numpy, as in the
+reference (the last are copies of the reference's, which need no JAX).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -194,3 +196,265 @@ def jarque_bera(x) -> tuple[float, float]:
     jb = n / 6.0 * (skew**2 + kurt**2 / 4.0)
     # chi2(2) survival = exp(-jb/2)
     return float(jb), float(np.exp(-jb / 2.0))
+
+
+def stage_latency_breakdown(spans) -> dict:
+    """Per-stage latency tables from closed trace spans.
+
+    The request-path counterpart of :func:`tail_latency_summary`: spans
+    (plain dicts carrying ``stage``/``dur_s``, as a tracer records them)
+    are grouped by stage tag — queue wait vs batch assembly vs device eval
+    vs combine — and each stage gets count/mean/p50/p95/max/total in
+    milliseconds. This is what the stats endpoint's ``/stages`` view
+    returns, answering "where did the latency go" without re-reading the
+    raw spans stream.
+    """
+    by_stage: dict[str, list[float]] = {}
+    traces = set()
+    for span in spans:
+        dur = span.get("dur_s")
+        stage = span.get("stage")
+        if not isinstance(dur, (int, float)) or stage is None:
+            continue
+        by_stage.setdefault(str(stage), []).append(float(dur) * 1e3)
+        if span.get("trace_id") is not None:
+            traces.add(span["trace_id"])
+    stages = {}
+    for stage, ms in sorted(by_stage.items()):
+        arr = np.asarray(ms, np.float64)
+        stages[stage] = {
+            "count": int(arr.size),
+            "mean_ms": float(arr.mean()),
+            "p50_ms": float(np.percentile(arr, 50)),
+            "p95_ms": float(np.percentile(arr, 95)),
+            "max_ms": float(arr.max()),
+            "total_ms": float(arr.sum()),
+        }
+    return {
+        "span_count": int(sum(len(v) for v in by_stage.values())),
+        "trace_count": len(traces),
+        "stages": stages,
+    }
+
+
+def slo_summary(latencies_s, deadlines_s=None, percentiles=(50, 95, 99)) -> dict:
+    """Service-level summary of per-request latencies (seconds).
+
+    The serving-layer counterpart of :func:`tail_latency_summary`: request
+    latencies instead of sequential-test rounds. Returns millisecond
+    percentiles (``p50_ms`` etc.), mean/max, the request count, and — when
+    per-request ``deadlines_s`` are given — the fraction of requests that
+    met their deadline (``deadline_hit_rate``), the SLO number
+    ``launch/serve.py`` reports per request class.
+
+    Example::
+
+        >>> s = slo_summary([0.010, 0.020, 0.030], deadlines_s=[0.025] * 3)
+        >>> round(s["p50_ms"], 1), round(s["deadline_hit_rate"], 2)
+        (20.0, 0.67)
+    """
+    lat = np.asarray(latencies_s, np.float64).ravel()
+    if lat.size == 0:
+        raise ValueError("slo_summary needs at least one request")
+    out = {f"p{p}_ms": float(np.percentile(lat, p) * 1e3) for p in percentiles}
+    out["mean_ms"] = float(lat.mean() * 1e3)
+    out["max_ms"] = float(lat.max() * 1e3)
+    out["count"] = int(lat.size)
+    if deadlines_s is not None:
+        dl = np.broadcast_to(np.asarray(deadlines_s, np.float64).ravel(), lat.shape)
+        out["deadline_hit_rate"] = float(np.mean(lat <= dl))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Unified serving SLO schema, the reference's: RequestQueue.slo_report()
+# builds it. Every field is always present (latency percentiles are None
+# when a class has no successful completions), so consumers never need
+# per-producer key probing.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ClassSLO:
+    """Per-(workload, request-class) serving statistics.
+
+    ``count``/``errors`` cover *attempted* (non-shed) completions;
+    ``admitted``/``shed`` are admission-control counters (for the plain
+    queue, which never sheds, ``admitted`` equals the attempted count).
+    Latency percentiles summarize successful requests only — a batch that
+    failed fast must not read as low latency — while ``deadline_hit_rate``
+    covers every attempted request (failures count as misses).
+    """
+
+    count: int = 0
+    errors: int = 0
+    admitted: int = 0
+    shed: int = 0
+    priority: int = 0
+    deadline_hit_rate: float = 0.0
+    mean_batch_size: float = 0.0
+    p50_ms: float | None = None
+    p95_ms: float | None = None
+    p99_ms: float | None = None
+    mean_ms: float | None = None
+    max_ms: float | None = None
+    staleness_mean_s: float | None = None
+    staleness_max_s: float | None = None
+
+    @classmethod
+    def from_requests(
+        cls, requests, *, priority: int = 0,
+        admitted: int | None = None, shed: int | None = None,
+    ) -> "ClassSLO":
+        """Aggregate completed request records (anything with ``latency_s``
+        / ``error`` / ``deadline_met`` / ``staleness_s`` / ``batch_size``
+        attributes; shed requests carry ``error="shed: ..."``)."""
+        attempted, shed_local = [], 0
+        for r in requests:
+            if (r.error or "").startswith("shed"):
+                shed_local += 1
+            else:
+                attempted.append(r)
+        ok = [r for r in attempted if r.error is None]
+        out = cls(
+            count=len(ok),
+            errors=len(attempted) - len(ok),
+            admitted=len(attempted) if admitted is None else int(admitted),
+            shed=shed_local if shed is None else int(shed),
+            priority=int(priority),
+        )
+        if attempted:
+            out.deadline_hit_rate = float(
+                np.mean([bool(r.deadline_met) for r in attempted])
+            )
+        if ok:
+            s = slo_summary([r.latency_s for r in ok])
+            out.p50_ms, out.p95_ms, out.p99_ms = s["p50_ms"], s["p95_ms"], s["p99_ms"]
+            out.mean_ms, out.max_ms = s["mean_ms"], s["max_ms"]
+            out.mean_batch_size = float(np.mean([r.batch_size or 1 for r in ok]))
+            staleness = [r.staleness_s for r in ok if r.staleness_s is not None]
+            if staleness:
+                out.staleness_mean_s = float(np.mean(staleness))
+                out.staleness_max_s = float(np.max(staleness))
+        return out
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class SLOReport:
+    """One serving report: totals, admission/recovery state, per-class
+    tables. ``count`` spans every completion including shed requests (they
+    completed, just not with an answer); ``errors`` excludes shed.
+    """
+
+    count: int = 0
+    errors: int = 0
+    shed: int = 0
+    admission: dict | None = None
+    recovery: dict | None = None
+    classes: dict[str, ClassSLO] = dataclasses.field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        return dict(
+            count=self.count,
+            errors=self.errors,
+            shed=self.shed,
+            admission=self.admission,
+            recovery=self.recovery,
+            classes={k: v.to_dict() for k, v in self.classes.items()},
+        )
+
+
+def build_slo_report(
+    requests,
+    *,
+    priorities: dict[str, int] | None = None,
+    class_counters: dict[tuple[str, str], dict] | None = None,
+    admission: dict | None = None,
+    recovery: dict | None = None,
+) -> SLOReport:
+    """Aggregate completed requests into the unified :class:`SLOReport`.
+
+    ``class_counters`` (keyed ``(workload, query_class)``, entries holding
+    ``admitted``/``shed``) lets the router report its submit-time admission
+    counters instead of the completion-derived defaults; classes that only
+    appear in the counters (everything they admitted still pending) still
+    get a row.
+    """
+    done = [r for r in requests if r.latency_s is not None]
+    by_class: dict[tuple[str, str], list] = {}
+    for r in done:
+        by_class.setdefault((r.workload, r.query_class), []).append(r)
+    counters = class_counters or {}
+    classes: dict[str, ClassSLO] = {}
+    errors_total = shed_total = 0
+    for wl, qc in sorted(set(by_class) | set(counters)):
+        cnt = counters.get((wl, qc))
+        entry = ClassSLO.from_requests(
+            by_class.get((wl, qc), []),
+            priority=(priorities or {}).get(qc, 0),
+            admitted=cnt["admitted"] if cnt else None,
+            shed=cnt["shed"] if cnt else None,
+        )
+        classes[f"{wl}.{qc}"] = entry
+        errors_total += entry.errors
+        shed_total += entry.shed
+    return SLOReport(
+        count=len(done),
+        errors=errors_total,
+        shed=shed_total,
+        admission=admission,
+        recovery=recovery,
+        classes=classes,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Streaming anomaly / SLO-burn math (for the alert rules of an observability layer)
+# ---------------------------------------------------------------------------
+
+
+class EwmaState(NamedTuple):
+    """Exponentially weighted mean/variance for streaming z-scores.
+
+    ``count`` is the number of observations folded in; ``mean``/``var`` are
+    the EWMA first and second central moments (West's recurrence). A fresh
+    state is ``EwmaState(0, 0.0, 0.0)``.
+    """
+
+    count: int
+    mean: float
+    var: float
+
+
+def ewma_update(state: EwmaState, x: float, alpha: float = 0.3) -> EwmaState:
+    """Fold one observation into an :class:`EwmaState`.
+
+    The first observation initializes the mean exactly (no bias toward
+    zero); variance starts at 0 and inflates as spread is observed.
+    """
+    if state.count == 0:
+        return EwmaState(1, float(x), 0.0)
+    diff = float(x) - state.mean
+    incr = alpha * diff
+    mean = state.mean + incr
+    var = (1.0 - alpha) * (state.var + diff * incr)
+    return EwmaState(state.count + 1, mean, var)
+
+
+def ewma_zscore(state: EwmaState, x: float, min_sigma: float = 1e-9) -> float:
+    """The z-score of ``x`` against an EWMA state's mean/sigma (0.0 until
+    the state has seen at least two observations)."""
+    if state.count < 2:
+        return 0.0
+    sigma = max(state.var, 0.0) ** 0.5
+    return (float(x) - state.mean) / max(sigma, min_sigma)
+
+
+def burn_rate(bad_fraction: float, budget: float) -> float:
+    """SLO error-budget burn rate: observed bad fraction over the allowed
+    bad fraction. 1.0 burns the budget exactly at the sustainable pace;
+    >1 exhausts it early (e.g. 14.4 = a 30-day budget gone in ~2 days)."""
+    return float(bad_fraction) / max(float(budget), 1e-12)

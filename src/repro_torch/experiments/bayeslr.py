@@ -7,7 +7,8 @@ The MNIST-like feature set of the Fig-4 risk experiment (12214 train / 2037
 test, 50 PCA-like dimensions, synthesized with the same shape and scale)
 and the 2-feature synthetic of Fig. 5. Data is drawn on the device from a
 seeded ``torch.Generator``; to start from the JAX package's arrays use
-:mod:`repro_torch.convert`. ``make_serving_workload`` comes with serving.
+:mod:`repro_torch.convert`. ``make_serving_workload`` serves the posterior
+through :mod:`repro_torch.serving`.
 """
 from __future__ import annotations
 
@@ -127,6 +128,46 @@ def run_posterior_ensemble(seed, data: LRData, num_chains: int = 8, num_steps: i
         **ensemble_summary(infos),
     }
     return samples, diagnostics
+
+
+def make_serving_workload(*, smoke: bool = False, num_chains: int = 8, n_train: int | None = None,
+                          d: int | None = None, batch_size: int | None = None,
+                          epsilon: float = 0.05, sigma: float = 0.05, stepping: str = "lockstep",
+                          schedule=None, seed: int = 0, device=None):
+    """The BayesLR posterior as a servable workload (see
+    :mod:`repro_torch.serving.workloads`): the ``logit``-family target behind
+    a :class:`~repro_torch.core.ensemble.ChainEnsemble` (the ``stream``
+    sampler), with two request classes:
+
+      * ``predictive``: posterior-predictive P(y=+1 | x) for test rows,
+      * ``vote``: the posterior fraction of draws classifying x as +1.
+
+    Query inputs are rows of the held-out test set. Each class scores all
+    (S, D) draws against the (B, D) rows in one ``torch.matmul``.
+    """
+    from ..core import ChainEnsemble, RandomWalk, SubsampledMHConfig
+    from ..serving.resident import QuerySpec
+    from ..serving.workloads import ServingWorkload, row_sampler
+
+    dev = resolve_device(device)
+    n_train = n_train if n_train is not None else (2_000 if smoke else 12_000)
+    d = d if d is not None else (4 if smoke else 20)
+    batch_size = batch_size if batch_size is not None else (100 if smoke else 500)
+    data = synth_mnist_like(seed, n_train=n_train, n_test=max(512, d * 16), d=d, device=dev)
+    target = make_target(data.x_train, data.y_train)
+    cfg = SubsampledMHConfig(batch_size=batch_size, epsilon=epsilon, sampler="stream")
+    ens = ChainEnsemble(target, RandomWalk(sigma), num_chains, config=cfg, stepping=stepping,
+                        schedule=schedule, device=dev)
+    make_queries = row_sampler(data.x_test)
+    specs = {
+        "predictive": QuerySpec(fn=lambda w, xs: torch.sigmoid(w @ xs.T), aggregate="mean",
+                                make_queries=make_queries, name="predictive"),
+        "vote": QuerySpec(fn=lambda w, xs: (w @ xs.T > 0).to(torch.float32), aggregate="mean",
+                          make_queries=make_queries, name="vote"),
+    }
+    return ServingWorkload(name="bayeslr", ensemble=ens, theta0=torch.zeros(d), query_specs=specs,
+                           default_class="predictive",
+                           description=f"Bayesian logistic regression, N={n_train}, D={d}")
 
 
 def _np(a) -> np.ndarray:

@@ -48,7 +48,7 @@ from ..core.ensemble import ChainEnsemble
 from ..core.samplers import fy_draw, fy_from_buffer, fy_reset
 from ..core.sequential_test import sequential_test
 from ..core.subsampled_mh import draw_log_u
-from ..inference.niw import ClusterStats, NIWPrior, predictive_all_clusters
+from ..inference.niw import ClusterStats, NIWPrior, predictive_all_clusters, predictive_rows
 from ..kernels import ops
 from ..kernels.gibbs_z import draw_sweep_randomness
 from ..kernels.ref import lgamma_fp32
@@ -422,11 +422,70 @@ def run_posterior_ensemble(seed, data: JDPMData, cfg: JDPMConfig, num_chains: in
     return state, samples, infos, diagnostics
 
 
-def make_serving_workload(*args, **kwargs):
-    """The joint DP mixture as a servable workload comes with the port's
-    serving package, which does not exist yet."""
-    raise NotImplementedError("jointdpm.make_serving_workload comes with the port's serving "
-                              "package (repro_torch has none yet)")
+def cluster_predictive(draws, xs: torch.Tensor, prior: NIWPrior) -> torch.Tensor:
+    """p(y=+1 | x*) under the mixture-of-experts posterior predictive of
+    every draw: ``draws`` holds (S, ...) leaves ``w`` (S, K_max, D+1) and
+    ``stats`` (a :class:`ClusterStats` over (S, K_max)); xs (B, D) ->
+    (S, B). The predictive factors each draw's clusters once for all rows
+    (:func:`repro_torch.inference.niw.predictive_rows`)."""
+    stats, w = draws["stats"], draws["w"]
+    counts = stats.n[:, None]  # (S, 1, K)
+    feat = predictive_rows(xs, stats, prior)  # (S, B, K)
+    logw = torch.where(counts > 0.5, torch.log(torch.clamp_min(counts, 1e-12)) + feat,
+                       torch.tensor(-math.inf, device=xs.device))
+    resp = torch.softmax(logw, -1)
+    p_k = torch.sigmoid(torch.matmul(augment(xs), w.transpose(-1, -2)))  # (S, B, K)
+    return (resp * p_k).sum(-1)
+
+
+def make_serving_workload(*, smoke: bool = False, num_chains: int = 4, n: int | None = None,
+                          cfg: JDPMConfig | None = None, batch_size: int = 100,
+                          epsilon: float = 0.2, w_moves: int | None = None,
+                          gibbs_frac: float = 0.25, seed: int = 0, device=None):
+    """The joint DP mixture as a servable workload: the full Sec-4.2 cycle
+    (alpha-MH + Gibbs-z + dynamic-pool subsampled-MH w moves) kept resident.
+    The collected draws are the predictive sufficient state (expert
+    weights, NIW cluster statistics and alpha), not the O(N) assignments,
+    so the window stays small. Request classes:
+
+      * ``cluster_predictive``: p(y=+1 | x*) under the mixture-of-experts
+        posterior predictive; rows are feature points,
+      * ``k_active``: posterior mean number of active clusters (rows are
+        dummies; a scalar functional per draw).
+
+    Data and the initial state come from one generator seeded with ``seed``.
+    """
+    from ..serving.resident import QuerySpec
+    from ..serving.workloads import ServingWorkload, row_sampler
+
+    dev = resolve_device(device)
+    n = n if n is not None else (600 if smoke else 5_000)
+    cfg = cfg or JDPMConfig()
+    w_moves = w_moves if w_moves is not None else (2 if smoke else 8)
+    gen = make_generator(seed, dev)
+    data = synth(gen, n=n, n_test=max(256, n // 8), device=dev)
+    cyc = make_inference_cycle(data, cfg, batch_size=min(batch_size, n), epsilon=epsilon,
+                               w_moves=w_moves, gibbs_frac=gibbs_frac)
+
+    def collect_predictive(state: JDPMState):
+        return {"w": state.w, "alpha": state.alpha, "stats": state.stats}
+
+    ens = ChainEnsemble(num_chains=num_chains, transition=cyc, collect=collect_predictive,
+                        device=dev)
+    prior = cfg.niw_prior(dev)
+    make_points = row_sampler(data.x_test)
+    specs = {
+        "cluster_predictive": QuerySpec(
+            fn=lambda draws, xs: cluster_predictive(draws, xs, prior), aggregate="mean",
+            make_queries=make_points, name="cluster_predictive"),
+        "k_active": QuerySpec(
+            fn=lambda draws, xs: (draws["stats"].n > 0.5).sum(-1).to(F32)[:, None].expand(
+                -1, xs.shape[0]),
+            aggregate="mean", make_queries=make_points, name="k_active"),
+    }
+    return ServingWorkload(name="jointdpm", ensemble=ens, theta0=init_state(gen, data, cfg),
+                           query_specs=specs, default_class="cluster_predictive",
+                           description=f"joint DP mixture of logistic experts, N={n}")
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,7 @@ that sets the paper apart from iid austerity (Sec. 3.2 Remark).
 Data is drawn on the device from a seeded ``torch.Generator``; to start from
 the JAX package's arrays use :mod:`repro_torch.convert`. Entry points take
 ``device=None`` (the card; raises without one). ``make_serving_workload``
-comes with the serving slice.
+serves the posterior through :mod:`repro_torch.serving`.
 """
 from __future__ import annotations
 
@@ -324,6 +324,52 @@ def run_posterior_ensemble(seed, data: SVData, num_chains: int = 4, num_steps: i
                         for name in ("phi", "sigma2")},
     }
     return state, samples, infos, diagnostics
+
+
+def stationary_vol(theta) -> torch.Tensor:
+    """The stationary log-volatility scale sigma / sqrt(1 - phi^2), per draw."""
+    s2 = torch.clamp_min(theta["sigma2"], 1e-12)
+    one_minus = torch.clamp_min(1.0 - theta["phi"] ** 2, 1e-6)
+    return torch.sqrt(s2 / one_minus)
+
+
+def make_serving_workload(*, smoke: bool = False, num_chains: int = 4,
+                          num_series: int | None = None, length: int | None = None,
+                          num_particles: int | None = None, batch_size: int = 100,
+                          epsilon: float = 0.05, seed: int = 0, device=None):
+    """The stochastic-volatility posterior as a servable workload: the full
+    Sec-4.3 composite cycle (particle Gibbs over paths + subsampled-MH
+    phi/sigma2 moves) kept resident, with request classes
+
+      * ``vol_quantile``: posterior quantiles of the stationary log-vol
+        scale ``sigma / sqrt(1 - phi^2)``; request rows are quantile levels
+        in (0, 1),
+      * ``phi_mean``: the posterior-mean persistence (rows are dummy
+        levels; every row returns the same scalar functional).
+    """
+    from ..serving.resident import QuerySpec
+    from ..serving.workloads import ServingWorkload, level_sampler
+
+    dev = resolve_device(device)
+    num_series = num_series if num_series is not None else (40 if smoke else 200)
+    length = length if length is not None else (6 if smoke else 10)
+    num_particles = num_particles if num_particles is not None else (10 if smoke else 25)
+    data = synth(seed, num_series=num_series, length=length, device=dev)
+    cyc = make_inference_cycle(data.obs, batch_size=min(batch_size, num_series * length),
+                               epsilon=epsilon, num_particles=num_particles)
+    ens = ChainEnsemble(num_chains=num_chains, transition=cyc, collect=_collect_params,
+                        device=dev)
+    per_row = lambda v, xs: v[:, None].expand(-1, xs.shape[0])  # (S,) -> (S, B)
+    specs = {
+        "vol_quantile": QuerySpec(fn=lambda theta, xs: per_row(stationary_vol(theta), xs),
+                                  aggregate="quantile", make_queries=level_sampler,
+                                  name="vol_quantile"),
+        "phi_mean": QuerySpec(fn=lambda theta, xs: per_row(theta["phi"], xs), aggregate="mean",
+                              make_queries=level_sampler, name="phi_mean"),
+    }
+    return ServingWorkload(name="stochvol", ensemble=ens, theta0=init_theta(data.obs),
+                           query_specs=specs, default_class="vol_quantile",
+                           description=f"stochastic volatility, {num_series} series x {length}")
 
 
 def exact_state_loglik(obs: torch.Tensor, h: torch.Tensor, params: SVParams) -> torch.Tensor:

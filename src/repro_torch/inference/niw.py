@@ -118,7 +118,12 @@ def posterior_predictive_logpdf(x: torch.Tensor, stats_n: torch.Tensor, stats_su
       Sn = S0 + sum_xxt + k0 m0 m0' - kn mn mn'
       x | stats ~ t_{vn - D + 1}(mn, Sn (kn+1) / (kn (vn - D + 1)))
     """
-    d = x.shape[-1]
+    df, mn, scale = _predictive_t(stats_n, stats_sum, stats_xxt, prior, x.shape[-1])
+    return _mvt_logpdf(x, df, mn, scale)
+
+
+def _predictive_t(stats_n, stats_sum, stats_xxt, prior: NIWPrior, d: int):
+    """(df, loc, shape matrix) of the predictive Student-t of each cluster."""
     m0, s0 = prior.m0.to(F32), prior.s0.to(F32)
     kn = prior.k0 + stats_n
     vn = prior.v0 + stats_n
@@ -129,7 +134,7 @@ def posterior_predictive_logpdf(x: torch.Tensor, stats_n: torch.Tensor, stats_su
     scale = sn * (kn + 1.0)[..., None, None] / (kn * df)[..., None, None]
     # guard: keep scale SPD even for nearly-empty clusters
     scale = scale + 1e-6 * torch.eye(d, dtype=F32, device=scale.device)
-    return _mvt_logpdf(x, df, mn, scale)
+    return df, mn, scale
 
 
 def predictive_all_clusters(x: torch.Tensor, stats: ClusterStats, prior: NIWPrior) -> torch.Tensor:
@@ -137,3 +142,22 @@ def predictive_all_clusters(x: torch.Tensor, stats: ClusterStats, prior: NIWPrio
     stats over (..., K_max) -> (..., K_max), the Cholesky factors batched
     over the clusters."""
     return posterior_predictive_logpdf(x[..., None, :], stats.n, stats.sum_x, stats.sum_xxt, prior)
+
+
+def predictive_rows(x: torch.Tensor, stats: ClusterStats, prior: NIWPrior) -> torch.Tensor:
+    """The density of :func:`predictive_all_clusters` for every row of x
+    (B, D) under statistics over (..., K_max) -> (..., B, K_max), with one
+    Cholesky factor per cluster solved against all B rows as right-hand
+    sides (where broadcasting x against the clusters would factor and solve
+    once per row). Each row's value depends on that row alone."""
+    d = x.shape[-1]
+    df, mn, scale = _predictive_t(stats.n, stats.sum_x, stats.sum_xxt, prior, d)
+    chol = torch.linalg.cholesky_ex(scale)[0]  # (..., K, D, D)
+    rhs = x.T.to(F32) - mn[..., :, None]  # (..., K, D, B)
+    sol = torch.linalg.solve_triangular(chol, rhs, upper=False)
+    quad = (sol * sol).sum(-2)  # (..., K, B)
+    logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+    norm = (lgamma_fp32((df + d) / 2.0) - lgamma_fp32(df / 2.0)
+            - 0.5 * d * (torch.log(df) + _LOG_PI) - 0.5 * logdet)
+    out = norm[..., None] - 0.5 * (df + d)[..., None] * torch.log1p(quad / df[..., None])
+    return out.transpose(-1, -2)

@@ -262,8 +262,10 @@ def forward_loglik(params: Params, batch: dict, cfg: ModelConfig,
 
 
 def prefill(*args, **kw):
-    raise NotImplementedError("prefill and the KV caches come with the serving slice")
+    raise NotImplementedError("prefill and the KV caches come with the rest of the LM stack "
+                              "(LM decoding is not part of posterior serving)")
 
 
 def decode_step(*args, **kw):
-    raise NotImplementedError("decode_step and the KV caches come with the serving slice")
+    raise NotImplementedError("decode_step and the KV caches come with the rest of the LM "
+                              "stack (LM decoding is not part of posterior serving)")

@@ -1200,3 +1200,118 @@ def test_trial_run_report_runs_the_kernels(cuda_device):
         assert ops.launches[name] > 0, dict(ops.launches)
     assert rep.num_trials == 5 and 0.0 < rep.mean_fraction_evaluated <= 1.0
     assert np.isfinite(rep.jb_stat_mean) and 0.0 <= rep.jb_pvalue_min <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# Posterior serving on the card
+# ---------------------------------------------------------------------------
+
+
+def _serving_window(name, rng, k=8, w=128):
+    """A (K, W, ...) window at the serving workloads' full widths and 64
+    request rows (feature points, or quantile levels for stochvol)."""
+    from repro_torch.inference.niw import ClusterStats
+
+    if name == "bayeslr":
+        return rng.normal(0, 0.5, (k, w, 20)).astype(np.float32), \
+            rng.normal(0, 1, (64, 20)).astype(np.float32)
+    if name == "stochvol":
+        return {"phi": rng.uniform(0.5, 0.99, (k, w)).astype(np.float32),
+                "sigma2": rng.uniform(0.01, 0.1, (k, w)).astype(np.float32)}, \
+            rng.uniform(0.05, 0.95, 64).astype(np.float32)
+    x = torch.from_numpy(rng.normal(0, 2, (5000, 2)).astype(np.float32))
+    st = ClusterStats.from_assignments(x, torch.from_numpy(rng.integers(0, 4, (k * w, 5000))), 20)
+    shape = lambda t: t.numpy().reshape((k, w) + tuple(t.shape[1:]))
+    return {"w": rng.normal(0, 1, (k, w, 20, 3)).astype(np.float32),
+            "alpha": np.ones((k, w), np.float32),
+            "stats": ClusterStats(*(shape(t) for t in st))}, \
+        rng.normal(0, 2, (64, 2)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cls", [("bayeslr", "predictive"), ("bayeslr", "vote"),
+                                      ("stochvol", "vol_quantile"),
+                                      ("jointdpm", "cluster_predictive")])
+def test_serving_batch_transparency_on_card(name, cls, cuda_device):
+    """A request served inside a batch returns exactly what it returns
+    alone on the card (the evaluator's stream, cuBLAS at one (S, mb) shape,
+    no TF32): 40 rows at once equal them in chunks of 8 and one by one, at
+    S = 1024 draws; and they agree with the CPU's evaluation to fp32."""
+    from repro_torch.serving import Snapshot, build_serving_workload
+    from repro_torch.serving.resident import SnapshotEvaluator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = {"bayeslr": dict(n_train=500, d=20), "stochvol": dict(num_series=20, length=4),
+             "jointdpm": dict(n=200)}[name]
+    spec = build_serving_workload(name, smoke=True, num_chains=2, device=cuda_device,
+                                  **small).query_specs[cls]
+    draws, xs = _serving_window(name, np.random.default_rng(0))
+    xs = xs[:40]
+    snap = Snapshot(draws, 1024, 128, 0.0, {}, 0.0)
+    ev = SnapshotEvaluator(64, cuda_device)
+    whole = ev.evaluate(spec, snap, xs)
+    parts = np.concatenate([ev.evaluate(spec, snap, xs[i:i + 8]) for i in range(0, 40, 8)])
+    ones = np.concatenate([ev.evaluate(spec, snap, xs[i:i + 1]) for i in range(40)])
+    np.testing.assert_array_equal(whole, parts)
+    np.testing.assert_array_equal(whole, ones)
+    cpu_spec = build_serving_workload(name, smoke=True, num_chains=2, device="cpu",
+                                      **small).query_specs[cls]
+    cpu = SnapshotEvaluator(64, "cpu").evaluate(cpu_spec, snap, xs)
+    np.testing.assert_allclose(whole, cpu, rtol=1e-4, atol=1e-5)
+
+
+def _card_pool(cuda_device, **kw):
+    from repro_torch.serving import EnsemblePool, FreshnessPolicy, ServingConfig
+
+    cfg = ServingConfig(num_chains=8, refresh_steps=16, window=32, micro_batch=64,
+                        freshness=FreshnessPolicy(min_draws=64), device=cuda_device, **kw)
+    pool = EnsemblePool(cfg)
+    pool.add_workload("bayeslr", n_train=12_000, d=20, batch_size=500)
+    return pool
+
+
+@pytest.mark.cuda
+def test_serving_chunked_refresh_equals_one_shot_on_card(cuda_device):
+    """Refreshes of 16, 8 and 4 steps on the card equal one offline run of
+    28 steps on a CUDA generator seeded alike, bit for bit, through the
+    pair-delta kernel and the round op."""
+    pool = _card_pool(cuda_device, seed=5)
+    resident = pool.resident("bayeslr")
+    ops.reset_launches()
+    for n in (16, 8, 4):
+        resident.refresh(n)
+    assert ops.launches["batched_logit_delta"] > 0 and ops.launches["t_test_round"] > 0
+    ens = pool.workload("bayeslr").ensemble
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    state, samples, _ = ens.run(gen, ens.init(pool.workload("bayeslr").theta0), 28)
+    np.testing.assert_array_equal(resident.snapshot().draws, samples.cpu().numpy())
+    assert torch.equal(resident.state.theta, state.theta)
+    assert torch.equal(resident._gen_state, gen.get_state())
+
+
+@pytest.mark.cuda
+def test_serving_cuda_generator_survives_save_restore(cuda_device, tmp_path):
+    """``pool.save`` holds the CUDA generator's 16-byte state; a fresh
+    pool's ``restore`` and 8 more steps on each equal each other bit for
+    bit. A checkpoint taken on the CPU refuses the CUDA pool."""
+    from repro_torch.serving import EnsemblePool, FreshnessPolicy, ServingConfig
+
+    pool = _card_pool(cuda_device)
+    pool.warm()
+    pool.save(str(tmp_path / "card"))
+    other = _card_pool(cuda_device)
+    assert other.restore(str(tmp_path / "card")) == pool.resident("bayeslr").steps_done
+    a, b = pool.resident("bayeslr"), other.resident("bayeslr")
+    assert a._gen_state.numel() == 16 and torch.equal(a._gen_state, b._gen_state)
+    a.refresh(8)
+    b.refresh(8)
+    assert torch.equal(a.state.theta, b.state.theta)
+    np.testing.assert_array_equal(a.snapshot().draws, b.snapshot().draws)
+    cfg = ServingConfig(num_chains=8, refresh_steps=16, window=32,
+                        freshness=FreshnessPolicy(min_draws=64), device="cpu")
+    cpu_pool = EnsemblePool(cfg)
+    cpu_pool.add_workload("bayeslr", n_train=12_000, d=20, batch_size=500)
+    cpu_pool.resident("bayeslr").refresh(2)
+    cpu_pool.save(str(tmp_path / "cpu"))
+    with pytest.raises(ValueError, match="device type"):
+        _card_pool(cuda_device).restore(str(tmp_path / "cpu"))

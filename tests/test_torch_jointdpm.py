@@ -391,9 +391,10 @@ def test_inference_combinators():
     assert out == [1, 1, 1, 1] and seen == [0, 1, 2, 3]
 
 
-def test_gibbs_dispatch_refuses_cpu_tensors(ref_setup):
+def test_gibbs_dispatch_refuses_cpu_tensors(ref_setup, monkeypatch):
     """``mode="always"`` on CPU tensors raises instead of running the plain
-    sweep, and the serving workload is not there yet."""
+    sweep, and the serving workload, asked for the card where there is none,
+    raises instead of falling back to the CPU."""
     cfg_j, data_j, state_j = ref_setup
     st, data = _port_state(jax.tree.map(lambda a: a[None], state_j)), _port_data(data_j)
     pts = torch.arange(3, dtype=torch.int32)[None]
@@ -401,5 +402,6 @@ def test_gibbs_dispatch_refuses_cpu_tensors(ref_setup):
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.gibbs_z_sweep(data.x, data.y, st.z, st.w, torch.log(st.alpha), st.stats, pts, nrm, u,
                           _port_cfg(cfg_j).niw_prior("cpu"), 1.0, mode="always")
-    with pytest.raises(NotImplementedError):
-        jointdpm.make_serving_workload()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jointdpm.make_serving_workload(smoke=True, n=100)
