@@ -86,11 +86,24 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      of a default class is held to float64 numpy on the same draws, and in
      Q, Q-sv, Q-jdpm and Q-ppl the first and tenth call of each kernel
      wrapper at each call shape is copied as it runs and replayed through
-     the kernel and its plain version at phase A's tolerances.
+     the kernel and its plain version at phase A's tolerances;
+  R  the serving fleet through ``repro_torch.launch.serve.serve_fleet`` at
+     Q's settings, 400 requests a cell: ``--fleet --replicas 2`` (R: a
+     replica's answer bit for bit its writer's), ``--subposterior 4
+     --combine consensus --stream`` (R-sub: 750 rows appended mid-serve
+     reach all four writers, every answer comes from the combined window,
+     which equals ``combine_snapshots`` of the writers' snapshots, and a
+     combined batch is held to float64 numpy), the conjugate harness of
+     the reference's tests on the card at P = 1, 2, 4 (R-truth), then the
+     fleet's background refresh beside 8 requests every 5 ms for 10 of its
+     commits, with replicas in this process (R-bg) and each in a spawned
+     process (R-proc), against its rate alone with the replicas up and
+     after they closed; R's and R-sub's kernel calls are held against
+     plain as Q's are.
 
 Phase A also holds the bounded Fisher–Yates draw (ragged per-chain m_eff,
 m_max = 100 and 400) against its plain version. Launch counts are set to 0
-before each of B-Q and read after it; every
+before each of B-R and read after it; every
 kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels with their launches, errors and times. The full report
@@ -2006,25 +2019,31 @@ def _call_shape(a):
 
 
 @contextlib.contextmanager
-def capture_served_calls():
+def capture_served_calls(every_shape: bool = False):
     """While open, each call of a wrapper in ``SERVED_WRAPPERS`` whose rank
     among that wrapper's calls is in ``Q_HELD_CALLS`` (default
     ``Q_HELD_DEFAULT``) keeps a copy of its
     arguments, taken before it runs (several update their inputs in
     place); a serving workload calls each wrapper at one shape, apart from
-    the mixture's pools of cluster members. Yields the list of ``(wrapper,
-    args, kwargs)``; the calls themselves run as they would, each paying a
+    the mixture's pools of cluster members and a pool grown by an append.
+    With ``every_shape``, the first call at each shape a wrapper is given is
+    kept too (a grown pool's). Yields the list of ``(wrapper, args,
+    kwargs)``; the calls themselves run as they would, each paying a
     counter's increment."""
     from repro_torch.kernels import ops
 
     seen, calls, lock = dict.fromkeys(SERVED_WRAPPERS, 0), [], threading.Lock()
+    shapes = {name: set() for name in SERVED_WRAPPERS}
     originals = {name: getattr(ops, name) for name in SERVED_WRAPPERS}
 
     def wrap(name, fn):
         def call(*args, **kwargs):
             with lock:
                 seen[name] = rank = seen[name] + 1
-            if rank in Q_HELD_CALLS.get(name, Q_HELD_DEFAULT):
+                shape = _call_shape(args) if every_shape else None
+                new_shape = every_shape and shape not in shapes[name]
+                shapes[name].add(shape)
+            if rank in Q_HELD_CALLS.get(name, Q_HELD_DEFAULT) or new_shape:
                 calls.append((name, _copy_tree(args), _copy_tree(kwargs)))
             return fn(*args, **kwargs)
         return call
@@ -2109,7 +2128,7 @@ def hold_served_calls(report, phase, calls) -> set:
         held.add(kern)
     print(f"  phase {phase}: {len(calls)} served calls held against their plain versions "
           f"({sorted(held)})")
-    check(set(Q_NEEDS[phase]) <= held,
+    check(set({**Q_NEEDS, **R_NEEDS}[phase]) <= held,
           f"phase {phase}: every kernel it launches was held at its served shapes")
     return held
 
@@ -2332,6 +2351,386 @@ def phase_q(report):
         secs[phase] = time.perf_counter() - t0
     report["q_seconds"] = secs
     print("  seconds taken by phase Q: " + "; ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"; total {sum(secs.values()):.1f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase R: the serving fleet (repro_torch.fleet, repro_torch.partition)
+# ---------------------------------------------------------------------------
+
+R_QUERIES = 400  # as Q: the front end's non-smoke default
+# the paced window of R-bg and R-proc ends at 10 commits of the writer (9
+# refresh intervals), or at 20 s; the refresh alone is timed over 5
+# refreshes before the window, after it, and after the replicas closed
+R_BG_COMMITS, R_BG_MAX_S, R_ALONE_REFRESHES = 10, 20.0, 5
+# the conjugate harness of the reference's tests (tests/conftest.py:79):
+# n, D, K, burn, kept, and the partition counts
+R_TRUTH_N, R_TRUTH_D, R_TRUTH_K, R_TRUTH_BURN, R_TRUTH_KEEP = 768, 2, 4, 250, 350
+R_TRUTH_P = (1, 2, 4)
+# the kernels each R cell must launch
+R_NEEDS = {"R": ("batched_logit_delta", "t_test_round"),
+           "R-sub": ("batched_logit_delta", "t_test_round"),
+           "R-truth": ("t_test_round",),
+           "R-bg": ("batched_logit_delta", "t_test_round"),
+           "R-proc": ("batched_logit_delta", "t_test_round")}
+
+
+def fleet_phase(report, phase, *extra, every_shape=False):
+    """``serve_fleet`` in-process as one counted phase (BayesLR at the front
+    end's non-smoke defaults, 400 requests); its parity check (a replica's
+    answer against its writer's, bit for bit) fails the phase. Its kernel
+    calls are captured (``every_shape``: also the first at each shape) and
+    held against plain after it."""
+    from repro_torch.launch import serve
+
+    out = {}
+    with capture_served_calls(every_shape) as calls:
+        rc = counted(report, phase, lambda: serve.serve_fleet(
+            serve_args("bayeslr", "--queries", str(R_QUERIES), *extra), out))
+    check(rc == 0 and "report" in out,
+          f"phase {phase}: serve_fleet returned 0 ({rc}): replica == writer bit for bit")
+    rep = out["report"]
+    classes = {cls: {k: e.get(k) for k in ("count", "p50_ms", "p95_ms", "p99_ms",
+                                           "deadline_hit_rate", "admitted", "shed",
+                                           "staleness_mean_s")}
+               for cls, e in rep["classes"].items()}
+    r = {k: out[k] for k in ("warm_s", "served", "wall_s", "req_per_s", "parity_max_abs",
+                             "delta_ratio", "steps_during_serve")}
+    r.update(classes=classes, errors=rep["errors"], shed=rep["shed"], sync=out["sync"])
+    report["phases"][phase].update(r)
+    print(f"  phase {phase}: warm {r['warm_s']:.3f}s, {r['served']} requests at "
+          f"{r['req_per_s']:.1f}/s, shed {r['shed']}, {out['sync']['syncs']} syncs at "
+          f"delta/full {r['delta_ratio']:.4f}; per class "
+          + "; ".join(f"{c} p50/p95/p99 {e['p50_ms']:.3f}/{e['p95_ms']:.3f}/{e['p99_ms']:.3f} ms "
+                      f"deadline_hit {e['deadline_hit_rate']}" for c, e in classes.items()))
+    check(r["errors"] == 0 and r["shed"] == 0 and r["served"] == R_QUERIES,
+          f"phase {phase}: all {R_QUERIES} requests answered, none failed or shed")
+    out["held"] = [_call_shape(args) for _, args, _ in calls]
+    hold_served_calls(report, phase, calls)
+    return out
+
+
+def phase_r_sub(report):
+    """R-sub: ``--subposterior 4 --combine consensus --stream``. Every
+    request is answered from the router's combined window, the stream's
+    rows reach every writer, and the combined window equals
+    ``combine_snapshots`` of the four writers' snapshots; one served
+    combined batch is held to float64 numpy on the same combined draws."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.partition import combine_snapshots
+
+    out = fleet_phase(report, "R-sub", "--subposterior", "4", "--combine", "consensus",
+                      "--stream", every_shape=True)
+    fleet, router, st = out["fleet"], out["router"], out["stream"]
+    shards = fleet.shards("bayeslr")
+    combined = router.combined_served("bayeslr")
+    check(combined["rows"] == R_QUERIES * 8,
+          f"phase R-sub: every request answered from the combined window ({combined['rows']} "
+          f"rows in {combined['batches']} combined batches, {R_QUERIES * 8} expected)")
+    grown = [h for h in out["held"] if any(f"{n}x20" in h or f",{n}," in h
+                                           for n in st["sections_after"])]
+    check(len(grown) >= 2,
+          f"phase R-sub: kernel calls on the grown pools were held against plain ({grown})")
+    check(st["appended"] == 750 and st["stale_after_append"] == st["writers"] == 4
+          and all(b < a for b, a in zip(st["steps_before_pump"], st["steps_after_pump"]))
+          and sum(st["sections_after"]) - sum(st["sections_before"]) == 750,
+          f"phase R-sub: STREAM_OK, 750 rows into {st['writers']} writers "
+          f"({st['sections_before']} -> {st['sections_after']} sections), each marked stale "
+          "by the append and refreshed")
+    snaps = [s.writer.snapshot() for s in shards]
+    served = router.combined_snapshot("bayeslr")
+    t0 = time.perf_counter()
+    again = combine_snapshots(snaps, "consensus")
+    combine_ms = 1e3 * (time.perf_counter() - t0)
+    check(served.steps_done == again.steps_done
+          and np.array_equal(served.draws, again.draws) and served.draws.dtype == np.float32,
+          "phase R-sub: the router's combined window equals combine_snapshots of the four "
+          f"writers' snapshots (version {served.steps_done}, float32 draws; recomputed in "
+          f"{combine_ms:.2f} ms on the host)")
+    wl = fleet.workload("bayeslr")
+    spec = wl.query_specs["predictive"]
+    xs = spec.make_queries(torch.Generator().manual_seed(11), 16)
+    req = router.submit("bayeslr", "predictive", xs)
+    router.drain()
+    ref = serve._offline_reference(wl, spec, served, xs)
+    err = float(np.max(np.abs(req.values - ref)))
+    report["phases"]["R-sub"].update(
+        stream=st, combined_rows=combined["rows"], combined_batches=combined["batches"],
+        combined_version=served.steps_done, combined_parity_max_abs=err, combine_ms=combine_ms,
+        partition_sections=[s.writer.ensemble.target.num_sections for s in shards])
+    check(req.error is None and np.allclose(req.values, ref, **serve.PARITY_TOL),
+          f"phase R-sub: a served combined batch equals float64 numpy on the same combined "
+          f"draws (max|delta| {err:.2e}; rtol 1e-4, atol 1e-5)")
+
+
+def phase_r_truth(report):
+    """R-truth: the reference's conjugate ground-truth harness on the card
+    (prior N(0, I), x_i ~ N(theta, I), n = 768, D = 2, K = 4, 250 burn and
+    350 kept a partition), P = 1, 2, 4, both rules, at the reference's bars:
+    the combined mean within 0.5 posterior std of ``n xbar / (n+1)``, the
+    variance ratio in [0.45, 2.2]."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import ChainEnsemble, RandomWalk, SubsampledMHConfig, build_target
+    from repro_torch.partition import combine_draws, partition_target
+
+    n, d = R_TRUTH_N, R_TRUTH_D
+    rng = np.random.default_rng(3)
+    x = (np.array([0.6, -0.3]) + rng.normal(size=(n, d))).astype(np.float32)
+    target = build_target("gaussian_mean", torch.from_numpy(x).cuda(), n,
+                          prior_logpdf=lambda th: -0.5 * (th ** 2).sum(-1))
+    post_mean = n * x.astype(np.float64).mean(0) / (n + 1.0)
+    post_var = 1.0 / (n + 1.0)
+
+    def run():
+        out = {}
+        for num_p in R_TRUTH_P:
+            t0, draws = time.perf_counter(), []
+            for p, t in enumerate(partition_target(target, num_p)):
+                cfg = SubsampledMHConfig(batch_size=min(128, t.num_sections), epsilon=0.005,
+                                         sampler="stream")
+                ens = ChainEnsemble(t, RandomWalk(1.7 * math.sqrt(num_p / (n + 1.0))),
+                                    R_TRUTH_K, config=cfg)
+                gen = torch.Generator(device="cuda").manual_seed(4 + 97 * num_p + p)
+                state, _, _ = ens.run(gen, ens.init(torch.zeros(d)), R_TRUTH_BURN)
+                _, samples, _ = ens.run(gen, state, R_TRUTH_KEEP)
+                draws.append(samples.cpu().numpy())
+            out[num_p] = (draws, time.perf_counter() - t0)
+        return out
+
+    runs = counted(report, "R-truth", run)
+    cells = {}
+    for num_p, (draws, secs) in runs.items():
+        for method in ("consensus", "product"):
+            comb = np.asarray(combine_draws(draws, method, seed=17), np.float64).reshape(-1, d)
+            err = float(np.max(np.abs(comb.mean(0) - post_mean)) / math.sqrt(post_var))
+            ratio = comb.var(axis=0, ddof=1) / post_var
+            cells[f"P={num_p} {method}"] = {"mean_err_post_std": err,
+                                            "var_ratio": ratio.tolist(), "chains_s": secs}
+            check(err < 0.5 and bool(np.all((ratio > 0.45) & (ratio < 2.2))),
+                  f"phase R-truth: P={num_p} {method}: combined mean {err:.3f} posterior std "
+                  f"off (< 0.5), variance ratio {np.round(ratio, 3).tolist()} in [0.45, 2.2]")
+    report["phases"]["R-truth"]["cells"] = cells
+
+
+def fleet_paced(fleet, router, done, tick_s=Q_BG_TICK_S) -> dict:
+    """Beside the fleet's background refresh and the router's lane workers
+    (both started here, stopped at the end), submit 8 BayesLR requests every
+    ``tick_s`` and wait for them, until ``done(commits, elapsed_s)``: the
+    commits of the first writer seen ((time, steps_done, round-op launches
+    so far) at each), the
+    requests, the wall seconds, and the CPU share of the window taken by the
+    refresh thread, the lane threads (summed) and the submitting thread
+    (thread CPU clocks, read over the whole window)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    wl = fleet.workload("bayeslr")
+    writer = fleet.shards("bayeslr")[0].writer
+    gen = torch.Generator().manual_seed(7)
+    classes = sorted(wl.query_specs)
+    commits, reqs = [], []
+    fleet.start()
+    router.start_workers()
+    # the fleet names its refresh threads fleet-<shard>, the router its lane
+    # workers route-<replica>
+    clocks = {k: [time.pthread_getcpuclockid(t.ident) for t in threading.enumerate()
+                  if t.name.startswith(prefix)]
+              for k, prefix in (("refresh", "fleet-"), ("lanes", "route-"))}
+    cpu0 = {k: [time.clock_gettime(c) for c in v] for k, v in clocks.items()}
+    main0 = time.thread_time()
+    steps0, t0, i = writer.steps_done, time.perf_counter(), 0
+    while not done(commits, time.perf_counter() - t0):
+        tick = []
+        for _ in range(8):
+            cls = classes[i % len(classes)]
+            tick.append(router.submit("bayeslr", cls, wl.query_specs[cls].make_queries(gen, 8)))
+            i += 1
+        for req in tick:
+            req.done.wait(timeout=30.0)
+        reqs.extend(tick)
+        steps = writer.steps_done
+        if steps != (commits[-1][1] if commits else steps0):
+            commits.append((time.perf_counter(), steps, ops.launches["t_test_round"]))
+        time.sleep(max(0.0, t0 + (i // 8) * tick_s - time.perf_counter()))
+    wall = time.perf_counter() - t0
+    cpu = {k: sum(time.clock_gettime(c) - c0 for c, c0 in zip(v, cpu0[k]))
+           for k, v in clocks.items()}
+    cpu["submitting"] = time.thread_time() - main0
+    router.stop_workers()
+    fleet.stop()
+    return {"commits": commits, "steps0": steps0, "requests": reqs, "wall": wall,
+            "cpu_share": {k: v / wall for k, v in cpu.items()}}
+
+
+def writer_alone(writer, k, n) -> tuple[list[float], list[float]]:
+    """Transitions/s summed over ``k`` chains, and sequential-test rounds/s
+    (round-op launches), of each of ``R_ALONE_REFRESHES`` refreshes of
+    ``n`` steps in a row."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    rates, rounds = [], []
+    for _ in range(R_ALONE_REFRESHES):
+        r0, t0 = ops.launches["t_test_round"], time.perf_counter()
+        writer.refresh()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rates.append(k * n / secs)
+        rounds.append((ops.launches["t_test_round"] - r0) / secs)
+    return rates, rounds
+
+
+def spread(rates) -> dict:
+    return {"median": statistics.median(rates), "min": min(rates), "max": max(rates),
+            "n": len(rates)}
+
+
+def phase_r_bg(report, phase, transport):
+    """R-bg / R-proc: the front end's fleet (``--background
+    --replica-transport inproc|proc``, built by its own ``_build_fleet``,
+    ``_build_router`` and ``_compile_lanes``). The first writer's refresh
+    alone (replicas up and idle), then the fleet's background refresh
+    beside the router's lane workers under 8 requests every
+    ``Q_BG_TICK_S``, until ``R_BG_COMMITS`` commits (or ``R_BG_MAX_S``),
+    then the refresh alone again with the replicas up and once more after
+    every replica closed (for ``proc``, its process exited and its CUDA
+    context went). Requests/s, p99 a class,
+    the writer's transitions/s beside queries over the window and over each
+    interval between two commits, against its rate alone; for ``proc``,
+    each replica process's start seconds and device memory."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    args = serve_args("bayeslr", "--queries", str(R_QUERIES), "--background",
+                      "--replica-transport", transport)
+
+    def run():
+        free0 = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        fleet, wl, _ = serve._build_fleet(args)
+        build_s = time.perf_counter() - t0
+        free1 = torch.cuda.mem_get_info()[0]
+        try:
+            fleet.warm()
+            router = serve._build_router(args, fleet, wl)
+            serve._compile_lanes(args, fleet, wl, router)
+            shard = fleet.shards("bayeslr")[0]
+            k, n = fleet.config.serving.num_chains, fleet.config.serving.refresh_steps
+            alone_up, rounds_up = writer_alone(shard.writer, k, n)
+            paced = fleet_paced(fleet, router,
+                                lambda c, e: len(c) >= R_BG_COMMITS or e >= R_BG_MAX_S)
+            fleet.sync_all()
+            alone_after, rounds_after = writer_alone(shard.writer, k, n)
+            replicas = [r.stats() for r in shard.replicas]
+            for r in shard.replicas:
+                r.close()
+            free2 = torch.cuda.mem_get_info()[0]
+            alone_closed, rounds_closed = writer_alone(shard.writer, k, n)
+            return (alone_up, rounds_up, alone_after, rounds_after, alone_closed, rounds_closed,
+                    paced, router.slo_report(), replicas, build_s, free0 - free1,
+                    free2 - free1, k)
+        finally:
+            fleet.close()
+
+    (alone_up, rounds_up, alone_after, rounds_after, alone_closed, rounds_closed, paced, rep,
+     replicas, build_s, mem_drop, mem_back, k) = counted(report, phase, run)
+    commits, wall = paced["commits"], paced["wall"]
+    (ta, sa, ra), (tb, sb, rb) = commits[0], commits[-1]
+    beside, rounds_beside = k * (sb - sa) / (tb - ta), (rb - ra) / (tb - ta)
+    intervals = [k * (s1 - s0) / (t1 - t0)
+                 for (t0, s0, _), (t1, s1, _) in zip(commits, commits[1:])]
+    alone, alone_rounds = statistics.median(alone_up), statistics.median(rounds_up)
+    reqs = paced["requests"]
+    bad = [r for r in reqs if r.error is not None or not r.done.is_set()]
+    r = {"transitions_per_s_refresh_alone": alone,
+         "alone_replicas_up": spread(alone_up), "alone_after_window": spread(alone_after),
+         "alone_replicas_closed": spread(alone_closed),
+         "transitions_per_s_beside_queries": beside, "beside_intervals": spread(intervals),
+         "beside_over_alone": beside / alone,
+         "beside_over_alone_closed": beside / statistics.median(alone_closed),
+         "rounds_per_s_alone_replicas_up": spread(rounds_up),
+         "rounds_per_s_alone_after_window": spread(rounds_after),
+         "rounds_per_s_alone_replicas_closed": spread(rounds_closed),
+         "rounds_per_s_beside_queries": rounds_beside,
+         "rounds_beside_over_alone": rounds_beside / alone_rounds,
+         "commits_beside_queries": len(commits),
+         "requests": len(reqs), "req_per_s": len(reqs) / wall, "wall_s": wall,
+         "fleet_build_s": build_s, "device_bytes_taken_by_build": mem_drop,
+         "device_bytes_freed_by_closing_replicas": mem_back,
+         "cpu_share": paced["cpu_share"],
+         "classes": {c: {q: e.get(q) for q in ("p50_ms", "p95_ms", "p99_ms",
+                                              "deadline_hit_rate")}
+                     for c, e in rep["classes"].items()},
+         "replicas": [{q: st.get(q) for q in ("name", "start_s", "device_bytes_allocated",
+                                              "device_bytes_reserved", "deltas_applied",
+                                              "bytes_received")} for st in replicas]}
+    report["phases"][phase].update(r)
+    sp = lambda d: f"{d['median']:.1f} [{d['min']:.1f}, {d['max']:.1f}]"  # noqa: E731
+    print(f"  phase {phase}: refresh alone, median [min, max] of {R_ALONE_REFRESHES} refreshes: "
+          f"{sp(r['alone_replicas_up'])} transitions/s with the replicas up, "
+          f"{sp(r['alone_after_window'])} after the window, "
+          f"{sp(r['alone_replicas_closed'])} after they closed; beside {len(reqs)} requests in "
+          f"{wall:.2f}s ({r['req_per_s']:.1f}/s) {beside:.1f} over {len(commits)} commits "
+          f"({beside / alone:.3f}x), each interval {sp(r['beside_intervals'])}; round ops/s alone "
+          f"{sp(r['rounds_per_s_alone_replicas_up'])} up, "
+          f"{sp(r['rounds_per_s_alone_after_window'])} after, "
+          f"{sp(r['rounds_per_s_alone_replicas_closed'])} closed, beside {rounds_beside:.1f} "
+          f"({rounds_beside / alone_rounds:.3f}x); per class "
+          + "; ".join(f"{c} p50/p99 {e['p50_ms']:.3f}/{e['p99_ms']:.3f} ms"
+                      for c, e in r["classes"].items())
+          + "; CPU share " + ", ".join(f"{k} {v:.3f}" for k, v in r["cpu_share"].items())
+          + f"; fleet built in {build_s:.2f}s, device memory taken {mem_drop / 2 ** 20:.0f} MiB, "
+          f"given back by closing the replicas {mem_back / 2 ** 20:.0f} MiB; "
+          f"replicas {r['replicas']}")
+    check(not bad and len(commits) >= 2,
+          f"phase {phase}: {len(reqs)} requests answered beside {len(commits)} commits of the "
+          "background refresh, none failed")
+    if transport == "proc":
+        check(all((st.get("start_s") or 0) > 0 and (st.get("device_bytes_allocated") or 0) > 0
+                  for st in replicas),
+              f"phase {phase}: each replica process started and holds its data on the card")
+
+
+def phase_r(report):
+    """The serving fleet through the front end: R (``--fleet --replicas
+    2``), R-sub (``--subposterior 4 --combine consensus --stream``), R-truth
+    (the conjugate harness on the card), R-bg and R-proc (the background
+    refresh beside queries with replicas in this process, then each in its
+    own)."""
+    print(f"phase R: the serving fleet (repro_torch.launch.serve.serve_fleet), bayeslr at "
+          f"N=12000 D=20 batch 500, K=8 refresh 64 window 128 min_draws 512, {R_QUERIES} "
+          "requests of 8 rows, max_batch 16, deadline 250 ms")
+    secs = {}
+    t0 = time.perf_counter()
+    fleet_phase(report, "R", "--fleet", "--replicas", "2")
+    secs["R"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_r_sub(report)
+    secs["R-sub"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_r_truth(report)
+    secs["R-truth"] = time.perf_counter() - t0
+    for phase, transport in (("R-bg", "inproc"), ("R-proc", "proc")):
+        t0 = time.perf_counter()
+        phase_r_bg(report, phase, transport)
+        secs[phase] = time.perf_counter() - t0
+    bg, proc = report["phases"]["R-bg"], report["phases"]["R-proc"]
+    report["phases"]["R-proc"]["proc_over_inproc_beside"] = ratio = (
+        proc["transitions_per_s_beside_queries"] / bg["transitions_per_s_beside_queries"])
+    over = lambda key: proc[key] / bg[key]  # noqa: E731
+    print(f"  R-proc over R-bg: the refresh beside queries {ratio:.3f}x; alone with the "
+          f"replicas up {over('transitions_per_s_refresh_alone'):.3f}x; round ops/s beside "
+          f"{over('rounds_per_s_beside_queries'):.3f}x")
+    report["r_seconds"] = secs
+    print("  seconds taken by phase R: " + "; ".join(f"{k} {v:.2f}" for k, v in secs.items())
           + f"; total {sum(secs.values()):.1f}")
 
 
@@ -3154,7 +3553,8 @@ def main() -> int:
     report = {"card": card, "kind": kind, "phases": {p: {} for p in
                                                       [*"BCDEFGHIJKLMN", "B'", "P", "P1",
                                                        "P-AR1", "S", "S-compiled", "Q", "Q-bg",
-                                                       "Q-sv", "Q-jdpm", "Q-ppl", "Q-resume"]},
+                                                       "Q-sv", "Q-jdpm", "Q-ppl", "Q-resume", "R", "R-sub",
+                                                       "R-truth", "R-bg", "R-proc"]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -3209,6 +3609,8 @@ def main() -> int:
     del compiled
     torch.cuda.empty_cache()
     phase_q(report)
+    torch.cuda.empty_cache()
+    phase_r(report)
     for name, e in report["kernels"].items():
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
     sv = ("gaussian_ar1_delta", "fy_draw", "pgibbs_sweep", "t_test_round")
@@ -3230,7 +3632,7 @@ def main() -> int:
                         ("P-AR1", ("gaussian_ar1_delta", "fy_draw", "t_test_round")),
                         ("S", ("logit_delta", "fy_draw", "t_test_round")),
                         ("S-compiled", ("fy_draw", "t_test_round")),
-                        *Q_NEEDS.items()):
+                        *Q_NEEDS.items(), *R_NEEDS.items()):
         got = report["phases"][phase]["launches"]
         check(all(got.get(n, 0) > 0 for n in need), f"phase {phase} went through {need}")
     for phase in ("P1", "S-compiled"):  # one chain of a compiled program: the graph route

@@ -3,8 +3,9 @@
 Covered so far: samplers (with the bounded draws), Welford and the
 Student-t test, the sequential test, the subsampled and exact MH
 transitions, the proposals (random walk, MALA, independence), the
-single-chain drivers, the ``logit``, ``gaussian_ar1`` and ``ce`` target
-families, composite cycles, the adaptive scheduler, the ensemble in
+single-chain drivers, the ``logit``, ``gaussian_ar1``, ``ce`` and
+``gaussian_mean`` target families with their ``TargetSpec`` recipes and
+streaming append, composite cycles, the adaptive scheduler, the ensemble in
 lock-step (single kernels and cycles) and masked stepping, and the Sec. 3.3
 safeguard's trial-run report.
 """
@@ -68,12 +69,22 @@ from .subsampled_mh import (
     subsampled_mh_step,
 )
 from .target import PartitionedTarget, from_iid_loglik
-from .target_builder import KernelFamily, build_target, get_family, register_family, registered_families
+from .target_builder import (
+    KernelFamily,
+    TargetSpec,
+    append_observations,
+    build_from_spec,
+    build_target,
+    get_family,
+    register_family,
+    registered_families,
+    spec_of,
+)
 
 __all__ = [
     "ChainEnsemble", "ControllerState", "CycleOp", "EnsembleState", "SubsampledMHOp",
     "SweepOp", "cycle", "init_cycle_samplers", "run_cycle_sequential", "FisherYatesState",
-    "IndependentGaussian", "KernelFamily", "MALA", "MHInfo", "PartitionedTarget",
+    "IndependentGaussian", "KernelFamily", "TargetSpec", "append_observations", "build_from_spec", "MALA", "MHInfo", "PartitionedTarget",
     "RandomWalk", "ScheduleConfig", "SeqTestResult", "StreamSliceState",
     "SubsampledMHConfig", "SubsampledMHInfo", "TrialReport", "Welford", "acceptance_rate",
     "adaptive_max_rounds", "autocorrelation", "build_target", "controller_init",
@@ -82,7 +93,7 @@ __all__ = [
     "fy_draw", "fy_draw_bounded", "fy_from_buffer", "fy_init", "fy_reset", "get_family",
     "jarque_bera", "make_bounded_draw",
     "make_kernel", "make_sampler", "mh_step", "multichain_ess", "propose_and_mu0",
-    "register_family", "registered_families", "run_chain", "run_chain_timed", "run_ensemble",
+    "register_family", "registered_families", "spec_of", "run_chain", "run_chain_timed", "run_ensemble",
     "sequential_test", "slo_summary", "split_rhat", "stream_draw", "stream_draw_bounded",
     "stream_init", "stream_reset", "student_t_sf", "subsampled_mh_step", "tail_latency_summary",
     "test_round_decision", "trial_run_report", "two_sided_t_pvalue",

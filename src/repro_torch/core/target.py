@@ -55,6 +55,10 @@ class PartitionedTarget:
     # sets it from its family's ``takes_range`` when it builds ``log_local``
     # itself; a target built by hand keeps False.
     range_sections: bool = False
+    # The recipe ``build_target`` can rebuild this target from (a data slice
+    # for a subposterior, appended observations), or None for a hand-wired
+    # target, callable section data or an explicit ``log_global``.
+    spec: Any = None
 
     def local_round(self, theta, theta_p, *, ensemble: bool = False, mode: str = "auto"):
         """``idx -> deltas`` for one transition's pair: (m,) for one chain,

@@ -13,19 +13,26 @@ local-likelihood family and the builder attaches
 Registered families: ``logit`` (BayesLR: data = (x (N, D), y (N,)), params
 = w), ``gaussian_ar1`` (stochastic volatility: data = (xt, xp), the
 current and previous latent state of each transition factor, as shared (N,)
-or per-chain (K, N) pools; params = (phi, sigma^2)) and ``ce`` (an LM's
+or per-chain (K, N) pools; params = (phi, sigma^2)), ``ce`` (an LM's
 likelihood over its unembedding: data = (h (N, D), targets (N,)), the
 frozen final hidden states and next tokens; params = the table (V, D), or
-(K, V, D) for K chains; each delta is two passes of the fused CE kernel).
+(K, V, D) for K chains; each delta is two passes of the fused CE kernel)
+and ``gaussian_mean`` (the conjugate model of the subposterior harness:
+data = x (N, D), params = theta (D,); plain torch, as the reference's is
+``jnp`` that XLA fuses with no Pallas kernel).
 ``data`` may be a callable ``theta -> pools`` (latent-dependent sections, as in the stochvol
 ensemble, where the pools derive from ``theta["h"]``); the transitions then
 evaluate it once per transition through ``bind``. Unlike the reference,
 whose single-chain deltas call the plain versions directly, both rounds
-dispatch, so no plain version runs on the card. The ``gaussian_mean``
-family, per-chain logit pools and the ``TargetSpec`` recipes
-(partitioning, streaming append) come with their slices and raise
-``NotImplementedError`` here. The reference's mesh constraints (``lc``)
-have no counterpart on one device.
+dispatch, so no plain version runs on the card.
+
+A target built from concrete section tensors and a ``prior_logpdf``
+carries its recipe, a :class:`TargetSpec`: :mod:`repro_torch.partition`
+rebuilds it on a data slice under a tempered prior, and
+:func:`append_observations` on a grown pool (streaming append). Per-chain
+(K, N, D) logit pools raise ``NotImplementedError``: no path of the
+reference reaches them. The reference's mesh constraints (``lc``) have no
+counterpart on one device.
 """
 from __future__ import annotations
 
@@ -34,10 +41,89 @@ from typing import Any, Callable
 
 import torch
 
+from .._device import tree_leaves, tree_map
 from ..kernels import ops, ref
 from .target import PartitionedTarget
 
 Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class TargetSpec:
+    """The recipe behind a builder-constructed target: everything
+    :func:`build_target` needs to build it again. ``data`` is the section
+    pool (tensors, sections along axis 0), ``prior_logpdf`` the untempered
+    prior and ``prior_scale`` its exponent: ``p(theta)^(1/P)`` for one of P
+    subposteriors, so that the product of the P is the full posterior
+    (Scott et al., consensus Monte Carlo).
+    """
+
+    family: str
+    data: Any
+    num_sections: int
+    prior_logpdf: Callable[[Params], torch.Tensor]
+    params_fn: Callable[[Params], Any] | None = None
+    prior_scale: float = 1.0
+
+
+def spec_of(target: PartitionedTarget) -> TargetSpec:
+    """The target's recipe, or a ``ValueError`` for a target that has none."""
+    if target.spec is None:
+        raise ValueError(
+            "target carries no TargetSpec (hand-wired log_global/log_local, callable data, or "
+            "family=None): partitioning and streaming append need a build_target(...) "
+            "construction with concrete data tensors and prior_logpdf")
+    return target.spec
+
+
+def build_from_spec(spec: TargetSpec) -> PartitionedTarget:
+    """Run the builder again on a (sliced, appended or tempered) recipe."""
+    return build_target(spec.family, spec.data, spec.num_sections,
+                        prior_logpdf=spec.prior_logpdf, params_fn=spec.params_fn,
+                        prior_scale=spec.prior_scale)
+
+
+def _section_count(data: Any) -> int:
+    leaves = tree_leaves(data)
+    if not leaves:
+        return 0
+    counts = {int(leaf.shape[0]) for leaf in leaves}
+    if len(counts) != 1:
+        raise ValueError(f"data leaves disagree on the section axis: {sorted(counts)}")
+    return counts.pop()
+
+
+def _structure(tree: Any):
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in sorted(tree.items())}
+    if isinstance(tree, (tuple, list)):
+        return (type(tree).__name__, [_structure(v) for v in tree])
+    return "*"
+
+
+def append_observations(target: PartitionedTarget, new_data: Any) -> PartitionedTarget:
+    """A new target whose section pool is ``cat([old, new])`` along axis 0,
+    on the pool's device and in its dtype, rebuilt by the same builder
+    path: the same as building on the concatenated pool from scratch. An
+    empty append (no new sections) returns ``target`` itself."""
+    spec = spec_of(target)
+    n_new = _section_count(new_data)
+    if n_new == 0:
+        return target
+    old, new = _structure(spec.data), _structure(new_data)
+    if old != new:
+        raise ValueError(f"appended data structure {new} != target data structure {old}")
+
+    def cat(a, b):
+        b = torch.as_tensor(b).to(device=a.device, dtype=a.dtype)
+        if tuple(a.shape[1:]) != tuple(b.shape[1:]):
+            raise ValueError(f"appended section shape {tuple(b.shape[1:])} != existing "
+                             f"{tuple(a.shape[1:])}")
+        return torch.cat([a, b], dim=0)
+
+    merged = tree_map(cat, spec.data, new_data)
+    return build_from_spec(dataclasses.replace(spec, data=merged,
+                                               num_sections=spec.num_sections + n_new))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,7 +231,35 @@ register_family(KernelFamily("gaussian_ar1", _ar1_loglik, _ar1_delta, _ar1_ensem
                              takes_range=True))
 register_family(KernelFamily("ce", _ce_loglik, _ce_delta, _ce_ensemble_delta))
 
-_LATER = {"gaussian_mean": "the partition slice"}
+
+def _gm_rows(data, idx):
+    """Rows of the shared (N, D) pool: (m, D) for (m,) indices, (K, m, D)
+    for (K, m)."""
+    return data[idx.long()]
+
+
+def _gm_loglik(data, theta, idx):
+    return -0.5 * ((_gm_rows(data, idx) - theta[..., None, :]) ** 2).sum(-1)
+
+
+def _gm_delta(data, theta, theta_p, idx, mode: str = "auto"):
+    xg = _gm_rows(data, idx)
+    return 0.5 * (((xg - theta[..., None, :]) ** 2).sum(-1)
+                  - ((xg - theta_p[..., None, :]) ** 2).sum(-1))
+
+
+def _gm_ensemble_delta(data, theta, theta_p, idx, mode: str = "auto"):
+    xg = _gm_rows(data, idx)  # (K, m, D)
+    return 0.5 * (((xg - theta[:, None, :]) ** 2).sum(-1)
+                  - ((xg - theta_p[:, None, :]) ** 2).sum(-1))
+
+
+# Unit-variance Gaussian mean model: data = x (N, D), params = theta (D,),
+# the factor N(x_i | theta, I) up to its constant. Prior N(0, I) gives the
+# closed-form posterior N(n xbar / (n+1), I / (n+1)) the subposterior
+# harness holds the combined draws to. Plain torch: the reference's is jnp
+# that XLA fuses, with no Pallas kernel (ROADMAP §2).
+register_family(KernelFamily("gaussian_mean", _gm_loglik, _gm_delta, _gm_ensemble_delta))
 
 
 def build_target(
@@ -170,8 +284,12 @@ def build_target(
     (default: identity). The global section comes from ``prior_logpdf``
     (differenced) or an explicit ``log_global``; the prior must accept a
     leading chain axis and return one value per chain. ``prior_scale``
-    tempers the prior to ``prior_scale * log p(theta)``. ``device`` names
-    where a callable's pools live (a pool of tensors carries its own).
+    tempers the prior to ``prior_scale * log p(theta)``; with 1.0 the
+    closures are exactly the untempered ones, which keeps the P = 1 fleet
+    the unpartitioned path. ``device`` names where a callable's pools live
+    (a pool of tensors carries its own). Given tensors for ``data`` and a
+    ``prior_logpdf``, the target carries its :class:`TargetSpec`
+    (``target.spec``).
 
         >>> import torch
         >>> from repro_torch.core import build_target
@@ -188,8 +306,7 @@ def build_target(
     """
     if num_sections is None:
         raise ValueError("num_sections is required")
-    if family in _LATER:
-        raise NotImplementedError(f"the {family!r} family comes with {_LATER[family]}")
+    user_prior = prior_logpdf
     if prior_logpdf is not None and prior_scale != 1.0:
         scale, base_prior = float(prior_scale), prior_logpdf
         prior_logpdf = lambda theta: scale * base_prior(theta)
@@ -208,6 +325,12 @@ def build_target(
         return PartitionedTarget(num_sections, log_global, log_local, log_density)
 
     fam = get_family(family)
+    spec = None
+    if not callable(data) and data is not None and user_prior is not None:
+        # the untempered prior and its exponent, so that tempering composes
+        spec = TargetSpec(family=family, data=data, num_sections=num_sections,
+                          prior_logpdf=user_prior, params_fn=params_fn,
+                          prior_scale=float(prior_scale))
     data_fn = data if callable(data) else (lambda theta: data)
     params_fn = params_fn or (lambda theta: theta)
     user_log_local = log_local
@@ -250,12 +373,5 @@ def build_target(
         device=device,
         bind=bind,
         range_sections=fam.takes_range and user_log_local is None,
+        spec=spec,
     )
-
-
-def spec_of(target: PartitionedTarget):
-    raise NotImplementedError("TargetSpec recipes come with the partition slice")
-
-
-def append_observations(target: PartitionedTarget, new_data: Any):
-    raise NotImplementedError("streaming append comes with the partition slice")

@@ -206,7 +206,9 @@ class EnsemblePool:
             self.ensure_fresh(name)
 
     def append_observations(self, name: str, new_data) -> int:
-        """See :meth:`ResidentEnsemble.append` (the partition slice)."""
+        """Fold newly appended observations into ``name``'s running chains
+        (:meth:`ResidentEnsemble.append`). The resident's window then reads
+        as stale, so the next query refreshes against the grown posterior."""
         return self._residents[name].append(new_data)
 
     # -- queries -----------------------------------------------------------

@@ -386,12 +386,42 @@ class ResidentEnsemble:
     # -- streaming append --------------------------------------------------
 
     def append(self, new_data) -> int:
-        """Folding new observations into the running chains needs
-        ``target_builder.append_observations``, which comes with the
-        partition slice (``repro_torch.partition``)."""
-        raise NotImplementedError(
-            "ResidentEnsemble.append needs append_observations, which comes with the "
-            "partition slice (repro_torch.partition)")
+        """Fold newly appended observations into the running chains; returns
+        the number of sections added.
+
+        The ensemble's target is rebuilt on ``cat([old, new])`` from its
+        :class:`~repro_torch.core.target_builder.TargetSpec` (the same as a
+        build on the concatenated pool), while theta, ``steps_done`` and the
+        resident's generator carry over: the next :meth:`refresh` continues
+        the same stream against the grown posterior, with no restart and no
+        burn-in from ``theta0``. Sampler and controller state are shaped by
+        ``num_sections``, so both are initialised again for the grown pool
+        (no buffer of the old N is kept). The window stays but reads as
+        infinitely stale (``_last_refresh = None``): the freshness policy
+        then refuses it until a refresh folds the new data in.
+
+        An empty append is a bit-for-bit no-op: the same target object,
+        state, window and staleness clock.
+        """
+        from ..core.target_builder import append_observations
+
+        with self._refresh_lock:
+            if self.ensemble.target is None:
+                raise ValueError(f"resident {self.name!r} runs a composite transition with no "
+                                 "single appendable target")
+            new_target = append_observations(self.ensemble.target, new_data)
+            if new_target is self.ensemble.target:
+                return 0
+            added = new_target.num_sections - self.ensemble.target.num_sections
+            new_ensemble = dataclasses.replace(self.ensemble, target=new_target)
+            with self._lock:
+                theta = self._state.theta
+            fresh = new_ensemble.init(theta, batched=True)
+            with self._lock:
+                self.ensemble = new_ensemble
+                self._state = fresh
+                self._last_refresh = None  # the pre-append window is not fresh
+        return int(added)
 
     # -- snapshots ---------------------------------------------------------
 

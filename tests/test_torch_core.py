@@ -385,9 +385,10 @@ def test_fused_and_plain_routes_agree_on_cpu(lr):
 
 
 def test_deferred_paths_raise(lr):
-    """The mesh paths wait for the distributed slice; masked stepping and
-    schedules are ported (tests/test_torch_schedule.py), and a schedule
-    that is not a ScheduleConfig is refused."""
+    """The mesh paths wait for the distributed slice, and per-chain logit
+    pools are not ported; masked stepping and schedules are ported
+    (tests/test_torch_schedule.py), and a schedule that is not a
+    ScheduleConfig is refused."""
     for kw in (dict(shard=True), dict(shard=("chains", "data"))):
         with pytest.raises(NotImplementedError):
             ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", **kw)
@@ -396,8 +397,12 @@ def test_deferred_paths_raise(lr):
     # composite cycles are ported; a cycle beside (target, proposal) is refused
     with pytest.raises((TypeError, ValueError)):
         ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", transition=object())
+    # per-chain (K, N, D) logit pools wait: no path of the reference reaches them
+    per_chain = build_target("logit", (torch.zeros(2, 10, 3), torch.ones(2, 10)), 10,
+                             prior_logpdf=lambda t: t.sum(-1))
     with pytest.raises(NotImplementedError):
-        build_target("gaussian_mean", None, 10, prior_logpdf=lambda t: t)
+        per_chain.log_local_ensemble(torch.zeros(2, 3), torch.ones(2, 3),
+                                     torch.zeros(2, 4, dtype=torch.int32))
 
 
 
