@@ -100,15 +100,29 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      process (R-proc), against its rate alone with the replicas up and
      after they closed; R's and R-sub's kernel calls are held against
      plain as Q's are.
+  O  observability and the closed loop at Q's settings: ``serve_posterior``
+     with ``--stats-addr --obs-dir --alerts --trace-dir`` (O: STATS_OK,
+     ALERTS_OK, TRACE_OK and SERVE_OK with Q's parity, the streams and
+     summary on disk, the fraction of data touched equal to the snapshot's
+     sections over N, the run rendered by ``repro_torch.obs.dash``), beside
+     the same serve with no obs flag (plain, obs, obs, plain), and the
+     refresh with no stats server, with one idle and with one polled;
+     ``--fleet --soak --autoscale --alerts`` for 30 s (O-soak: a replica
+     killed and restarted mid-load, an overload burst scaled up, a quiesce
+     scaled down, every replica bit for bit its writer; each join timed);
+     ``--fleet --soak --replica-transport proc --soak-seconds 8`` (O-kill-proc:
+     a SIGKILL, the restart's seconds and the card's memory around it).
+     O's and O-soak's kernel calls are held against plain as R's are.
 
 Phase A also holds the bounded Fisher–Yates draw (ragged per-chain m_eff,
 m_max = 100 and 400) against its plain version. Launch counts are set to 0
-before each of B-R and read after it; every
+before each of B-O and read after it; every
 kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels with their launches, errors and times. The full report
 goes to ``chiprun_out/chip_smoke.json``. ``--profile`` instead runs short
-windows of phases B, C, P, K, L, E, F, M, N, H, I and J under ``torch.profiler`` and reports
+windows of phases B, C, P, K, L, E, F, M, N, H, I, J and O (obs flags off
+and on) under ``torch.profiler`` and reports
 the device's idle share (``chip_profile.json`` beside the report); the windows of
 H, I and J use the launcher's initial model. Then ``profile_q_bg`` times Q's
 background refresh beside queries and beside other host loads (the host
@@ -2128,7 +2142,7 @@ def hold_served_calls(report, phase, calls) -> set:
         held.add(kern)
     print(f"  phase {phase}: {len(calls)} served calls held against their plain versions "
           f"({sorted(held)})")
-    check(set({**Q_NEEDS, **R_NEEDS}[phase]) <= held,
+    check(set({**Q_NEEDS, **R_NEEDS, **O_NEEDS}[phase]) <= held,
           f"phase {phase}: every kernel it launches was held at its served shapes")
     return held
 
@@ -2734,6 +2748,425 @@ def phase_r(report):
           + f"; total {sum(secs.values()):.1f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase O: observability and the closed loop (repro_torch.obs, fleet/autoscale)
+# ---------------------------------------------------------------------------
+
+O_QUERIES = 400  # as Q
+O_PROC_SOAK_S = 8.0  # O-kill-proc's soak, the reference's tests/test_chaos.py setting
+# the refresh alone with no stats server, with one up and idle, and with one
+# polled every O_POLL_S by a client thread: O_STATS_ROUNDS rounds of the three,
+# O_STATS_REFRESHES refreshes a block
+O_STATS_ROUNDS, O_STATS_REFRESHES, O_POLL_S = 2, 2, 0.01
+# the kernels each O cell must launch (BayesLR serving runs the stream
+# sampler: no Fisher-Yates draw)
+O_NEEDS = {"O": ("batched_logit_delta", "t_test_round"),
+           "O-soak": ("batched_logit_delta", "t_test_round"),
+           "O-kill-proc": ("batched_logit_delta", "t_test_round")}
+O_STREAMS = ("slo", "snapshot", "transition_cost", "adaptation", "spans")
+
+
+class _Tee:
+    """A stdout that also keeps every line written (the self-check lines a
+    serve run prints)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def lines(self) -> list[str]:
+        return "".join(self.text).splitlines()
+
+
+@contextlib.contextmanager
+def tee_stdout():
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        yield tee
+
+
+def line_fields(lines, head) -> dict:
+    """``key=value`` fields of the last printed line starting with
+    ``head``; fails the phase when there is none."""
+    found = [ln for ln in lines if ln.startswith(head)]
+    check(bool(found), f"the run printed a {head} line")
+    return dict(f.split("=", 1) for f in found[-1].split() if "=" in f)
+
+
+@contextlib.contextmanager
+def obs_timers():
+    """While open, the obs layer's per-tick work is timed on the host
+    clock, call by call, summed by part: the SLO sample (the queue's report
+    over every completed request), the snapshot record (R-hat and ESS of the
+    window), the transition cost record, the alert rules' evaluation (a
+    rollup) and the tracer's span records. Yields the dict of
+    ``{part: [calls, seconds]}``."""
+    import repro_torch.obs as obs
+    from repro_torch.obs import alerts, sources, trace
+
+    parts = {}
+    targets = [("slo_sample", sources.SLOSampler, "sample"),
+               ("snapshot_record", obs, "record_snapshot"),
+               ("transition_cost_record", obs, "record_transition_cost"),
+               ("alert_evaluate", alerts.AlertEngine, "evaluate"),
+               ("span_record", trace.Tracer, "emit")]
+    originals = [(owner, name, getattr(owner, name)) for _, owner, name in targets]
+
+    def timed(part, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc = parts.setdefault(part, [0, 0.0])
+                acc[0] += 1
+                acc[1] += time.perf_counter() - t0
+        return call
+
+    for (part, owner, name), (_, _, fn) in zip(targets, originals):
+        setattr(owner, name, timed(part, fn))
+    try:
+        yield parts
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+
+
+def stats_thread_cost(pool) -> dict:
+    """The O pool's refresh alone (transitions/s and round ops/s a refresh),
+    with no stats server, with one up and idle beside it, and with one
+    polled every ``O_POLL_S`` by a client thread (GET /, the rollup),
+    ``O_STATS_ROUNDS`` rounds of the three in turn."""
+    import urllib.request
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Recorder, SLOSampler, StatsServer, record_snapshot
+    from repro_torch.serving import RequestQueue
+
+    resident = pool.resident("bayeslr")
+    k, n = pool.config.num_chains, pool.config.refresh_steps
+
+    def block():
+        rates, rounds = [], []
+        for _ in range(O_STATS_REFRESHES):
+            r0, t0 = ops.launches["t_test_round"], time.perf_counter()
+            resident.refresh()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            rates.append(k * n / secs)
+            rounds.append((ops.launches["t_test_round"] - r0) / secs)
+        return rates, rounds
+
+    out = {c: {"transitions_per_s": [], "round_ops_per_s": []}
+           for c in ("no_server", "server_idle", "server_polled")}
+    gets = [0]
+    for _ in range(O_STATS_ROUNDS):
+        for cond in out:
+            rec = server = stop = poller = None
+            if cond != "no_server":
+                rec = Recorder()
+                SLOSampler(rec, RequestQueue(pool)).sample()
+                record_snapshot(rec, "bayeslr", resident.snapshot())
+                server = StatsServer(rec, "127.0.0.1:0")
+            if cond == "server_polled":
+                stop = threading.Event()
+
+                def poll(url=server.url):
+                    while not stop.is_set():
+                        with urllib.request.urlopen(url, timeout=10) as resp:
+                            resp.read()
+                        gets[0] += 1
+                        time.sleep(O_POLL_S)
+
+                poller = threading.Thread(target=poll, name="stats-poller", daemon=True)
+                poller.start()
+            rates, rounds = block()
+            out[cond]["transitions_per_s"] += rates
+            out[cond]["round_ops_per_s"] += rounds
+            if poller is not None:
+                stop.set()
+                poller.join(timeout=10)
+            if server is not None:
+                server.close()
+                rec.close()
+    res = {c: {m: spread(v) for m, v in d.items()} for c, d in out.items()}
+    res["gets_served"] = gets[0]
+    return res
+
+
+def phase_o_obs(report):
+    """O: ``serve_posterior`` with ``--stats-addr --obs-dir --alerts
+    --trace-dir`` at Q's settings: the four self-check lines, parity, the
+    streams and summary on disk, ``frac_data_touched`` equal to the final
+    snapshot's ``mean_n_evaluated_overall`` / N (below 1), and the run
+    rendered by ``repro_torch.obs.dash.main``."""
+    import io
+    import tempfile
+
+    from repro_torch.obs import dash
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        obs_dir, trace_dir = os.path.join(tmp, "obs"), os.path.join(tmp, "trace")
+        with tee_stdout() as tee, obs_timers() as parts:
+            out = serve_phase(report, "O", "bayeslr", "--queries", str(O_QUERIES),
+                              "--stats-addr", "127.0.0.1:0", "--obs-dir", obs_dir, "--alerts",
+                              "--trace-dir", trace_dir)
+        lines = tee.lines()
+        for head in ("STATS_OK ", "ALERTS_OK ", "TRACE_OK ", "SERVE_OK "):
+            check(any(ln.startswith(head) for ln in lines), f"phase O printed {head.strip()}")
+        serve_ok = line_fields(lines, "SERVE_OK ")
+        run_dir = out["obs_dir"]
+        on_disk = sorted(os.listdir(run_dir))
+        missing = [f for f in ["summary.json", *(f"{s}.jsonl" for s in O_STREAMS)]
+                   if f not in on_disk]
+        check(not missing, f"phase O: summary.json and the {O_STREAMS} streams on disk "
+              f"(missing {missing})")
+        with open(os.path.join(run_dir, "transition_cost.jsonl")) as f:
+            cost = [json.loads(ln) for ln in f if ln.strip()]
+        frac = cost[-1]["frac_data_touched"]
+        want = out["obs_summary"]["mean_n_evaluated_overall"] / out["num_sections"]
+        check(abs(frac - want) <= 1e-12 * max(1.0, want) and frac < 1.0,
+              f"phase O: transition_cost.frac_data_touched {frac} equals the snapshot's "
+              f"mean_n_evaluated_overall / N = {want} and is below 1")
+        page = io.StringIO()
+        rc = dash.main([run_dir], out=page)
+        print(page.getvalue(), end="")
+        check(rc == 0, f"phase O: repro_torch.obs.dash.main rendered {run_dir} ({rc})")
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            summary = json.load(f)
+    # the obs parts' host seconds (the last sample's, past the serve's wall,
+    # included): per request served, beside the serve's wall per request
+    per_req = {k: {"calls": n, "ms_per_request": 1e3 * t / out["served"]}
+               for k, (n, t) in parts.items()}
+    print(f"  phase O: obs host work, ms per request served (calls): "
+          + "; ".join(f"{k} {v['ms_per_request']:.4f} ({v['calls']})" for k, v in per_req.items())
+          + f"; the serve's wall {1e3 * out['wall_s'] / out['served']:.4f} ms per request")
+    report["phases"]["O"].update(
+        obs_parts=per_req, streams_on_disk=on_disk, frac_data_touched=frac,
+        stream_counts={k: v["count"] for k, v in summary["streams"].items()},
+        alerts_fired=int(serve_ok.get("alerts_fired", -1)),
+        parity=serve_ok.get("parity"))
+    return out
+
+
+def phase_o_soak(report):
+    """O-soak: ``--fleet --soak --autoscale --alerts --stats-addr --obs-dir
+    --replicas 2`` at Q's settings with the default 30 s soak, in-process
+    replicas: ``SOAK_OK`` with a kill, a recovery, a full resync, bit-exact
+    parity, at least one scale-up, one scale-down and one alert fired. The
+    seconds from each ``add_replica`` to the new lane's first answer are
+    timed by wrapping ``Fleet.add_replica`` here."""
+    import tempfile
+
+    from repro_torch.fleet import topology
+    from repro_torch.launch import serve
+
+    joins = []
+    original = topology.Fleet.add_replica
+
+    def add_replica(self, *a, **kw):
+        entry = {"start": time.perf_counter()}
+        joins.append(entry)
+        shard, replica = original(self, *a, **kw)
+        entry["joined"] = time.perf_counter()
+        serve_fn = replica.serve
+
+        def first_answer(*sa, **skw):
+            got = serve_fn(*sa, **skw)
+            entry.setdefault("first_answer", time.perf_counter())
+            return got
+
+        replica.serve = first_answer
+        return shard, replica
+
+    out = {}
+    topology.Fleet.add_replica = add_replica
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as tmp, \
+                tee_stdout() as tee, capture_served_calls() as calls:
+            args = serve_args("bayeslr", "--fleet", "--soak", "--autoscale", "--alerts",
+                              "--stats-addr", "127.0.0.1:0", "--obs-dir", tmp,
+                              "--replicas", "2")
+            rc = counted(report, "O-soak", lambda: serve.serve_soak(args, out))
+    finally:
+        topology.Fleet.add_replica = original
+    lines = tee.lines()
+    check(rc == 0, f"phase O-soak: serve_soak returned 0 ({rc}): SOAK_OK")
+    f = line_fields(lines, "SOAK_OK ")
+    check(f["kills"] == "1" and f["recovered"] == "1" and int(f["resyncs"]) >= 1
+          and f["parity"] == "ok(bitexact)" and int(f["scale_up"]) >= 1
+          and int(f["scale_down"]) >= 1 and int(f["alerts_fired"]) >= 1,
+          f"phase O-soak: SOAK_OK with kills=1 recovered=1 resyncs>=1 parity=ok(bitexact) "
+          f"scale_up>=1 scale_down>=1 alerts_fired>=1 ({f})")
+    check(any(ln.startswith("STATS_OK ") for ln in lines)
+          and any(ln.startswith("ALERTS_OK ") for ln in lines),
+          "phase O-soak printed STATS_OK and ALERTS_OK")
+    rep = out["report"]
+    top = rep["classes"]["bayeslr.predictive"]
+    join = [{"add_replica_s": e["joined"] - e["start"],
+             "to_first_answer_s": e.get("first_answer", float("nan")) - e["start"]}
+            for e in joins]
+    r = {"served": out["served"], "submitted": out["submitted"], "wall_s": out["wall_s"],
+         "req_per_s": out["req_per_s"], "top_class_p95_ms": top.get("p95_ms"),
+         "top_class_p99_ms": top.get("p99_ms"), "reroutes": rep["recovery"]["rerouted"],
+         "lane_deaths": rep["recovery"]["lane_deaths"], "shed": rep["shed"],
+         "resyncs": out["resyncs"], "scaler_events": out["scaler_events"],
+         "alerts_fired": out["alerts_fired"], "burst_submitted": out["burst_submitted"],
+         "burst_shed": out["burst_shed"], "joins": join}
+    report["phases"]["O-soak"].update(r)
+    print(f"  phase O-soak: {r['served']} served of {r['submitted']} in {r['wall_s']:.1f}s "
+          f"({r['req_per_s']:.1f}/s), top class p95 {r['top_class_p95_ms']} ms, reroutes "
+          f"{r['reroutes']}, lane deaths {r['lane_deaths']}, shed {r['shed']}, resyncs "
+          f"{r['resyncs']}, scaler {r['scaler_events']}, alerts fired {r['alerts_fired']}; "
+          f"joins (add_replica s, to the first answer s): "
+          + ", ".join(f"{j['add_replica_s']:.3f} / {j['to_first_answer_s']:.3f}" for j in join))
+    check(len(join) >= 1 and all(math.isfinite(j["to_first_answer_s"]) for j in join),
+          "phase O-soak: every replica the scaler added answered")
+    hold_served_calls(report, "O-soak", calls)
+
+
+def phase_o_kill_proc(report):
+    """O-kill-proc: ``--fleet --soak --replica-transport proc --soak-seconds
+    8 --stats-addr`` at Q's settings: a replica process SIGKILLed and
+    respawned; ``SOAK_OK`` with bit-exact parity and ``STATS_OK``. The
+    restart's seconds and the card's free memory just before the kill, just
+    after it, just before the restart and after it are read by wrapping
+    ``ReplicaProcess.kill`` and ``restart`` here."""
+    import torch
+
+    from repro_torch.fleet import replica as replica_mod
+    from repro_torch.launch import serve
+
+    marks = {}
+    kill0, restart0 = replica_mod.ReplicaProcess.kill, replica_mod.ReplicaProcess.restart
+    free = lambda: torch.cuda.mem_get_info()[0]  # noqa: E731
+
+    def kill(self, *a, **kw):
+        marks["free_before_kill"] = free()
+        kill0(self, *a, **kw)
+        marks["free_after_kill"] = free()
+
+    def restart(self, *a, **kw):
+        marks["free_before_restart"] = free()
+        t0 = time.perf_counter()
+        restart0(self, *a, **kw)
+        marks["restart_s"] = time.perf_counter() - t0
+        marks["child_start_s"] = self.start_s
+        marks["free_after_restart"] = free()
+
+    out = {}
+    replica_mod.ReplicaProcess.kill, replica_mod.ReplicaProcess.restart = kill, restart
+    try:
+        with tee_stdout() as tee:
+            args = serve_args("bayeslr", "--fleet", "--soak", "--replica-transport", "proc",
+                              "--soak-seconds", str(O_PROC_SOAK_S), "--stats-addr",
+                              "127.0.0.1:0")
+            rc = counted(report, "O-kill-proc", lambda: serve.serve_soak(args, out))
+    finally:
+        replica_mod.ReplicaProcess.kill, replica_mod.ReplicaProcess.restart = kill0, restart0
+    lines = tee.lines()
+    check(rc == 0, f"phase O-kill-proc: serve_soak returned 0 ({rc}): SOAK_OK")
+    f = line_fields(lines, "SOAK_OK ")
+    check(f["parity"] == "ok(bitexact)" and f["kills"] == "1" and int(f["resyncs"]) >= 1,
+          f"phase O-kill-proc: SOAK_OK with parity=ok(bitexact) after a SIGKILL ({f})")
+    check(any(ln.startswith("STATS_OK ") for ln in lines), "phase O-kill-proc printed STATS_OK")
+    check({"free_before_kill", "free_after_kill", "restart_s"} <= set(marks),
+          "phase O-kill-proc: the replica process was killed and restarted")
+    rep = out["report"]
+    mib = lambda b: b / 2 ** 20  # noqa: E731
+    r = {"served": out["served"], "wall_s": out["wall_s"], "req_per_s": out["req_per_s"],
+         "top_class_p95_ms": rep["classes"]["bayeslr.predictive"].get("p95_ms"),
+         "reroutes": rep["recovery"]["rerouted"], "lane_deaths": rep["recovery"]["lane_deaths"],
+         "shed": rep["shed"], "resyncs": out["resyncs"], **marks,
+         "freed_by_kill_mib": mib(marks["free_after_kill"] - marks["free_before_kill"]),
+         "freed_by_restart_time_mib": mib(marks["free_before_restart"]
+                                          - marks["free_before_kill"]),
+         "taken_by_restart_mib": mib(marks["free_before_restart"]
+                                     - marks["free_after_restart"])}
+    report["phases"]["O-kill-proc"].update(r)
+    print(f"  phase O-kill-proc: {r['served']} served in {r['wall_s']:.1f}s "
+          f"({r['req_per_s']:.1f}/s), reroutes {r['reroutes']}, lane deaths "
+          f"{r['lane_deaths']}, resyncs {r['resyncs']}; restart {r['restart_s']:.2f}s (the "
+          f"child's start {r['child_start_s']:.2f}s); card free memory before the kill "
+          f"{mib(marks['free_before_kill']):.0f} MiB, {r['freed_by_kill_mib']:+.0f} MiB just "
+          f"after it, {r['freed_by_restart_time_mib']:+.0f} MiB by the restart, and the "
+          f"restarted child took {r['taken_by_restart_mib']:.0f} MiB")
+
+
+def phase_o(report):
+    """Observability and the closed loop: Q's BayesLR serve without any obs
+    flag and with every one on (O), alternated plain, obs, obs, plain in this
+    call; the refresh beside the stats server; the chaos soak with the
+    closed loop (O-soak); the soak over process replicas with a SIGKILL
+    (O-kill-proc). The writers' and lanes' kernel calls of O and O-soak are
+    held against plain."""
+    import tempfile
+
+    from repro_torch.launch import serve
+
+    print(f"phase O: observability (repro_torch.obs) and the closed loop "
+          f"(repro_torch.fleet.autoscale), bayeslr at Q's settings, {O_QUERIES} requests")
+    secs = {}
+    t0 = time.perf_counter()
+    rates = {"plain": [], "obs": []}
+    classes = {"plain": [], "obs": []}
+
+    def run(kind, extra=()):
+        out = {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+            flags = ("--stats-addr", "127.0.0.1:0", "--obs-dir", tmp, "--alerts",
+                     "--trace-dir", tmp) if kind == "obs" else ()
+            rc = serve.serve_posterior(serve_args("bayeslr", "--queries", str(O_QUERIES),
+                                                  *flags), out)
+        check(rc == 0, f"phase O: serve_posterior ({kind}) returned 0 ({rc})")
+        return out
+
+    def note(kind, out):
+        rates[kind].append(out["req_per_s"])
+        classes[kind].append({c: {q: e[q] for q in ("p50_ms", "p95_ms", "p99_ms")}
+                              for c, e in out["report"]["classes"].items()})
+
+    note("plain", serve_phase(report, "O-plain", "bayeslr", "--queries", str(O_QUERIES),
+                              hold=False))
+    out = phase_o_obs(report)
+    note("obs", out)
+    note("obs", run("obs"))
+    last = run("plain")
+    note("plain", last)
+    cost = stats_thread_cost(last["pool"])
+    del out, last
+    ratio = statistics.mean(rates["obs"]) / statistics.mean(rates["plain"])
+    report["phases"]["O"].update(req_per_s_obs=rates["obs"], req_per_s_plain=rates["plain"],
+                                 obs_over_plain=ratio, classes_obs=classes["obs"],
+                                 classes_plain=classes["plain"], refresh_beside_stats=cost)
+    print(f"  phase O: requests/s with every obs flag {rates['obs']}, with none "
+          f"{rates['plain']} (plain, obs, obs, plain): obs / plain {ratio:.3f}; per class with "
+          f"obs {classes['obs']}, without {classes['plain']}")
+    sp = lambda d: f"{d['median']:.1f} [{d['min']:.1f}, {d['max']:.1f}]"  # noqa: E731
+    print("  phase O: the refresh alone, median [min, max] transitions/s; round ops/s: "
+          + "; ".join(f"{c} {sp(cost[c]['transitions_per_s'])}; {sp(cost[c]['round_ops_per_s'])}"
+                      for c in ("no_server", "server_idle", "server_polled"))
+          + f"; {cost['gets_served']} GETs served while polled")
+    secs["O"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_o_soak(report)
+    secs["O-soak"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_o_kill_proc(report)
+    secs["O-kill-proc"] = time.perf_counter() - t0
+    report["o_seconds"] = secs
+    print("  seconds taken by phase O: " + "; ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"; total {sum(secs.values()):.1f}")
+
+
 Q_PROFILE_S = 3.0  # each window of the paced load in ``profile_q_bg``
 Q_SWITCH_INTERVALS = (5e-3, 5e-4, 5e-5)  # sys.setswitchinterval tried; 5e-3 is Python's own
 
@@ -2949,6 +3382,17 @@ def profile_idle_share() -> dict:
         theta0 = 0.5 * torch.randn(32, 50, generator=gen, device=lr.x_train.device)
         ens.run(gen, ens.init(theta0, batched=True), 20)
 
+    def serve_window(obs: bool):  # phase O's serve, 200 requests, obs flags off or on
+        import tempfile
+
+        from repro_torch.launch import serve
+
+        with tempfile.TemporaryDirectory(prefix="chip_profile_obs_") as tmp:
+            flags = ("--stats-addr", "127.0.0.1:0", "--obs-dir", tmp, "--alerts",
+                     "--trace-dir", tmp) if obs else ()
+            check(serve.serve_posterior(serve_args("bayeslr", "--queries", "200", *flags)) == 0,
+                  "profile window O: serve_posterior returned 0")
+
     sv = stochvol.synth(10, num_series=200, length=5)
     jdpm_cfg = jointdpm.JDPMConfig()
     jdpm = jointdpm.synth(60, JDPM_N, JDPM_N_TEST)
@@ -2980,6 +3424,10 @@ def profile_idle_share() -> dict:
             31, table, ce_target, RandomWalk(CE_SIGMA), 5, config=ce_cfg, collect=tiny),
         f"J: ce K={CE_K}, 2 steps": lambda: run_ensemble(
             41, table, ce_target, RandomWalk(CE_SIGMA), CE_K, 2, config=ce_cfg, collect=tiny),
+        "O (off): serve_posterior BayesLR, 200 requests, no obs flag":
+            lambda: serve_window(False),
+        "O (on): the same with --stats-addr --obs-dir --alerts --trace-dir":
+            lambda: serve_window(True),
     }
     out = {}
     for name, fn in windows.items():
@@ -3554,7 +4002,8 @@ def main() -> int:
                                                       [*"BCDEFGHIJKLMN", "B'", "P", "P1",
                                                        "P-AR1", "S", "S-compiled", "Q", "Q-bg",
                                                        "Q-sv", "Q-jdpm", "Q-ppl", "Q-resume", "R", "R-sub",
-                                                       "R-truth", "R-bg", "R-proc"]},
+                                                       "R-truth", "R-bg", "R-proc", "O-plain",
+                                                       "O", "O-soak", "O-kill-proc"]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -3611,6 +4060,8 @@ def main() -> int:
     phase_q(report)
     torch.cuda.empty_cache()
     phase_r(report)
+    torch.cuda.empty_cache()
+    phase_o(report)
     for name, e in report["kernels"].items():
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
     sv = ("gaussian_ar1_delta", "fy_draw", "pgibbs_sweep", "t_test_round")
@@ -3632,7 +4083,7 @@ def main() -> int:
                         ("P-AR1", ("gaussian_ar1_delta", "fy_draw", "t_test_round")),
                         ("S", ("logit_delta", "fy_draw", "t_test_round")),
                         ("S-compiled", ("fy_draw", "t_test_round")),
-                        *Q_NEEDS.items(), *R_NEEDS.items()):
+                        *Q_NEEDS.items(), *R_NEEDS.items(), *O_NEEDS.items()):
         got = report["phases"][phase]["launches"]
         check(all(got.get(n, 0) > 0 for n in need), f"phase {phase} went through {need}")
     for phase in ("P1", "S-compiled"):  # one chain of a compiled program: the graph route

@@ -1,6 +1,5 @@
 """Sharded serving fleet: writers, delta-streamed replicas, admission
-control; the port of ``repro.fleet`` (less the autoscaler, which waits for
-the observability slice)::
+control and the autoscaler; the port of ``repro.fleet``::
 
     FleetRouter ─▶ replica lanes ─▶ ReplicaEnsemble/-Process ─▶ values
      priorities     least-loaded      local window copy
@@ -13,8 +12,11 @@ the observability slice)::
 With ``FleetConfig(subposterior=P)`` each partition of the data has its own
 writers and the router combines their windows at query time
 (:mod:`repro_torch.partition`). Front end: ``python -m
-repro_torch.launch.serve --fleet --workload bayeslr``.
+repro_torch.launch.serve --fleet --workload bayeslr``. Closing the loop,
+:mod:`.autoscale` turns the recorded admission and SLO signals back into
+replica adds and retires (``--autoscale``).
 """
+from .autoscale import AutoScaleConfig, AutoScaler
 from .delta import SnapshotDelta, apply_delta, make_delta, payload_nbytes, wire_bytes
 from .replica import ReplicaDeadError, ReplicaEnsemble, ReplicaProcess
 from .router import AdmissionConfig, FleetRouter
@@ -22,6 +24,8 @@ from .topology import Fleet, FleetConfig, FleetShard, shard_seed
 
 __all__ = [
     "AdmissionConfig",
+    "AutoScaleConfig",
+    "AutoScaler",
     "Fleet",
     "FleetConfig",
     "FleetRouter",

@@ -729,12 +729,27 @@ def test_serve_front_end_profile_dir(tmp_path, capsys):
     assert (tmp_path / "refresh_trace.json").stat().st_size > 0
 
 
-# --fleet, --subposterior and --stream are ported (tests/test_torch_fleet.py);
-# the flags that still wait for a slice take their places
+# --fleet, --subposterior and --stream are ported (tests/test_torch_fleet.py),
+# and so are the observability flags (tests/test_torch_obs.py,
+# tests/test_torch_autoscale.py): those cases now check which serve path each
+# reaches, and --soak without the fleet is refused as the reference refuses it
 @pytest.mark.parametrize("argv", [["--workload", "lm"], ["--fleet", "--mesh", "2d"],
                                   ["--devices", "2"], ["--stream", "--soak"], ["--autoscale"],
                                   ["--stats-addr", "127.0.0.1:0"], ["--obs-dir", "x"],
                                   ["--alerts"], ["--soak"], ["--trace-dir", "x"]])
-def test_serve_flags_of_later_slices_raise(argv):
-    with pytest.raises(NotImplementedError, match="comes with"):
-        serve.main(argv + ["--device", "cpu"])
+def test_serve_flags_of_later_slices_raise(argv, monkeypatch):
+    if argv[0] in ("--workload", "--devices") or "2d" in argv:
+        with pytest.raises(NotImplementedError, match="comes with"):
+            serve.main(argv + ["--device", "cpu"])
+        return
+    if argv == ["--soak"]:
+        with pytest.raises(SystemExit):
+            serve.main(argv + ["--device", "cpu"])
+        return
+    seen = []
+    for path in ("serve_posterior", "serve_fleet", "serve_soak"):
+        monkeypatch.setattr(serve, path, lambda args, path=path: seen.append(path) or 0)
+    assert serve.main(argv + ["--device", "cpu"]) == 0
+    want = {"--stream": "serve_soak", "--autoscale": "serve_fleet"}.get(argv[0],
+                                                                       "serve_posterior")
+    assert seen == [want]
