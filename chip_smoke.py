@@ -113,10 +113,23 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      ``--fleet --soak --replica-transport proc --soak-seconds 8`` (O-kill-proc:
      a SIGKILL, the restart's seconds and the card's memory around it).
      O's and O-soak's kernel calls are held against plain as R's are.
+  X  the chains x data mesh (``repro_torch.distributed``) with four slots on
+     cuda:0 (and on four cards where there are four), BayesLR at C's
+     setting, each run bit for bit its unsharded counterpart (samples and
+     every info field): ``shard=True`` (4 x 1) for C's first 200 steps
+     (X-chains), the balanced ``("chains", "data")`` (2 x 2) and
+     ``{"chains": 1, "data": 4}`` for C's first 100 (X-2d, X-2d-data4),
+     masked under 2 x 2 against K (X-masked), L's adaptive masked run with
+     the bounded Fisher-Yates draws under 1 x 4 for 100 steps (X-L), X-2d at
+     precision bf16 for 50 steps (X-bf16), each with the pair-delta kernel
+     launched on every slot once a round; then ``serve_fleet`` with
+     ``--fleet --mesh 2d --devices 4 --replicas 2`` against ``--mesh off``
+     (X-fleet: replicas bit for bit their writer, the two writers bit for
+     bit, ``parity=ok(bitexact)``).
 
 Phase A also holds the bounded Fisher–Yates draw (ragged per-chain m_eff,
 m_max = 100 and 400) against its plain version. Launch counts are set to 0
-before each of B-O and read after it; every
+before each of B-X and read after it; every
 kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels with their launches, errors and times. The full report
@@ -3167,6 +3180,221 @@ def phase_o(report):
           + f"; total {sum(secs.values()):.1f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase X: the chains x data mesh (repro_torch.distributed, ChainEnsemble(shard=...))
+# ---------------------------------------------------------------------------
+
+X_SLOTS = 4  # mesh slots: four on cuda:0, and four cards where the machine has them
+# depths: X-chains C's first 200 steps, X-2d C's first 100, X-masked K's 250,
+# X-L L's configuration for 100 steps, X-bf16 50 steps
+X_CHAINS_STEPS, X_2D_STEPS, X_L_STEPS, X_BF16_STEPS = 200, 100, 100, 50
+X_RUNS = ("X-chains", "X-2d", "X-2d-data4", "X-masked", "X-L", "X-bf16")
+X_NEEDS = {name: ("batched_logit_delta", "t_test_round") for name in X_RUNS + ("X-fleet",)}
+
+
+def x_layouts() -> list[tuple[str, int]]:
+    """(suffix, physical cards the slots cycle over): four slots on cuda:0,
+    and on four cards where there are four."""
+    import torch
+
+    out = [("", 1)]
+    if torch.cuda.device_count() >= X_SLOTS:
+        out.append((f"@{X_SLOTS}cards", X_SLOTS))
+    return out
+
+
+def x_slot_launches(report, phase) -> dict:
+    """``batched_logit_delta`` launches per mesh slot in ``phase``'s counted
+    run, checked equal to its round-op launches on every slot."""
+    from repro_torch.kernels import ops
+
+    slots = {str(slot): n for (slot, name), n in ops.slot_launches.items()
+             if name == "batched_logit_delta"}
+    rounds = report["phases"][phase]["launches"].get("t_test_round", 0)
+    check(len(slots) == X_SLOTS and all(n == rounds > 0 for n in slots.values()),
+          f"phase {phase}: batched_logit_delta launched on each of the {X_SLOTS} slots once a "
+          f"round ({slots}; round-op launches {rounds})")
+    return slots
+
+
+def x_same(label, got, want) -> None:
+    """Samples, every info field and (when there is one) the controller,
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    (samples, infos, ctrl), (w_samples, w_infos, w_ctrl) = got, want
+    check(np.array_equal(samples, w_samples), f"{label}: samples bit for bit")
+    differ = [f for f, a, b in zip(type(infos)._fields, infos, w_infos)
+              if not (a.dtype == b.dtype and torch.equal(a, b))]
+    if ctrl is not None:
+        differ += [f"controller.{f}" for f, a, b in zip(type(ctrl)._fields, ctrl, w_ctrl)
+                   if not torch.equal(a, b)]
+    check(not differ, f"{label}: every info field bit for bit (differ: {differ})")
+
+
+def x_run(report, phase, data, steps, physical, **kw):
+    """``bayeslr_ensemble(3, data, 32, steps, **kw)`` built with ``X_SLOTS``
+    slots forced over ``physical`` cards, counted as ``phase``; returns
+    ((samples, infos, controller), transitions/s, seconds)."""
+    import torch
+
+    from repro_torch.distributed import force_devices
+
+    def run():
+        with force_devices(X_SLOTS, physical):
+            t0 = time.perf_counter()
+            samples, _, state, infos = bayeslr_ensemble(3, data, 32, steps, **kw)
+            torch.cuda.synchronize()
+        return (samples, infos, state.controller), time.perf_counter() - t0
+
+    out, wall = counted(report, phase, run)
+    return out, 32 * steps / wall, wall
+
+
+def x_unsharded(data, steps, **kw):
+    import torch
+
+    t0 = time.perf_counter()
+    samples, _, state, infos = bayeslr_ensemble(3, data, 32, steps, shard=False, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (samples, infos, state.controller), 32 * steps / wall
+
+
+def phase_x(report, data, c_out, k_out):
+    """The chains x data mesh on the card, each run held bit for bit against
+    its unsharded counterpart (samples and every info field): X-chains
+    (``shard=True``, 4 x 1) against C's first steps; X-2d (2 x 2, the
+    balanced default) and X-2d-data4 (1 x 4) against C's first steps;
+    X-masked (2 x 2, masked) against K; X-L (L's adaptive masked run with
+    the bounded Fisher-Yates draws, 1 x 4) and X-bf16 (2 x 2 at precision
+    bf16) against the same run unsharded in this call; then X-fleet. Four
+    slots on cuda:0 (and on four cards where there are four)."""
+    import os
+
+    import torch
+
+    from repro_torch.core import ScheduleConfig, SubsampledMHInfo
+
+    print(f"phase X: the chains x data mesh, {X_SLOTS} slots; BayesLR at C's setting (N=12214 "
+          "D=50 K=32 m=100 epsilon 0.05, stream sampler, RW 0.05)")
+    c_samples, c_infos, c_rate = c_out
+    k_samples, k_infos, k_rate = k_out
+    first = lambda steps, smp, inf: (smp[:, :steps], SubsampledMHInfo(  # noqa: E731
+        *(f[:, :steps] for f in inf)), None)
+    secs = {}
+    for suffix, physical in x_layouts():
+        runs = (
+            ("X-chains", X_CHAINS_STEPS, dict(shard=True),
+             first(X_CHAINS_STEPS, c_samples, c_infos), c_rate),
+            ("X-2d", X_2D_STEPS, dict(shard=("chains", "data")),
+             first(X_2D_STEPS, c_samples, c_infos), c_rate),
+            ("X-2d-data4", X_2D_STEPS, dict(shard={"chains": 1, "data": 4}),
+             first(X_2D_STEPS, c_samples, c_infos), c_rate),
+            ("X-masked", K_STEPS, dict(shard=("chains", "data"), stepping="masked"),
+             (k_samples, k_infos, None), k_rate),
+        )
+        l_kw = dict(sampler="fy", stepping="masked", schedule=ScheduleConfig(epsilon_max=0.2))
+        for name, steps, kw, want, rate in runs + (
+                ("X-L", X_L_STEPS, dict(shard={"chains": 1, "data": 4}, **l_kw), None, None),
+                ("X-bf16", X_BF16_STEPS, dict(shard=("chains", "data")), None, None)):
+            phase = name + suffix
+            report["phases"].setdefault(phase, {})
+            t0 = time.perf_counter()
+            prev = os.environ.get("REPRO_PRECISION")
+            if name == "X-bf16":
+                os.environ["REPRO_PRECISION"] = "bf16"
+            try:
+                if want is None:  # the unsharded counterpart, in this call
+                    want, rate = x_unsharded(data, steps, **{k: v for k, v in kw.items()
+                                                             if k != "shard"})
+                got, sharded_rate, wall = x_run(report, phase, data, steps, physical, **kw)
+            finally:
+                if name == "X-bf16":
+                    os.environ.pop("REPRO_PRECISION")
+                    if prev is not None:
+                        os.environ["REPRO_PRECISION"] = prev
+            slots = x_slot_launches(report, phase)
+            x_same(f"phase {phase}", got, want)
+            secs[phase] = time.perf_counter() - t0
+            report["phases"][phase].update(
+                steps=steps, shard=str(kw["shard"]), physical_cards=physical,
+                transitions_per_s=sharded_rate, unsharded_transitions_per_s=rate,
+                sharded_over_unsharded=sharded_rate / rate, slot_launches=slots,
+                run_seconds=wall, seconds=secs[phase])
+            print(f"  {phase}: shard={kw['shard']} over {X_SLOTS} slots on {physical} card(s), "
+                  f"{steps} steps: transitions/s sharded {sharded_rate:.1f}, unsharded "
+                  f"{rate:.1f} ({sharded_rate / rate:.3f}x); batched_logit_delta launches a "
+                  f"slot {slots}; round-op launches "
+                  f"{report['phases'][phase]['launches'].get('t_test_round', 0)}; "
+                  f"{secs[phase]:.2f} s; bit for bit")
+    t0 = time.perf_counter()
+    phase_x_fleet(report)
+    secs["X-fleet"] = time.perf_counter() - t0
+    report["x_seconds"] = secs
+    print("  seconds taken by phase X: " + "; ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"; total {sum(secs.values()):.1f}")
+
+
+def phase_x_fleet(report):
+    """X-fleet: ``serve_fleet`` at Q's settings with ``--fleet --mesh 2d
+    --devices 4 --replicas 2`` and again with ``--mesh off``, 400 requests
+    each: every replica equals its writer bit for bit, the two writers
+    equal each other, and SERVE_OK shows parity=ok(bitexact). Then each
+    writer's refresh alone, the rate beside the other's."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+
+    runs = {}
+    for mesh in ("2d", "off"):
+        out = {}
+        args = serve_args("bayeslr", "--queries", str(R_QUERIES), "--fleet", "--replicas", "2",
+                          "--mesh", mesh, "--devices", str(X_SLOTS))
+        t0 = time.perf_counter()
+        with tee_stdout() as tee:
+            fn = lambda: serve.serve_fleet(args, out)  # noqa: E731
+            rc = counted(report, "X-fleet", fn) if mesh == "2d" else fn()
+        wall = time.perf_counter() - t0
+        fields = line_fields(tee.lines(), "SERVE_OK")
+        check(rc == 0 and fields.get("parity") == "ok(bitexact)" and fields.get("devices") ==
+              str(X_SLOTS), f"phase X-fleet --mesh {mesh}: SERVE_OK with parity=ok(bitexact) and "
+              f"devices={X_SLOTS} ({rc}, {fields})")
+        shard = out["fleet"].shards("bayeslr")[0]
+        writer = shard.writer
+        draws = np.asarray(writer.snapshot().draws)
+        same = [np.array_equal(np.asarray(r.snapshot().draws), draws) for r in shard.replicas]
+        check(len(same) == 2 and all(same),
+              f"phase X-fleet --mesh {mesh}: every replica equals its writer bit for bit {same}")
+        mesh_shape = None if writer.ensemble._mesh is None else writer.ensemble._mesh.shape
+        runs[mesh] = dict(draws=draws, steps=writer.steps_done, writer=writer, wall=wall,
+                          req_per_s=out["req_per_s"], mesh=mesh_shape)
+        if mesh == "2d":
+            runs[mesh]["slots"] = x_slot_launches(report, "X-fleet")
+    check(runs["2d"]["mesh"] == {"chains": 2, "data": 2} and runs["off"]["mesh"] is None,
+          f"phase X-fleet: the writers ran the 2 x 2 mesh and none ({runs['2d']['mesh']}, "
+          f"{runs['off']['mesh']})")
+    check(runs["2d"]["steps"] == runs["off"]["steps"]
+          and np.array_equal(runs["2d"]["draws"], runs["off"]["draws"]),
+          "phase X-fleet: the --mesh 2d writer equals the --mesh off writer bit for bit "
+          f"(at {runs['2d']['steps']} and {runs['off']['steps']} steps)")
+    k, n = runs["2d"]["writer"].ensemble.num_chains, runs["2d"]["writer"].refresh_steps
+    alone = {mesh: writer_alone(runs[mesh]["writer"], k, n)[0] for mesh in ("2d", "off")}
+    r = {"req_per_s": {m: runs[m]["req_per_s"] for m in runs},
+         "seconds": {m: runs[m]["wall"] for m in runs},
+         "refresh_alone_transitions_per_s": {m: spread(v) for m, v in alone.items()},
+         "slot_launches": runs["2d"]["slots"], "writer_steps": runs["2d"]["steps"]}
+    report["phases"]["X-fleet"].update(r)
+    sp = lambda d: f"{d['median']:.1f} [{d['min']:.1f}, {d['max']:.1f}]"  # noqa: E731
+    print(f"  X-fleet: --mesh 2d / off: requests/s {runs['2d']['req_per_s']:.1f} / "
+          f"{runs['off']['req_per_s']:.1f}; the writer's refresh alone, transitions/s median "
+          f"[min, max] {sp(r['refresh_alone_transitions_per_s']['2d'])} / "
+          f"{sp(r['refresh_alone_transitions_per_s']['off'])}; batched_logit_delta launches a "
+          f"slot {runs['2d']['slots']}; writers bit for bit at {runs['2d']['steps']} steps; "
+          f"{runs['2d']['wall']:.2f} / {runs['off']['wall']:.2f} s")
+
+
 Q_PROFILE_S = 3.0  # each window of the paced load in ``profile_q_bg``
 Q_SWITCH_INTERVALS = (5e-3, 5e-4, 5e-5)  # sys.setswitchinterval tried; 5e-3 is Python's own
 
@@ -3716,6 +3944,7 @@ def phase_k(report, data, c_out):
           f"phase K infos equal phase C's first {steps} bit for bit (equal: {same})")
     check(r["supersteps"] == r["launches_t_test_round"] < r["c_lockstep_rounds"],
           "one round op a superstep; fewer supersteps than lock-step rounds")
+    return samples, infos, r["transitions_per_s"]
 
 
 def first_difference_borderline(a, b) -> tuple[int, bool]:
@@ -4003,7 +4232,8 @@ def main() -> int:
                                                        "P-AR1", "S", "S-compiled", "Q", "Q-bg",
                                                        "Q-sv", "Q-jdpm", "Q-ppl", "Q-resume", "R", "R-sub",
                                                        "R-truth", "R-bg", "R-proc", "O-plain",
-                                                       "O", "O-soak", "O-kill-proc"]},
+                                                       "O", "O-soak", "O-kill-proc", *X_RUNS,
+                                                       "X-fleet"]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -4027,8 +4257,8 @@ def main() -> int:
     theta_b = phase_b(report, data)
     phase_b_mala(report, data, theta_b)
     c_out = phase_c(report, data)
-    phase_k(report, data, c_out)
-    c_samples, c_infos = c_out[0], c_out[1]  # phase P starts as C does
+    k_out = phase_k(report, data, c_out)  # phase X holds its masked mesh run to K's
+    c_samples, c_infos = c_out[0], c_out[1]  # phases P and X start as C does
     del c_out
     phase_l(report, data)
     phase_d(report)
@@ -4062,6 +4292,8 @@ def main() -> int:
     phase_r(report)
     torch.cuda.empty_cache()
     phase_o(report)
+    torch.cuda.empty_cache()
+    phase_x(report, data, (c_samples, c_infos, report["phases"]["C"]["transitions_per_s"]), k_out)
     for name, e in report["kernels"].items():
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
     sv = ("gaussian_ar1_delta", "fy_draw", "pgibbs_sweep", "t_test_round")
@@ -4083,7 +4315,8 @@ def main() -> int:
                         ("P-AR1", ("gaussian_ar1_delta", "fy_draw", "t_test_round")),
                         ("S", ("logit_delta", "fy_draw", "t_test_round")),
                         ("S-compiled", ("fy_draw", "t_test_round")),
-                        *Q_NEEDS.items(), *R_NEEDS.items(), *O_NEEDS.items()):
+                        *Q_NEEDS.items(), *R_NEEDS.items(), *O_NEEDS.items(),
+                        *X_NEEDS.items()):
         got = report["phases"][phase]["launches"]
         check(all(got.get(n, 0) > 0 for n in need), f"phase {phase} went through {need}")
     for phase in ("P1", "S-compiled"):  # one chain of a compiled program: the graph route

@@ -6,8 +6,9 @@ names (``repro_torch.core.ensemble`` is the counterpart of
 Hopper live in :mod:`repro_torch.kernels`; entry points put their tensors on
 the card unless told ``device="cpu"``.
 """
-from . import (bayes, checkpoint, configs, convert, core, data, experiments, fleet, inference,
-               kernels, models, obs, partition, ppl, runtime, serving)
+from . import (bayes, checkpoint, configs, convert, core, data, distributed, experiments, fleet,
+               inference, kernels, models, obs, partition, ppl, runtime, serving)
 
-__all__ = ["bayes", "checkpoint", "configs", "convert", "core", "data", "experiments", "fleet",
-           "inference", "kernels", "models", "obs", "partition", "ppl", "runtime", "serving"]
+__all__ = ["bayes", "checkpoint", "configs", "convert", "core", "data", "distributed",
+           "experiments", "fleet", "inference", "kernels", "models", "obs", "partition", "ppl",
+           "runtime", "serving"]

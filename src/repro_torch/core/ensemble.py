@@ -73,13 +73,37 @@ and a chunk boundary moves where chains start their steps, so chunked and
 one-shot runs agree in distribution only. The serving layer's
 ``ResidentEnsemble`` refreshes this way. The reference's "chain k equals a
 sequential run with key k" rests on splittable keys and stays a deliberate
-divergence: here the K chains share one generator. The ``shard=`` mesh paths
-wait for the distributed slice and raise ``NotImplementedError``.
+divergence: here the K chains share one generator.
+
+The mesh (``shard=``): one process drives an array of slots
+(:mod:`repro_torch.distributed`; by default one a visible device of the
+ensemble's device type, N within ``force_devices(N)``). ``shard="auto"`` or
+``True`` spreads the chains over a 1-d chain mesh of every slot (``"auto"``
+only when K divides the slot count); ``shard=("chains", "data")``, or a dict
+of axis sizes, makes a 2-d chains x data mesh (the balanced default: the
+divisor of n nearest sqrt(n) that also divides K). Only each round's
+evaluation is split: slot (i, j) scores rows i and columns j of the (K, m)
+index block, with its rows of theta and theta', on its device, and the
+deltas are assembled whole on the home device. The generator's draws, the
+round op, the accept and the controller stay whole on the home device, so
+a sharded run is bit for bit the unsharded run (samples and every info
+field) in both stepping modes, with or without a schedule, for either
+sampler. A dim the mesh axis does not divide stays whole, and the first
+slot of that axis scores it (``resolve_spec``'s divisibility fallback).
+The reference's 1-d chain mesh runs its vmapped scan under ``shard_map``;
+this one runs the family's kernel on each slot, as the 2-d mesh does,
+because no plain version runs on the card. A target built by
+``build_target`` on tensors places its pools on each slot device; a closure
+target, or a callable pool, is scored in place, on the home device, and on
+slots of other devices ``"auto"`` runs it unsharded while an explicit
+request raises. Masked stepping shards on the 2-d mesh only, and composite
+cycles run unsharded, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import time
 from typing import Any, Callable, NamedTuple
 
@@ -88,6 +112,8 @@ import torch
 
 from .._device import (make_generator, resolve_device, to_leaf, tree_leaves, tree_map,
                       tree_select)
+from ..distributed import sharding
+from ..distributed.slots import visible_slots
 from .chain import _stack
 from .composite import CycleOp, SubsampledMHOp, init_cycle_samplers
 from .mh import MHInfo
@@ -120,10 +146,6 @@ class EnsembleState(NamedTuple):
     @property
     def num_chains(self) -> int:
         return tree_leaves(self.theta)[0].shape[0]
-
-
-def _later(what: str, where: str):
-    raise NotImplementedError(f"{what} comes with {where}")
 
 
 def _takes_scale(proposal) -> bool:
@@ -162,7 +184,10 @@ class ChainEnsemble:
     ``stepping="masked"`` (subsampled kernel only) runs the
     masked-continuation superstep; ``schedule=ScheduleConfig(...)`` attaches
     the per-chain adaptive controller (both modes). ``device=None`` means
-    the card (raises without one).
+    the card (raises without one). ``shard`` is ``"auto"``, ``True`` or
+    ``False`` (a 1-d chain mesh over every slot), or a 2-d chains x data
+    request, ``(chain_axis, data_axis)`` or a dict of axis sizes (see the
+    module docstring); on one slot every form runs unsharded.
     """
 
     target: PartitionedTarget | None = None
@@ -172,7 +197,11 @@ class ChainEnsemble:
     config: SubsampledMHConfig | None = None
     chunk_size: int | None = None  # exact kernel: sections per chunk
     collect: Callable[[Params], Any] | None = None
+    # "auto" | True | False: a 1-d chain mesh; or a 2-d chains x data
+    # request: ("chains", "data") / {"chains": c, "data": d}
     shard: Any = "auto"
+    chain_axis: str = "chains"
+    data_axis: str = "data"
     stepping: str = "lockstep"  # "lockstep" | "masked" (subsampled only)
     schedule: ScheduleConfig | None = None  # adaptive per-chain controller
     fused_kernels: str = "auto"  # "auto" | "always" | "never"
@@ -188,16 +217,21 @@ class ChainEnsemble:
             raise ValueError(f"unknown fused_kernels {self.fused_kernels!r}")
         if self.num_chains < 1:
             raise ValueError(f"num_chains must be >= 1, got {self.num_chains}")
+        if self._shard_2d_request is not None:
+            if self.transition is not None:
+                raise ValueError(
+                    "composite transitions run unsharded; the 2-d shard=(chains, data) mesh "
+                    "supports single-kernel ensembles only")
+            if self.kernel != "subsampled":
+                raise ValueError(
+                    "the 2-d shard=(chains, data) mesh requires the subsampled kernel — only "
+                    "its sequential-test rounds have a data axis to shard")
         if self.transition is not None:
             self._check_composite()
             self._device  # resolve now: without a card and without device= this raises
             return
         if self.schedule is not None and not isinstance(self.schedule, ScheduleConfig):
             raise TypeError(f"schedule must be a ScheduleConfig, got {self.schedule!r}")
-        if self.stepping == "masked" and self.shard is True:
-            raise ValueError("masked stepping runs unsharded; use shard='auto' or False")
-        if self.shard not in ("auto", False):
-            _later(f"shard={self.shard!r}", "the distributed slice")
         if self.target is None or self.proposal is None:
             raise ValueError("target and proposal are required without transition=")
         self._device  # resolve now: without a card and without device= this raises
@@ -209,6 +243,8 @@ class ChainEnsemble:
                 and not _takes_scale(self.proposal):
             raise ValueError("schedule.adapt_proposal=True needs a proposal accepting a third "
                              "`scale` argument (e.g. repro_torch.core.RandomWalk)")
+        if self.stepping == "masked" and self.shard is True:
+            raise ValueError("masked stepping runs unsharded; use shard='auto' or False")
         if self.fused_kernels == "always" and self.kernel == "exact":
             raise ValueError("fused_kernels='always' requires the subsampled kernel")
         if self.fused_kernels == "always" and self.target.log_local_ensemble is None:
@@ -216,6 +252,10 @@ class ChainEnsemble:
                 "fused_kernels='always' but the target carries no log_local_ensemble "
                 "(build it via repro_torch.core.build_target)"
             )
+        if self.fused_kernels == "always" and self.shard is True:
+            raise ValueError("fused_kernels='always' runs the (K, m) rounds unsharded; "
+                             "use shard='auto' or False")
+        self._mesh  # the mesh now: a request the slots cannot honour raises here
 
     def _check_composite(self):
         """The reference's rules for ``transition=cycle(...)``."""
@@ -235,7 +275,7 @@ class ChainEnsemble:
         if self.schedule is not None:
             raise ValueError("adaptive scheduling is not supported with composite transitions "
                              "(the controller assumes one target)")
-        if self.shard not in ("auto", False):
+        if self.shard is True:
             raise ValueError("composite transitions run unsharded; use shard='auto' or False")
         if self.fused_kernels == "always":
             names = self.transition.names
@@ -252,6 +292,107 @@ class ChainEnsemble:
     @functools.cached_property
     def _device(self) -> torch.device:
         return resolve_device(self.device)
+
+    @functools.cached_property
+    def _shard_2d_request(self):
+        """Normalized 2-d mesh request: ``(chains_size | None, data_size |
+        None)`` when ``shard`` asks for a chains x data mesh, else None."""
+        s = self.shard
+        if isinstance(s, (tuple, list)):
+            if tuple(s) != (self.chain_axis, self.data_axis):
+                raise ValueError(
+                    f"tuple shard= must name the mesh axes "
+                    f"({self.chain_axis!r}, {self.data_axis!r}), got {tuple(s)!r}")
+            return (None, None)
+        if isinstance(s, dict):
+            extra = set(s) - {self.chain_axis, self.data_axis}
+            if extra:
+                raise ValueError(
+                    f"dict shard= keys must be a subset of "
+                    f"{{{self.chain_axis!r}, {self.data_axis!r}}}, got extra {sorted(extra)}")
+            return (s.get(self.chain_axis), s.get(self.data_axis))
+        if s not in ("auto", True, False):
+            raise ValueError(
+                f"shard must be 'auto', True, False, a ({self.chain_axis!r}, "
+                f"{self.data_axis!r}) tuple, or a dict of axis sizes; got {s!r}")
+        return None
+
+    def _mesh_2d(self):
+        """The chains x data mesh for a 2-d ``shard=`` request (None on one
+        slot: the unsharded run is the same there)."""
+        req = self._shard_2d_request
+        if req is None:
+            return None
+        devices = visible_slots(self._device)
+        n = len(devices)
+        if n <= 1:
+            return None
+        c, d = req
+        if c is None and d is not None:
+            if n % d:
+                raise ValueError(f"data axis size {d} must divide device count {n}")
+            c = n // d
+        if c is not None:
+            d = d if d is not None else n // c
+            if c * d != n:
+                raise ValueError(
+                    f"mesh {self.chain_axis}={c} x {self.data_axis}={d} != device count {n}")
+        else:
+            # Balanced default: the divisor of n nearest sqrt(n) that also
+            # divides num_chains (c=1, a pure data mesh, always qualifies).
+            cands = [k for k in range(1, n + 1) if n % k == 0 and self.num_chains % k == 0]
+            c = min(cands, key=lambda k: (abs(k - math.sqrt(n)), -k))
+            d = n // c
+        if self.num_chains % c:
+            raise ValueError(
+                f"num_chains ({self.num_chains}) must be divisible by the "
+                f"{self.chain_axis!r} mesh axis size ({c})")
+        grid = np.empty(n, dtype=object)
+        grid[:] = devices
+        return sharding.Mesh(grid.reshape(c, d), (self.chain_axis, self.data_axis))
+
+    def _chain_mesh(self):
+        """The 1-d chain mesh of ``shard="auto"`` / ``True`` (None on one
+        slot, for masked stepping, a cycle or a 2-d request). Under
+        ``"auto"`` an explicit ``fused_kernels="always"`` runs the rounds
+        unsharded, as the reference's fused scan does."""
+        if self.shard is False or self.stepping == "masked" or self.transition is not None:
+            return None
+        if self._shard_2d_request is not None or self.fused_kernels == "always":
+            return None
+        devices = visible_slots(self._device)
+        if len(devices) <= 1:
+            return None
+        if self.num_chains % len(devices) != 0:
+            if self.shard is True:
+                raise ValueError(
+                    f"shard=True needs num_chains ({self.num_chains}) divisible "
+                    f"by the device count ({len(devices)})")
+            return None
+        return sharding.Mesh(devices, (self.chain_axis,))
+
+    @functools.cached_property
+    def _mesh(self):
+        """The mesh this ensemble's rounds are split over, or None. Taken
+        when the ensemble is made, from the slots visible then. A target
+        that cannot move (no ``TargetSpec``: a closure, a callable pool) is
+        split in place when every slot is its home device; on slots of other
+        devices ``shard="auto"`` runs it unsharded and a request raises."""
+        if self.transition is not None:
+            return None
+        mesh = self._mesh_2d() if self._shard_2d_request is not None else self._chain_mesh()
+        if mesh is None:
+            return None
+        home = sharding.canonical(self._device)
+        away = sorted({str(d) for d in mesh.devices.flat if sharding.canonical(d) != home})
+        if away and (self.target.spec is None or self.target.bind is None):
+            if self.shard == "auto":
+                return None
+            raise ValueError(
+                f"shard={self.shard!r} puts slots on {away}, but the target cannot leave its "
+                f"home device {home}: it has no TargetSpec (a closure or a callable pool; "
+                "build_target on tensors places its pools on every slot device)")
+        return mesh
 
     @property
     def _config(self) -> SubsampledMHConfig:
@@ -279,7 +420,15 @@ class ChainEnsemble:
             return t.local_round(theta, theta_p, ensemble=True, mode=self.fused_kernels)
         chains = [t.local_round(tree_map(lambda l: l[k], theta), tree_map(lambda l: l[k], theta_p))
                   for k in range(self.num_chains)]
-        return lambda idx: torch.stack([fn(idx[k]) for k, fn in enumerate(chains)])
+        mesh = sharding.active_mesh()
+        if mesh is None:
+            return lambda idx: torch.stack([fn(idx[k]) for k, fn in enumerate(chains)])
+
+        def score(blk, idx):  # in place: the slot's chains, each on the slot's columns
+            first = blk.index[0].start
+            return torch.stack([chains[first + r](row) for r, row in enumerate(idx)])
+
+        return sharding.split_round(*mesh, self._device, score)
 
     # -- state ------------------------------------------------------------
 
@@ -408,6 +557,12 @@ class ChainEnsemble:
         generator again to continue its stream). Returns ``(state, samples,
         infos)`` with leaves shaped (K, num_steps, ...)."""
         gen = make_generator(seed, self._device)
+        if self._mesh is not None:
+            with sharding.logical_axis_rules(self._mesh):
+                return self._run(gen, state, num_steps)
+        return self._run(gen, state, num_steps)
+
+    def _run(self, gen, state: EnsembleState, num_steps: int):
         if self.stepping == "masked":
             return self._run_masked(gen, state, num_steps)
         if self.transition is not None:

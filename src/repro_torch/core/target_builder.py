@@ -31,8 +31,17 @@ carries its recipe, a :class:`TargetSpec`: :mod:`repro_torch.partition`
 rebuilds it on a data slice under a tempered prior, and
 :func:`append_observations` on a grown pool (streaming append). Per-chain
 (K, N, D) logit pools raise ``NotImplementedError``: no path of the
-reference reaches them. The reference's mesh constraints (``lc``) have no
-counterpart on one device.
+reference reaches them.
+
+Under an ensemble's mesh (:func:`repro_torch.distributed.logical_axis_rules`,
+which ``ChainEnsemble.run`` activates for a sharded run) the ensemble round
+of ``bind`` splits each (K, m) block chains x data, where the reference
+constrains its gather with ``lc``: slot (i, j) scores rows i and columns j
+of the block with its rows of theta and theta', through the family's kernel
+on the slot's device, and the pieces are assembled on the home device
+before the round op. A pool of tensors is placed once on each slot device
+(one copy a device, however many slots share it); a callable pool is
+computed on the home device and scored there.
 """
 from __future__ import annotations
 
@@ -42,6 +51,7 @@ from typing import Any, Callable
 import torch
 
 from .._device import tree_leaves, tree_map
+from ..distributed import sharding
 from ..kernels import ops, ref
 from .target import PartitionedTarget
 
@@ -132,13 +142,16 @@ class KernelFamily:
     ``delta(data, params, params_p, idx, mode=) -> (m,)`` for one chain,
     and ``ensemble_delta(data, params, params_p, idx, mode=) -> (K, m)`` for
     a lock-step round; ``mode`` is the kernel dispatch. ``takes_range``: the
-    one-chain ``delta`` also accepts ``range(start, stop)`` for ``idx``."""
+    one-chain ``delta`` also accepts ``range(start, stop)`` for ``idx``.
+    ``chain_rows(pools, rows)`` are the pools that chains ``rows`` (a slice)
+    read: per-chain pools sliced, shared ones as they are (the default)."""
 
     name: str
     loglik: Callable[..., torch.Tensor]
     delta: Callable[..., torch.Tensor]
     ensemble_delta: Callable[..., torch.Tensor]
     takes_range: bool = False
+    chain_rows: Callable[[Any, slice], Any] = lambda pools, rows: pools
 
 
 _FAMILIES: dict[str, KernelFamily] = {}
@@ -225,10 +238,14 @@ def _ce_ensemble_delta(data, table, table_p, idx, mode: str = "auto"):
             - ops.gather_fused_ce(h, targets, idx, table, mode=mode))
 
 
+def _ar1_chain_rows(pools, rows):
+    return tuple(a[rows] if a.ndim == 2 else a for a in pools)
+
+
 register_family(KernelFamily("logit", _logit_loglik, _logit_delta, _logit_ensemble_delta,
                              takes_range=True))
 register_family(KernelFamily("gaussian_ar1", _ar1_loglik, _ar1_delta, _ar1_ensemble_delta,
-                             takes_range=True))
+                             takes_range=True, chain_rows=_ar1_chain_rows))
 register_family(KernelFamily("ce", _ce_loglik, _ce_delta, _ce_ensemble_delta))
 
 
@@ -260,6 +277,32 @@ def _gm_ensemble_delta(data, theta, theta_p, idx, mode: str = "auto"):
 # harness holds the combined draws to. Plain torch: the reference's is jnp
 # that XLA fuses, with no Pallas kernel (ROADMAP §2).
 register_family(KernelFamily("gaussian_mean", _gm_loglik, _gm_delta, _gm_ensemble_delta))
+
+
+def _mesh_round(mesh, fam: KernelFamily, pools, a, b, mode: str):
+    """The ensemble round of one transition split over ``mesh`` (see the
+    module docstring). ``pools`` is a callable ``device -> pools`` for a pool
+    of tensors, else the pools computed on the home device."""
+    home = tree_leaves(a)[0].device
+    pieces: dict = {}  # (device, rows) -> that slot's pools, theta rows and theta' rows
+
+    def score(blk, idx):
+        rows, dev = blk.index[0], blk.device
+        key = (dev, rows.start, rows.stop)
+        got = pieces.get(key)
+        if got is None:
+            if callable(pools):
+                on = pools(dev)
+            elif dev == sharding.canonical(home):
+                on = pools
+            else:
+                raise ValueError(f"a {fam.name} target with a callable pool is scored on its "
+                                 f"home device {home}, not on slot device {dev}")
+            got = pieces[key] = (fam.chain_rows(on, rows), sharding.rows_of(a, rows, dev),
+                                 sharding.rows_of(b, rows, dev))
+        return fam.ensemble_delta(*got, idx, mode=mode)
+
+    return sharding.split_round(*mesh, home, score)
 
 
 def build_target(
@@ -344,10 +387,25 @@ def build_target(
         return fam.ensemble_delta(data_fn(theta), params_fn(theta), params_fn(theta_p), idx,
                                   mode=mode)
 
+    placed: dict = {}  # the pool of tensors on each slot device it was placed on
+
+    def pools_on(dev):
+        got = placed.get(dev)
+        if got is None:
+            got = placed.setdefault(dev, tree_map(lambda t: sharding.place(t, dev), data))
+            if dev.type == "cuda":  # copied on this thread's stream; used on any thread's
+                torch.cuda.synchronize(dev)
+        return got
+
     def bind(theta, theta_p, ensemble: bool = False, mode: str = "auto"):
         if not ensemble and user_log_local is not None:
             return lambda idx: user_log_local(theta, theta_p, idx)
-        pools, a, b = data_fn(theta), params_fn(theta), params_fn(theta_p)
+        a, b = params_fn(theta), params_fn(theta_p)
+        mesh = sharding.active_mesh() if ensemble else None
+        if mesh is not None:
+            return _mesh_round(mesh, fam, data_fn(theta) if callable(data) else pools_on,
+                               a, b, mode)
+        pools = data_fn(theta)
         fn = fam.ensemble_delta if ensemble else fam.delta
         return lambda idx: fn(pools, a, b, idx, mode=mode)
 

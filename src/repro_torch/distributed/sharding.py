@@ -1,0 +1,357 @@
+"""Logical-axis sharding over a mesh of slots: the port of
+``repro.distributed.sharding``.
+
+Each tensor dim carries a *logical* name, and a prioritised rule list maps
+names to mesh axes. A rule is skipped when the dim is not divisible by the
+size of its mesh axes, or when another dim of the same tensor already took
+one of them; the dim is then replicated (MaxText-style). The rules and
+:func:`resolve_spec` are the reference's, so the same shape, names and mesh
+shape give the same spec.
+
+The reference's mesh is an array of JAX devices that one program drives
+through ``jit`` and ``shard_map``. Here it is an array of *slots*, each a
+``torch.device`` that one process drives eagerly (:mod:`.slots` lists
+them): a slot holds its piece of a tensor on its device, and
+:func:`shard_tensor` / :func:`assemble` move pieces out and back. Several
+slots may share one device (the counterpart of JAX's forced host devices).
+Along a mesh axis that a tensor's spec does not use, the pieces repeat, and
+only the slot at index 0 of that axis holds one
+(:meth:`NamedSharding.owners`): it does that piece's work.
+
+``lc(x, names)`` is a no-op without an active mesh or on one slot. Under an
+active mesh of more slots it raises: in the reference it constrains an
+activation's layout inside jitted model code, and an eager tensor has no
+layout to constrain. The LM's model-parallel slice brings its counterpart.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels import _build
+
+# Priority-ordered candidate mesh axes per logical axis name. The first
+# candidate whose size divides the dim (and isn't already used by another dim
+# of the same tensor) wins; otherwise the dim is replicated.
+DEFAULT_RULES: dict[str, tuple[tuple[str, ...], ...]] = {
+    "batch": (("pod", "data"), ("data",)),
+    "vocab": (("model",),),
+    "embed": (("data",),),  # FSDP-style weight sharding over the data axis
+    "embed_tp": (("model",),),
+    "mlp": (("model",),),
+    "q_heads": (("model",),),
+    "kv_heads": (("model",),),
+    "heads_flat": (("model",),),
+    "experts": (("model",),),
+    "mamba_inner": (("model",),),
+    "expert_mlp": (("model",),),
+    "capacity": (("model",),),  # MoE buffer fallback when experts % model != 0
+    "kv_seq": (("model", "data"), ("model",)),  # decode-cache sequence sharding
+    "seq": (),  # sequence dim: replicated by default (SP is a perf knob)
+    "layers": (),
+    "conv": (),
+    "state": (),
+    # -- MCMC-ensemble axes (the chains x data mesh of ChainEnsemble). The
+    # (K,) chain axis spreads whole chains; "subsample" is the m axis of a
+    # sequential-test round's (K, m) mini-batch, split over the data axis so
+    # each slot scores its columns of the drawn sections. Both are no-ops on
+    # model-training meshes (no "chains" axis there) and fall through to
+    # replicated when the dim isn't divisible.
+    "ensemble_chains": (("chains",),),
+    "subsample": (("data",),),
+}
+
+# The logical names of a sequential-test round's (K, m) block.
+ROUND_AXES = ("ensemble_chains", "subsample")
+
+
+class PartitionSpec(tuple):
+    """Per dim, the mesh axis (a name), axes (a tuple of names) or None
+    (replicated) it is split over; trailing Nones are dropped, as JAX's
+    ``PartitionSpec`` built by :func:`resolve_spec` drops them."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+class Mesh:
+    """An n-d array of slots with one name per axis. ``shape`` is the dict
+    {axis name: size}, as JAX's; ``devices`` the object array of
+    ``torch.device`` slots."""
+
+    def __init__(self, devices: Sequence | np.ndarray, axis_names: Sequence[str]):
+        arr = np.asarray(devices, dtype=object) if isinstance(devices, np.ndarray) else None
+        if arr is None:
+            flat = list(devices)
+            arr = np.empty(len(flat), dtype=object)
+            arr[:] = [torch.device(d) for d in flat]
+        axis_names = tuple(axis_names)
+        if arr.ndim != len(axis_names):
+            raise ValueError(f"mesh of {arr.ndim} dims needs as many axis names, got {axis_names}")
+        if len(set(axis_names)) != len(axis_names):
+            raise ValueError(f"mesh axis names repeat: {axis_names}")
+        self.devices = arr
+        self.axis_names = axis_names
+        self._round_blocks: dict = {}  # split_round's owner blocks, by shape and rules
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def __repr__(self) -> str:
+        devs = sorted({str(d) for d in self.devices.flat})
+        return f"Mesh({self.shape}, devices={devs})"
+
+
+class _Ctx(threading.local):
+    mesh: Mesh | None = None
+    rules: dict[str, tuple[tuple[str, ...], ...]] | None = None
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def logical_axis_rules(mesh: Mesh, rules: dict | None = None):
+    """Activate a mesh and a rule set for this thread: the ensemble's round
+    evaluators then split their (K, m) blocks over it."""
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh = mesh
+    _CTX.rules = dict(DEFAULT_RULES, **(rules or {}))
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def active_mesh() -> tuple[Mesh, dict] | None:
+    """(mesh, rules) of this thread's active mesh of more than one slot, or
+    None."""
+    mesh = _CTX.mesh
+    if mesh is None or mesh.size <= 1:
+        return None
+    return mesh, _CTX.rules
+
+
+def _mesh_axis_size(mesh: Mesh, axes: tuple[str, ...]) -> int:
+    size = 1
+    for a in axes:
+        size *= mesh.shape.get(a, 1)
+    return size
+
+
+def resolve_spec(shape: Sequence[int], logical: Sequence[str | None], mesh: Mesh,
+                 rules: dict) -> PartitionSpec:
+    """Map logical axis names to a PartitionSpec honoring divisibility and
+    one-mesh-axis-per-tensor uniqueness. Reads only ``mesh.shape``."""
+    used: set[str] = set()
+    parts: list = []
+    for dim, name in zip(shape, logical):
+        assigned = None
+        if name is not None:
+            for cand in rules.get(name, ()):
+                cand_eff = tuple(a for a in cand if a in mesh.shape and a not in used)
+                if not cand_eff:
+                    continue
+                if dim % _mesh_axis_size(mesh, cand_eff) == 0:
+                    assigned = cand_eff if len(cand_eff) > 1 else cand_eff[0]
+                    used.update(cand_eff)
+                    break
+        parts.append(assigned)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return PartitionSpec(*parts)
+
+
+def lc(x: torch.Tensor, logical: Sequence[str | None]) -> torch.Tensor:
+    """Logical sharding constraint: a no-op without an active mesh or on one
+    slot; raises under an active mesh of more slots."""
+    mesh = _CTX.mesh
+    if mesh is None or mesh.size <= 1:
+        return x
+    raise NotImplementedError(
+        f"lc(x, {tuple(logical)}) under a mesh of {mesh.size} slots: sharding constraints "
+        "on the LM's tensors come with its model-parallel slice "
+        "(launch/train.py --model-parallel)")
+
+
+class Block(NamedTuple):
+    """One owner slot's piece: its position in the mesh, its device and the
+    index slices of its piece, one per dim."""
+
+    slot: tuple[int, ...]
+    device: torch.device
+    index: tuple[slice, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's layout over ``mesh``: ``spec`` names the mesh axes each dim
+    is split over (evenly: :func:`resolve_spec` only splits divisible dims)."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def _dim_axes(self, ndim: int) -> list[tuple[str, ...]]:
+        parts = list(self.spec) + [None] * (ndim - len(self.spec))
+        return [() if p is None else (p,) if isinstance(p, str) else tuple(p) for p in parts]
+
+    def slot_index(self, slot: tuple[int, ...], shape: Sequence[int]) -> tuple[slice, ...]:
+        """The index slices of slot ``slot``'s piece of a ``shape`` tensor."""
+        sizes = self.mesh.shape
+        pos = dict(zip(self.mesh.axis_names, slot))
+        index = []
+        for dim, axes in zip(shape, self._dim_axes(len(shape))):
+            n, i = 1, 0
+            for a in axes:  # row-major over the dim's axes, as JAX numbers shards
+                n, i = n * sizes[a], i * sizes[a] + pos[a]
+            if dim % n:
+                raise ValueError(f"dim {dim} does not split evenly over mesh axes {axes}")
+            step = dim // n
+            index.append(slice(i * step, (i + 1) * step))
+        return tuple(index)
+
+    def owners(self, shape: Sequence[int]) -> list[Block]:
+        """The slots that own a distinct piece: index 0 along every mesh axis
+        the spec does not use (the others' pieces repeat an owner's)."""
+        used = {a for axes in self._dim_axes(len(shape)) for a in axes}
+        free = [k for k, a in enumerate(self.mesh.axis_names) if a not in used]
+        return [Block(slot, self.mesh.devices[slot], self.slot_index(slot, shape))
+                for slot in np.ndindex(*self.mesh.devices.shape)
+                if all(slot[k] == 0 for k in free)]
+
+
+def named_sharding(mesh: Mesh, shape: Sequence[int], logical: Sequence[str | None],
+                   rules: dict | None = None) -> NamedSharding:
+    rules = dict(DEFAULT_RULES, **(rules or {}))
+    return NamedSharding(mesh, resolve_spec(shape, logical, mesh, rules))
+
+
+def tree_shardings(mesh: Mesh, specs: dict, rules: dict | None = None):
+    """Map a {path: ParamSpec} dict to {path: NamedSharding}."""
+    return {k: named_sharding(mesh, v.shape, v.logical, rules) for k, v in specs.items()}
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return np.dtype(dtype).itemsize
+
+
+def count_bytes(specs: dict) -> int:
+    """Bytes of a {path: ParamSpec} dict's tensors."""
+    return sum(int(np.prod(v.shape)) * _itemsize(v.dtype) for v in specs.values())
+
+
+# ---------------------------------------------------------------------------
+# Moving pieces between the home device and the slots
+# ---------------------------------------------------------------------------
+
+
+def canonical(device) -> torch.device:
+    """``device`` with its index: bare ``cuda`` is the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def place(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``; itself when it is there already. A contiguous
+    tensor keeps its address modulo 16 bytes, so a kernel that picks its
+    vector width from the address reads the copy as it reads ``t``."""
+    device = canonical(device)
+    if canonical(t.device) == device:
+        return t
+    off = t.data_ptr() % 16
+    if not t.is_contiguous() or off % t.element_size():
+        return t.to(device)
+    lead = off // t.element_size()
+    buf = torch.empty(t.numel() + lead, dtype=t.dtype, device=device)
+    out = buf[lead:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def shard_tensor(x: torch.Tensor, blocks: Sequence[Block]) -> list[torch.Tensor]:
+    """Each block's piece of ``x``, contiguous, on the block's device
+    (``blocks`` as :meth:`NamedSharding.owners` gives them)."""
+    return [place(x[blk.index].contiguous(), blk.device) for blk in blocks]
+
+
+def assemble(pieces: Sequence[torch.Tensor], blocks: Sequence[Block], shape: Sequence[int],
+             device) -> torch.Tensor:
+    """The whole ``shape`` tensor on ``device`` from the blocks' pieces."""
+    out = torch.empty(tuple(shape), dtype=pieces[0].dtype, device=device)
+    for blk, piece in zip(blocks, pieces):
+        out[blk.index].copy_(piece)
+    return out
+
+
+class _SlotContext:
+    """Attributes kernel launches to a slot (``_build.SLOT_LAUNCHES``) and
+    makes the slot's card the current one while it launches."""
+
+    __slots__ = ("slot", "device", "_prev", "_guard")
+
+    def __init__(self, slot, device):
+        self.slot, self.device = slot, device
+
+    def __enter__(self):
+        self._prev = _build.enter_slot(self.slot)
+        self._guard = None
+        if self.device.type == "cuda" and self.device.index != torch.cuda.current_device():
+            self._guard = torch.cuda.device(self.device)
+            self._guard.__enter__()
+
+    def __exit__(self, *exc):
+        if self._guard is not None:
+            self._guard.__exit__(*exc)
+        _build.leave_slot(self._prev)
+
+
+def split_round(mesh: Mesh, rules: dict, home,
+                score: Callable[[Block, torch.Tensor], torch.Tensor]):
+    """``idx (K, m) -> (K, m)`` that splits each round's index block over the
+    mesh by :data:`ROUND_AXES`: ``score(block, idx_piece)`` scores one owner
+    slot's piece on the slot's device (``idx_piece`` contiguous there), and
+    the pieces are assembled on ``home``. Work on a slot's device follows the
+    copies to it, and the assembly follows the slot's kernels, through the
+    calling thread's current stream on each device (PyTorch orders a copy
+    between devices after both devices' current streams)."""
+    home = canonical(home)
+    plans = mesh._round_blocks  # kept on the mesh: a transition binds a new split_round
+
+    def run(idx: torch.Tensor) -> torch.Tensor:
+        key = (tuple(idx.shape),) + tuple(rules.get(name) for name in ROUND_AXES)
+        blocks = plans.get(key)
+        if blocks is None:
+            sh = NamedSharding(mesh, resolve_spec(idx.shape, ROUND_AXES, mesh, rules))
+            blocks = plans[key] = [blk._replace(device=canonical(blk.device))
+                                   for blk in sh.owners(idx.shape)]
+        out = []
+        for blk, piece in zip(blocks, shard_tensor(idx, blocks)):
+            with _SlotContext(blk.slot, blk.device):
+                out.append(score(blk, piece))
+        return assemble(out, blocks, idx.shape, home)
+
+    return run
+
+
+def rows_of(tree: Any, rows: slice, device) -> Any:
+    """Rows ``rows`` of every leaf of a chain-batched tree, on ``device``."""
+    from .._device import tree_map
+
+    return tree_map(lambda l: place(l[rows].contiguous(), device), tree)

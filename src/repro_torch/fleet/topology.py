@@ -58,10 +58,12 @@ class FleetConfig:
     """The fleet's static shape.
 
     ``replicas``: read replicas a shard; ``shards``: independent writers a
-    workload; ``mesh``: ``"auto"`` or ``False`` (the writers' ensembles as
-    configured, or unsharded; on one device the same), a mesh tuple raises
-    until the distributed slice; ``transport``: ``"inproc"`` replicas share
-    the process, ``"proc"`` replicas each get an OS process;
+    workload; ``mesh``: the writers' ensembles' ``shard=``: ``"auto"``
+    keeps each workload's own setting, anything else (``False``, ``True``,
+    a ``("chains", "data")`` tuple or a dict of axis sizes) replaces it, as
+    in the reference (replicas only evaluate and never shard);
+    ``transport``: ``"inproc"`` replicas share the process, ``"proc"``
+    replicas each get an OS process;
     ``replica_threads``: ``torch.set_num_threads`` in each replica
     process (None keeps torch's default); ``subposterior``: data partitions
     P a workload (P = 1 is the unpartitioned fleet, bit for bit);
@@ -86,9 +88,6 @@ class FleetConfig:
             raise ValueError(f"subposterior must be >= 1, got {self.subposterior}")
         if self.combine not in COMBINE_METHODS:
             raise ValueError(f"unknown combine method {self.combine!r}; known: {COMBINE_METHODS}")
-        if self.mesh not in ("auto", False):
-            raise NotImplementedError(f"FleetConfig(mesh={self.mesh!r}) comes with the "
-                                      "distributed slice (repro_torch.distributed)")
 
 
 class FleetShard(NamedTuple):
@@ -159,8 +158,8 @@ class Fleet:
         for i in range(cfg.shards):
             shard_name = f"{name}@{i}"  # "@": shard names are checkpoint file stems too
             ensemble = base.ensemble
-            if cfg.mesh is False:
-                ensemble = dataclasses.replace(ensemble, shard=False)
+            if cfg.mesh != "auto":
+                ensemble = dataclasses.replace(ensemble, shard=cfg.mesh)
             shard_wl = dataclasses.replace(base, name=shard_name, ensemble=ensemble)
             writer = self.pool.add_workload(shard_wl, seed=shard_seed(scfg.seed, i))
             replicas = tuple(self._make_replica(f"{shard_name}#r{j}", name, build_kw)
@@ -192,8 +191,8 @@ class Fleet:
             for i in range(cfg.shards):
                 shard_name = f"{name}@p{p}@{i}"
                 ensemble = dataclasses.replace(base.ensemble, target=sub_targets[p])
-                if cfg.mesh is False:
-                    ensemble = dataclasses.replace(ensemble, shard=False)
+                if cfg.mesh != "auto":
+                    ensemble = dataclasses.replace(ensemble, shard=cfg.mesh)
                 shard_wl = dataclasses.replace(base, name=shard_name, ensemble=ensemble)
                 writer = self.pool.add_workload(shard_wl, seed=shard_seed(scfg.seed, i, p))
                 replicas = tuple(self._make_replica(f"{shard_name}#r{j}", name, build_kw)

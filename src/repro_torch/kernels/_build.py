@@ -32,9 +32,41 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+class _Slot(threading.local):
+    slot = None
+
+
+_SLOT = _Slot()
+# Launches made while a thread scores a mesh slot's piece of a round, by
+# (slot position, kernel name): the same launches LAUNCHES counts, seen per
+# slot (repro_torch.distributed.sharding.split_round sets the slot).
+SLOT_LAUNCHES: collections.Counter = collections.Counter()
+
+
+class _Launches(collections.Counter):
+    def __setitem__(self, name, n):
+        slot = _SLOT.slot
+        if slot is not None:
+            SLOT_LAUNCHES[(slot, name)] += n - self[name]
+        super().__setitem__(name, n)
+
+
 # Kernel launches by kernel name. Each wrapper adds one where it launches its
 # kernel and nowhere else; a run sets them to 0 and reads them afterwards.
-LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES: collections.Counter = _Launches()
+
+
+def enter_slot(slot):
+    """Attribute this thread's launches to mesh slot ``slot`` until
+    :func:`leave_slot`; returns the slot it replaces."""
+    prev, _SLOT.slot = _SLOT.slot, slot
+    return prev
+
+
+def leave_slot(prev) -> None:
+    _SLOT.slot = prev
 build_log: dict[str, str] = {}  # nvcc/ptxas output per source
 
 
@@ -105,6 +137,7 @@ def check(err: int, what: str) -> None:
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    SLOT_LAUNCHES.clear()
 
 
 P = ctypes.c_void_p

@@ -308,4 +308,5 @@ def t_test_round(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds,
 
 
 launches = _build.LAUNCHES
+slot_launches = _build.SLOT_LAUNCHES
 reset_launches = _build.reset_launches

@@ -37,10 +37,15 @@ def batched_logit_delta_ref(
     """l[k, i] = log sig(y x.w'_k) - log sig(y x.w_k), accumulated in fp32.
 
     xg: (K, m, D) f32 or bf16, yg: (K, m), w_*: (K, D) -> (K, m) f32.
+
+    Each row's dot is a product and a sum over its own D values, so a row's
+    bits do not depend on K, m or where the row sits: a (K, m) block split
+    over a mesh's slots gives the whole block's bits. (A batched matmul
+    picks its order of summation by the block's shape.)
     """
     xf = xg.to(F32)
-    z_c = torch.einsum("kmd,kd->km", xf, w_cur.to(F32))
-    z_p = torch.einsum("kmd,kd->km", xf, w_prop.to(F32))
+    z_c = (xf * w_cur.to(F32)[:, None, :]).sum(-1)
+    z_p = (xf * w_prop.to(F32)[:, None, :]).sum(-1)
     y = yg.to(F32)
     return -_softplus(-y * z_p) + _softplus(-y * z_c)
 

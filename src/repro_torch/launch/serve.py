@@ -58,13 +58,23 @@ A script that starts ``proc`` replicas itself must do so under ``if
 __name__ == "__main__":`` (they are spawned, and a spawned child imports
 the main module again).
 
-Not here yet, each raising ``NotImplementedError``: ``--workload lm`` (LM
-decoding comes with the rest of the LM stack), ``--mesh 2d`` and
-``--devices`` (the distributed slice).
+With ``--fleet``, ``--mesh`` sets the writers' ensembles' ``shard=``:
+``auto`` (a 1-d chain mesh when the slots allow), ``2d`` (a chains x data
+mesh) or ``off``; ``--devices N`` makes N mesh slots visible while the
+fleet runs, cycling over the cards (or N times the CPU): the counterpart of
+the reference's forced host devices. A sharded writer is bit for bit the
+unsharded one:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fleet --mesh 2d --devices 4 \
+        --smoke --device cpu
+
+Not here yet: ``--workload lm`` (LM decoding comes with the rest of the LM
+stack) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import os
 import sys
@@ -74,11 +84,7 @@ import numpy as np
 import torch
 
 POSTERIOR_WORKLOADS = ("bayeslr", "stochvol", "jointdpm", "ppl")
-
-# flag -> the slice that brings it
-_LATER = {
-    "devices": "the distributed slice (repro_torch.distributed)",
-}
+MESHES = {"auto": "auto", "2d": ("chains", "data"), "off": False}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,9 +132,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="independent writer shards per workload")
     fl.add_argument("--replica-transport", default="inproc", choices=("inproc", "proc"),
                     help="replicas in this process, or one spawned OS process each")
-    fl.add_argument("--mesh", default="auto", choices=("auto", "2d", "off"),
-                    help="writer ensemble sharding: 'auto' or 'off' (one device: the same); "
-                         "'2d' comes with the distributed slice")
+    fl.add_argument("--mesh", default="auto", choices=tuple(MESHES),
+                    help="writer ensemble sharding: 'auto' (1-d chain mesh when the slots "
+                         "allow), '2d' (chains x data), 'off'")
+    fl.add_argument("--devices", type=int, default=None,
+                    help="make N mesh slots visible while the fleet runs, cycling over the "
+                         "cards (or the CPU): the counterpart of forced host devices")
     fl.add_argument("--max-depth", type=int, default=256,
                     help="admission: queue depth before shedding starts")
     fl.add_argument("--max-miss-rate", type=float, default=0.5,
@@ -174,8 +183,6 @@ def build_parser() -> argparse.ArgumentParser:
     ob.add_argument("--trace-dir", default=None,
                     help="end-to-end request tracing: tee every span to <dir>/spans.jsonl and "
                          "export a Chrome/Perfetto <dir>/trace.json on exit (prints TRACE_OK)")
-    later = ap.add_argument_group("not ported yet (raises NotImplementedError)")
-    later.add_argument("--devices", type=int, default=None)
     return ap
 
 
@@ -628,6 +635,22 @@ def serve_posterior(args, out: dict | None = None) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _slot_count(args) -> int:
+    """Mesh slots the writers see (the reference prints ``len(jax.devices())``)."""
+    from ..distributed import visible_slots
+
+    return len(visible_slots(args.device or "cuda"))
+
+
+@contextlib.contextmanager
+def _forced_slots(args):
+    """``--devices N``: N mesh slots for as long as the fleet runs."""
+    from ..distributed import force_devices
+
+    with force_devices(args.devices) if args.devices else contextlib.nullcontext():
+        yield
+
+
 def _build_fleet(args):
     """The fleet's config, the fleet and its workload; returns (fleet,
     workload, classes)."""
@@ -642,7 +665,7 @@ def _build_fleet(args):
     min_draws = dflt(args.min_draws, max(chains * window // 2, chains))
     config = FleetConfig(
         replicas=args.replicas, shards=args.fleet_shards, transport=args.replica_transport,
-        mesh={"auto": "auto", "off": False}[args.mesh], subposterior=args.subposterior,
+        mesh=MESHES[args.mesh], subposterior=args.subposterior,
         combine=args.combine,
         serving=ServingConfig(
             num_chains=chains, refresh_steps=refresh_steps, window=window,
@@ -654,7 +677,7 @@ def _build_fleet(args):
     )
     print(f"fleet: workload={args.workload} shards={args.fleet_shards} "
           f"replicas={args.replicas}/shard transport={args.replica_transport} mesh={args.mesh} "
-          f"K={chains} refresh={refresh_steps} window={window} "
+          f"devices={_slot_count(args)} K={chains} refresh={refresh_steps} window={window} "
           f"subposterior={args.subposterior} combine={args.combine}")
     fleet = Fleet(config)
     fleet.add_workload(args.workload, smoke=smoke, seed=args.seed)
@@ -739,7 +762,11 @@ def serve_fleet(args, out: dict | None = None) -> int:
     given, receives the run's numbers (warm seconds, requests/s, the SLO
     report, the delta stream's counters, the writers' transitions while
     serving) and the fleet and router."""
-    out = {} if out is None else out
+    with _forced_slots(args):
+        return _serve_fleet(args, {} if out is None else out)
+
+
+def _serve_fleet(args, out: dict) -> int:
     smoke = args.smoke
     dflt = lambda v, d: d if v is None else v
     num_queries = dflt(args.queries, 120 if smoke else 400)
@@ -901,7 +928,8 @@ def serve_fleet(args, out: dict | None = None) -> int:
           f"replicas={args.replicas} queries={served} p50_ms={first['p50_ms']:.2f} "
           f"p95_ms={first['p95_ms']:.2f} deadline_hit={first['deadline_hit_rate']:.3f} "
           f"shed={report['shed']} delta_ratio={ratio:.2f} parity={parity} "
-          f"subposterior={args.subposterior} combine={args.combine}"
+          f"subposterior={args.subposterior} combine={args.combine} "
+          f"devices={_slot_count(args)}"
           + (f" stream_rows={stream_rows}" if args.stream else "")
           + (f" alerts_fired={engine.fired_total}" if engine is not None else "")
           + (f" scale_up={scaler.events['scale_up']} scale_down={scaler.events['scale_down']}"
@@ -925,9 +953,13 @@ def serve_soak(args, out: dict | None = None) -> int:
     with the recovery counters; ``out``, when given, receives the run's
     numbers (served, wall seconds, the SLO report, resyncs, the scaler's
     events, the alerts fired, post-chaos parity and the replicas left)."""
+    with _forced_slots(args):
+        return _serve_soak(args, {} if out is None else out)
+
+
+def _serve_soak(args, out: dict) -> int:
     from ..obs import record_fleet_sync, record_snapshot
 
-    out = {} if out is None else out
     smoke = args.smoke
     soak_s = args.soak_seconds or (6.0 if smoke else 30.0)
     # Killing a replica must leave a live lane in its shard.
@@ -1185,12 +1217,6 @@ def main(argv=None) -> int:
     if args.workload == "lm":
         raise NotImplementedError("--workload lm (prefill, decode_step and the KV caches) comes "
                                   "with the rest of the LM stack")
-    for flag, where in _LATER.items():
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} comes with {where}")
-    if args.mesh == "2d":
-        raise NotImplementedError("--mesh 2d comes with the distributed slice "
-                                  "(repro_torch.distributed)")
     if args.subposterior > 1 or args.stream:
         args.fleet = True  # both modes live on the fleet's serve path
     if args.autoscale:

@@ -385,13 +385,18 @@ def test_fused_and_plain_routes_agree_on_cpu(lr):
 
 
 def test_deferred_paths_raise(lr):
-    """The mesh paths wait for the distributed slice, and per-chain logit
-    pools are not ported; masked stepping and schedules are ported
-    (tests/test_torch_schedule.py), and a schedule that is not a
+    """The mesh paths are ported (tests/test_torch_distributed.py): on one
+    slot every shard= form runs unsharded, bit for bit the default run.
+    Per-chain logit pools are not ported; masked stepping and schedules are
+    ported (tests/test_torch_schedule.py), and a schedule that is not a
     ScheduleConfig is refused."""
+    cfg = SubsampledMHConfig(batch_size=50, epsilon=0.05)
+    base = ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, config=cfg, device="cpu")
+    _, want, _ = base.run(1, base.init(torch.zeros(D)), 5)
     for kw in (dict(shard=True), dict(shard=("chains", "data"))):
-        with pytest.raises(NotImplementedError):
-            ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", **kw)
+        ens = ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, config=cfg, device="cpu", **kw)
+        assert ens._mesh is None
+        assert torch.equal(ens.run(1, ens.init(torch.zeros(D)), 5)[1], want)
     with pytest.raises(TypeError):
         ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", schedule=object())
     # composite cycles are ported; a cycle beside (target, proposal) is refused

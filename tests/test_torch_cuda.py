@@ -1315,3 +1315,38 @@ def test_serving_cuda_generator_survives_save_restore(cuda_device, tmp_path):
     cpu_pool.save(str(tmp_path / "cpu"))
     with pytest.raises(ValueError, match="device type"):
         _card_pool(cuda_device).restore(str(tmp_path / "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_mesh_round_on_card_slots_is_the_whole_round(precision, cuda_device, monkeypatch):
+    """A 2 x 2 mesh of four slots on the card: each (K, m) round split chains
+    x data, every slot's block scored by the pair-delta kernel, equals the
+    whole round bit for bit, at C's shape (K = 32, m = 100, N = 12 214,
+    D = 50) and at L's m_max = 400, with one launch a slot a round."""
+    from repro_torch.core import build_target
+    from repro_torch.distributed import Mesh, logical_axis_rules
+
+    monkeypatch.setenv("REPRO_PRECISION", precision)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    n, d, k = 12214, 50, 32
+    x = torch.randn((n, d), generator=gen, device=cuda_device)
+    y = torch.where(torch.rand(n, generator=gen, device=cuda_device) < 0.5, 1.0, -1.0)
+    target = build_target("logit", (x, y), n, prior_logpdf=lambda w: -(w ** 2).sum(-1))
+    th = 0.3 * torch.randn((k, d), generator=gen, device=cuda_device)
+    thp = th + 0.05 * torch.randn((k, d), generator=gen, device=cuda_device)
+    slots = np.empty(4, dtype=object)
+    slots[:] = [torch.device("cuda", torch.cuda.current_device())] * 4
+    mesh = Mesh(slots.reshape(2, 2), ("chains", "data"))
+    for m in (100, 400):
+        idx = torch.randint(0, n, (k, m), generator=gen, device=cuda_device, dtype=torch.int32)
+        whole = target.local_round(th, thp, ensemble=True, mode="always")(idx)
+        ops.reset_launches()
+        with logical_axis_rules(mesh):
+            got = target.local_round(th, thp, ensemble=True, mode="always")(idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole), (m, float((got - whole).abs().max()))
+        per_slot = {s: ops.slot_launches[(s, "batched_logit_delta")]
+                    for s in ((0, 0), (0, 1), (1, 0), (1, 1))}
+        assert per_slot == dict.fromkeys(per_slot, 1), dict(ops.slot_launches)
+        assert ops.launches["batched_logit_delta"] == 4

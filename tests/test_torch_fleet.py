@@ -638,8 +638,8 @@ def test_fleet_config_validation():
         FleetConfig(transport="carrier-pigeon")
     with pytest.raises(ValueError, match="combine"):
         FleetConfig(combine="median")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        FleetConfig(mesh=("chains", "data"))
+    # a mesh request reaches every writer's ensemble (tests/test_torch_distributed.py)
+    assert FleetConfig(mesh=("chains", "data")).mesh == ("chains", "data")
     with pytest.raises(ValueError, match="max_depth"):
         AdmissionConfig(max_depth=0)
     with pytest.raises(ValueError, match="max_miss_rate"):
@@ -731,14 +731,15 @@ def test_serve_front_end_fleet_smoke(argv, lines, capsys):
     (["--subposterior", "2", "--trace-dir", "x"], "observability slice"),
 ])
 def test_fleet_flags_of_later_slices_raise(argv, where, monkeypatch):
-    if where == "observability slice":
-        # the observability slice has come: each of its flags now reaches the
-        # fleet's serve path (the soak's, with --soak) instead of raising
-        seen = []
-        monkeypatch.setattr(serve, "serve_fleet", lambda args: seen.append("fleet") or 0)
-        monkeypatch.setattr(serve, "serve_soak", lambda args: seen.append("soak") or 0)
-        assert serve.main(argv + ["--device", "cpu"]) == 0
-        assert seen == ["soak" if "--soak" in argv else "fleet"]
-        return
-    with pytest.raises(NotImplementedError, match=where):
-        serve.main(argv + ["--device", "cpu"])
+    # the observability and distributed slices have come: each of their
+    # flags now reaches the fleet's serve path (the soak's, with --soak)
+    # instead of raising
+    seen = []
+    monkeypatch.setattr(serve, "serve_fleet", lambda args: seen.append(("fleet", args)) or 0)
+    monkeypatch.setattr(serve, "serve_soak", lambda args: seen.append(("soak", args)) or 0)
+    assert serve.main(argv + ["--device", "cpu"]) == 0
+    ((path, args),) = seen
+    assert path == ("soak" if "--soak" in argv else "fleet")
+    if where == "distributed slice":
+        assert (args.mesh, args.devices) == (("2d", None) if "--mesh" in argv else ("auto", 4))
+        assert serve.MESHES[args.mesh] in (("chains", "data"), "auto")
