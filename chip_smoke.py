@@ -57,12 +57,37 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      width and depth with its defaults: 20 subsampled and 3 exact steps,
      then a run stopped by an injected failure and resumed from its
      checkpoint, against the uninterrupted run;
+  H-cache  the lazy log-likelihood cache at full size: from H's last sample,
+     on a resident pool of 64 MarkovStream sequences of 64 tokens, 20 plain
+     steps and 20 cached steps from the same generator seed (round batch 4,
+     eps 0.05, sigma 1e-4): every step's decision, rounds and n_evaluated
+     equal, the final parameters bit for bit, the forwards a round counted;
+  H-mala  ``proposal="mala"`` (step 1e-8) on the same model and pool, 5 steps:
+     the gradient pass's ms, acceptance, steps/s, peak memory, finite
+     parameters;
   I  the ``ce`` family on one chain: the fp32 unembedding table of H's model
      under subsampled MH over N = 64 x 127 next-token sections (final hidden
      states of MarkovStream sequences), 50 transitions, then the fused route
      against ``fused_kernels="never"`` on 20 fixed proposals;
   J  the same target on K=8 lock-step chains with per-chain (8, V, D) fp32
      tables, 20 steps;
+  T  decoding from a posterior sample, after J: ``serve_lm`` (``--workload lm
+     --arch chatglm3-6b --ckpt-dir`` H's subsampled checkpoint) at the front
+     end's defaults (batch 8, prompt 64, 64 decode steps): prefill's last
+     logits against the no-cache forward and 8 teacher-forced decode steps
+     against the forward of the grown sequence, held at a bf16 bar on the
+     sample cut to its first 2 layers and recorded at full depth, where the
+     random model is chaotic (beside the forward against itself at another
+     batch size);
+  T-long  T's parameters, batch 1, a 4 096-token prompt into 8 200 positions:
+     every layer's prefill takes ``_attend_flash``, layer 0's output held to
+     ``_attend_dense`` on the same q/k/v, then 16 decode steps;
+  T-xlstm  ``--workload lm`` at its defaults (xlstm-350m, random): T's decode
+     checks (against the prefill of the grown sequence: the family's cache
+     starts the sLSTM stabilizer where the no-cache forward does not). No
+     table kernel runs in H-cache, H-mala or T (the LM forward takes the
+     plain ``unembed_loglik``, as the reference does); H-cache and H-mala
+     launch the round op;
   P  compiled programs (``repro_torch.ppl``): the BayesLR program on B's
      data, compiled onto the ``logit`` family, held bit for bit to B's
      hand-built target on C's 200 fixed proposals, then K=32 lock-step
@@ -148,9 +173,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1459,7 +1486,7 @@ def lm_ce_setup(params, cfg):
 RESUME_LAYERS = 2  # depth of the crash-and-resume check (width stays full)
 
 
-def phase_h(report):
+def phase_h(report, root):
     """The reference launcher's path on the port: ``repro_torch.launch.train``
     for chatglm3-6b at full width and depth with the launcher's defaults,
     then a run stopped by an injected failure and resumed from its
@@ -1468,9 +1495,10 @@ def phase_h(report):
     Disk: a full-size checkpoint is 12 GB and the script keeps its writes to
     about 30 GB, so each launcher run writes one (``--ckpt-every`` at the
     run's length) and the resume check, which needs four, runs at full width
-    with the depth cut to ``RESUME_LAYERS`` layers (1.35 GB each)."""
+    with the depth cut to ``RESUME_LAYERS`` layers (1.35 GB each). Under
+    ``root`` only the subsampled run's checkpoint stays (``root/sub``, for
+    phase T); the rest is removed before the phase returns."""
     import dataclasses
-    import tempfile
 
     import numpy as np
     import torch
@@ -1489,67 +1517,70 @@ def phase_h(report):
           f"round batch 4, eps 0.05, sigma 1e-4): {LM_EXACT_STEPS} exact + {LM_STEPS} subsampled "
           "steps, one checkpoint each")
     r = report["phases"]["H"]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
-        def run():
-            exact = train.main(["--steps", str(LM_EXACT_STEPS), "--kernel", "exact",
-                                "--ckpt-every", str(LM_EXACT_STEPS), "--ckpt-dir", f"{tmp}/exact"])
-            exact.pop("params")
-            sub = train.main(["--steps", str(LM_STEPS), "--ckpt-every", str(LM_STEPS),
-                              "--ckpt-dir", f"{tmp}/sub"])
-            return sub, exact
+    tmp = root
 
-        sub, exact = counted(report, "H", run)
-        for name, out in (("subsampled", sub), ("exact", exact)):
-            infos = out["infos"]
-            r[name] = {"steps": len(infos), "steps_per_s": out["steps_per_s"],
-                       "step_ms_median": 1e3 * statistics.median(out["step_s"][1:]),
-                       "wall_s": out["wall_s"], "peak_gib": (out["peak_bytes"] or 0) / 2 ** 30,
-                       "accept": float(np.mean([i["accepted"] for i in infos])),
-                       "mean_sections": float(np.mean([i["n_evaluated"] for i in infos])),
-                       "mean_rounds": float(np.mean([i["rounds"] for i in infos]))}
-            print(f"  {name}: {r[name]}")
-        check(all(np.isfinite(i["mu_hat"]) for i in sub["infos"] + exact["infos"])
-              and all(int(i["n_evaluated"]) == 16 for i in exact["infos"]),
-              "phase H: finite mu_hat on every step; exact steps evaluate all 16 sequences")
-        check(all(bool(torch.isfinite(l.float()).all()) for l in
-                  [sub["params"]["embed"]["table"], sub["params"]["layers"]["mlp"]["wo"]]),
-              "phase H: the chain's parameters stay finite")
+    def run():
+        exact = train.main(["--steps", str(LM_EXACT_STEPS), "--kernel", "exact",
+                            "--ckpt-every", str(LM_EXACT_STEPS), "--ckpt-dir", f"{tmp}/exact"])
+        exact.pop("params")
+        sub = train.main(["--steps", str(LM_STEPS), "--ckpt-every", str(LM_STEPS),
+                          "--ckpt-dir", f"{tmp}/sub"])
+        return sub, exact
 
-        # the launcher's chain stopped by an injected failure at step 15 and
-        # resumed from its step-9 checkpoint must end where the same chain
-        # run without a stop ends (full width, depth cut for the disk)
-        small = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
-        print(f"  resume check: {small.name} at full width, depth cut {cfg.n_layers} -> "
-              f"{RESUME_LAYERS} layers ({small.param_count():,} parameters, "
-              f"{2 * small.param_count() / 1e9:.2f} GB a checkpoint), {LM_STEPS} steps, "
-              "checkpoints every 10")
-        step = make_train_step(small, TrainConfig(round_batch=4, epsilon=0.05, sigma=1e-4))
-        stream = MarkovStream(DataConfig(small.vocab, 64, 16, seed=0))
-        params0 = init_params(0, small)
-        loop = lambda d, **kw: LoopConfig(num_steps=LM_STEPS, ckpt_dir=f"{tmp}/{d}", ckpt_every=10,
-                                          **kw)
-        t0 = time.perf_counter()
-        clean = run_loop(step, params0, stream.batch, loop("clean"))
-        try:
-            run_loop(step, params0, stream.batch, loop("crash", fail_at_step=15))
-            raise CheckFailed("phase H: the injected failure did not fire")
-        except InjectedFailure:
-            pass
-        resumed = run_loop(step, params0, stream.batch, loop("crash"))
-        torch.cuda.synchronize()
-        r["resume_wall_s"] = time.perf_counter() - t0
-        r["resume_layers"] = RESUME_LAYERS
-        same = all(torch.equal(a, b) for a, b in zip(_leaves(clean["params"]),
-                                                     _leaves(resumed["params"])))
-        same_infos = all(np.array_equal(a[k], b[k])
-                         for a, b in zip(clean["infos"][10:], resumed["infos"]) for k in a)
-        moved = sum(bool(i["accepted"]) for i in clean["infos"])
-        print(f"  resume: {len(resumed['infos'])} steps after the restore, {moved} of {LM_STEPS} "
-              f"steps accepted, {r['resume_wall_s']:.1f}s for the three runs")
-        check(same and same_infos and len(resumed["infos"]) == LM_STEPS - 10 and moved > 0,
-              "phase H: the run stopped at step 15 and resumed from step 9 equals the "
-              "uninterrupted run (every parameter bit and every step's info)")
-        del params0, clean, resumed
+    sub, exact = counted(report, "H", run)
+    for name, out in (("subsampled", sub), ("exact", exact)):
+        infos = out["infos"]
+        r[name] = {"steps": len(infos), "steps_per_s": out["steps_per_s"],
+                   "step_ms_median": 1e3 * statistics.median(out["step_s"][1:]),
+                   "wall_s": out["wall_s"], "peak_gib": (out["peak_bytes"] or 0) / 2 ** 30,
+                   "accept": float(np.mean([i["accepted"] for i in infos])),
+                   "mean_sections": float(np.mean([i["n_evaluated"] for i in infos])),
+                   "mean_rounds": float(np.mean([i["rounds"] for i in infos]))}
+        print(f"  {name}: {r[name]}")
+    check(all(np.isfinite(i["mu_hat"]) for i in sub["infos"] + exact["infos"])
+          and all(int(i["n_evaluated"]) == 16 for i in exact["infos"]),
+          "phase H: finite mu_hat on every step; exact steps evaluate all 16 sequences")
+    check(all(bool(torch.isfinite(l.float()).all()) for l in
+              [sub["params"]["embed"]["table"], sub["params"]["layers"]["mlp"]["wo"]]),
+          "phase H: the chain's parameters stay finite")
+
+    # the launcher's chain stopped by an injected failure at step 15 and
+    # resumed from its step-9 checkpoint must end where the same chain
+    # run without a stop ends (full width, depth cut for the disk)
+    small = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    print(f"  resume check: {small.name} at full width, depth cut {cfg.n_layers} -> "
+          f"{RESUME_LAYERS} layers ({small.param_count():,} parameters, "
+          f"{2 * small.param_count() / 1e9:.2f} GB a checkpoint), {LM_STEPS} steps, "
+          "checkpoints every 10")
+    step = make_train_step(small, TrainConfig(round_batch=4, epsilon=0.05, sigma=1e-4))
+    stream = MarkovStream(DataConfig(small.vocab, 64, 16, seed=0))
+    params0 = init_params(0, small)
+    loop = lambda d, **kw: LoopConfig(num_steps=LM_STEPS, ckpt_dir=f"{tmp}/{d}", ckpt_every=10,
+                                      **kw)
+    t0 = time.perf_counter()
+    clean = run_loop(step, params0, stream.batch, loop("clean"))
+    try:
+        run_loop(step, params0, stream.batch, loop("crash", fail_at_step=15))
+        raise CheckFailed("phase H: the injected failure did not fire")
+    except InjectedFailure:
+        pass
+    resumed = run_loop(step, params0, stream.batch, loop("crash"))
+    torch.cuda.synchronize()
+    r["resume_wall_s"] = time.perf_counter() - t0
+    r["resume_layers"] = RESUME_LAYERS
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(clean["params"]),
+                                                 _leaves(resumed["params"])))
+    same_infos = all(np.array_equal(a[k], b[k])
+                     for a, b in zip(clean["infos"][10:], resumed["infos"]) for k in a)
+    moved = sum(bool(i["accepted"]) for i in clean["infos"])
+    print(f"  resume: {len(resumed['infos'])} steps after the restore, {moved} of {LM_STEPS} "
+          f"steps accepted, {r['resume_wall_s']:.1f}s for the three runs")
+    check(same and same_infos and len(resumed["infos"]) == LM_STEPS - 10 and moved > 0,
+          "phase H: the run stopped at step 15 and resumed from step 9 equals the "
+          "uninterrupted run (every parameter bit and every step's info)")
+    del params0, clean, resumed
+    for d in ("exact", "clean", "crash"):
+        shutil.rmtree(f"{tmp}/{d}", ignore_errors=True)
     params = sub.pop("params")
     return params, cfg
 
@@ -1671,6 +1702,405 @@ def phase_j(report, target, theta):
     check(bool(torch.isfinite(samples).all()) and samples.shape == (k, steps, 2, 4),
           f"phase J samples finite, shape {tuple(samples.shape)}")
     check(0.0 < r["accept"] < 1.0, "phase J: the chains accept and reject")
+
+
+# ---------------------------------------------------------------------------
+# Phases H-cache, H-mala: the LM's cached and MALA steps (chatglm3-6b, full size)
+# ---------------------------------------------------------------------------
+
+HC_POOL, HC_SEQ, HC_STEPS = 64, 64, 20  # a resident pool of 64 sequences, steps of each run
+HM_STEPS, HM_STEP = 5, 1e-8  # H-mala: noise std sqrt(1e-8) = H's RW sigma 1e-4
+
+
+def lm_pool(cfg):
+    """H-cache's and H-mala's resident pool: 64 MarkovStream sequences of 64
+    tokens (seed 0, ``batch(0)``), fixed across steps."""
+    from repro_torch.data import DataConfig, MarkovStream
+
+    return MarkovStream(DataConfig(cfg.vocab, HC_SEQ, HC_POOL, seed=0)).batch(0)
+
+
+@contextlib.contextmanager
+def counting_forwards():
+    """Count the LM forwards the train step runs (the step's
+    ``forward_loglik``), in ``calls["n"]``."""
+    import repro_torch.bayes.train as bt
+
+    calls, real = {"n": 0}, bt.forward_loglik
+
+    def counted_forward(*a, **k):
+        calls["n"] += 1
+        return real(*a, **k)
+
+    bt.forward_loglik = counted_forward
+    try:
+        yield calls
+    finally:
+        bt.forward_loglik = real
+
+
+def lm_chain(step, params, batch, steps, seed, cache=None):
+    """``steps`` transitions from ``params`` on a generator seeded ``seed``:
+    (final params, infos, seconds a step, forwards)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    infos, secs = [], []
+    with counting_forwards() as calls:
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cache is None:
+                params, info = step(gen, params, batch)
+            else:
+                params, cache, info = step(gen, params, batch, cache)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            infos.append(info)
+    return params, infos, secs, calls["n"]
+
+
+def phase_h_cache(report, params, cfg):
+    """The lazy log-likelihood cache at full size: 20 plain steps, then 20
+    cached steps from the same generator seed and the same parameters, on a
+    resident pool; every step's decision, rounds and n_evaluated equal, the
+    final parameters bit for bit, and the forwards a round counted."""
+    import torch
+
+    from repro_torch.bayes import (LogLikCache, TrainConfig, make_cached_train_step,
+                                   make_train_step)
+
+    batch = lm_pool(cfg)
+    tc = TrainConfig(round_batch=4, epsilon=0.05, sigma=1e-4)
+    print(f"phase H-cache: {cfg.name} at full size from H's last sample, a resident pool of "
+          f"{HC_POOL} sequences of {HC_SEQ} tokens, round batch 4, eps 0.05, sigma 1e-4: "
+          f"{HC_STEPS} plain steps, then {HC_STEPS} cached steps from the same generator seed")
+    r = report["phases"]["H-cache"]
+
+    def run():
+        out = {}
+        for name, cached in (("plain", False), ("cached", True)):
+            torch.cuda.reset_peak_memory_stats()
+            step = make_cached_train_step(cfg, tc) if cached else make_train_step(cfg, tc)
+            cache = LogLikCache.empty(HC_POOL) if cached else None
+            out[name] = lm_chain(step, params, batch, HC_STEPS, 11, cache)
+            out[name] += (torch.cuda.max_memory_allocated() / 2 ** 30,)
+        return out
+
+    out = counted(report, "H-cache", run)
+    for name, (_, infos, secs, forwards, peak) in out.items():
+        rounds = sum(int(i.rounds) for i in infos)
+        r[name] = {"steps_per_s": (len(secs) - 1) / sum(secs[1:]),
+                   "forwards_per_round": forwards / rounds,
+                   "theta_forwards_per_round": (forwards - rounds) / rounds,
+                   "rounds": rounds, "accept": sum(bool(i.accepted) for i in infos) / len(infos),
+                   "mean_sections": sum(int(i.n_evaluated) for i in infos) / len(infos),
+                   "peak_gib": peak}
+        print(f"  {name}: {r[name]}")
+    (p_plain, i_plain, *_), (p_cached, i_cached, *_) = out["plain"], out["cached"]
+    same_infos = all(int(a.accepted) == int(b.accepted) and int(a.rounds) == int(b.rounds)
+                     and int(a.n_evaluated) == int(b.n_evaluated)
+                     for a, b in zip(i_plain, i_cached))
+    r["mu_hat_bitwise"] = all(torch.equal(a.mu_hat, b.mu_hat) for a, b in zip(i_plain, i_cached))
+    diffs = [float((a.float() - b.float()).abs().max())
+             for a, b in zip(_leaves(p_plain), _leaves(p_cached))]
+    r["params_bitwise"] = max(diffs) == 0.0
+    r["params_max_abs_diff"] = max(diffs)
+    print(f"  mu_hat bit for bit: {r['mu_hat_bitwise']}; final parameters bit for bit: "
+          f"{r['params_bitwise']} (max |diff| {max(diffs):.3e})")
+    check(same_infos, "phase H-cache: every step's decision, rounds and n_evaluated are the plain "
+          "step's")
+    check(r["params_bitwise"] and r["mu_hat_bitwise"],
+          "phase H-cache: the final parameters and every mu_hat equal the plain chain's bit for bit")
+    check(0 < r["plain"]["accept"] < 1, "phase H-cache: the chain accepts and rejects")
+    check(r["cached"]["theta_forwards_per_round"] < r["plain"]["theta_forwards_per_round"] == 1.0,
+          "phase H-cache: the cache skips theta forwards (plain: one a round)")
+
+
+def phase_h_mala(report, params, cfg):
+    """``proposal="mala"`` at full size: the gradient of the estimated log
+    posterior through the whole model a step, 5 steps on H-cache's pool;
+    acceptance, the gradient pass's ms, steps/s, peak memory."""
+    import torch
+
+    import repro_torch.bayes.train as bt
+    from repro_torch.bayes import TrainConfig, make_train_step
+
+    batch = lm_pool(cfg)
+    tc = TrainConfig(round_batch=4, epsilon=0.05, proposal="mala", mala_step=HM_STEP)
+    print(f"phase H-mala: {cfg.name} at full size, H-cache's pool, MALA step {HM_STEP:g} (noise "
+          f"std {HM_STEP ** 0.5:g}, H's sigma), the gradient over the first 4 rows: "
+          f"{HM_STEPS} steps")
+    grad_ms, grad_max, real = [], [], bt.mala_grads
+
+    def timed_grads(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        grad_ms.append(1e3 * (time.perf_counter() - t0))
+        grad_max.append(max(float(g.float().abs().max()) for g in out.values()))
+        return out
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        bt.mala_grads = timed_grads
+        try:
+            return lm_chain(make_train_step(cfg, tc), params, batch, HM_STEPS, 12)
+        finally:
+            bt.mala_grads = real
+
+    final, infos, secs, forwards = counted(report, "H-mala", run)
+    r = report["phases"]["H-mala"]
+    finite_mu = [math.isfinite(float(i.mu_hat)) for i in infos]
+    r.update(accept=sum(bool(i.accepted) for i in infos) / len(infos),
+             grad_ms=grad_ms, grad_ms_median=statistics.median(grad_ms), grad_max=grad_max,
+             drift_max=[0.5 * HM_STEP * g for g in grad_max], finite_mu_hat=finite_mu,
+             steps_per_s=(len(secs) - 1) / sum(secs[1:]), step_s=secs,
+             rounds=[int(i.rounds) for i in infos],
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             params_gib=sum(l.numel() * l.element_size() for l in _leaves(params)) / 2 ** 30)
+    print(f"  acceptance {r['accept']:.2f}, gradient pass {r['grad_ms_median']:.1f} ms (median "
+          f"of {grad_ms}), steps/s {r['steps_per_s']:.3f}, peak {r['peak_gib']:.2f} GiB "
+          f"(parameters {r['params_gib']:.2f} GiB), rounds {r['rounds']}; the gradient's largest "
+          f"|component| {grad_max} (drift step/2 |g| up to {max(r['drift_max']):.3g} against the "
+          f"noise std {HM_STEP ** 0.5:g}); mu_hat finite on {sum(finite_mu)} of {len(infos)} steps")
+    check(all(bool(torch.isfinite(l.float()).all()) for l in _leaves(final)),
+          "phase H-mala: the parameters stay finite")
+
+
+# ---------------------------------------------------------------------------
+# Phases T, T-long, T-xlstm: decoding (prefill, decode_step, --workload lm)
+# ---------------------------------------------------------------------------
+
+T_RMS_BAR = 3e-2  # bf16: the median over checks of the logits' RMS difference over their RMS
+T_ARGMAX_BAR = 0.9  # bf16: the fraction of (row, check) pairs whose argmax agrees
+T_FORCED = 8  # teacher-forced decode steps held to the forward of the grown sequence
+T_CHECK_LAYERS = 2  # the depth at which decoding is held to the forward (see hold_decoding)
+T_LONG_PROMPT, T_LONG_MAX, T_LONG_DECODE = 4096, 8200, 16
+
+
+def logits_agree(got, want) -> tuple[float, list[bool]]:
+    """(RMS of got - want over want's RMS, argmax agreement per row)."""
+    rms = lambda t: float(t.float().pow(2).mean().sqrt())  # noqa: E731
+    return rms(got - want) / rms(want), (got.argmax(-1) == want.argmax(-1)).tolist()
+
+
+def first_layers(params, cfg, n):
+    """The model cut to its first ``n`` layers (``n`` // 2 pairs for the
+    xLSTM family): views of the stacked leaves, nothing copied."""
+    import dataclasses
+
+    from repro_torch._device import tree_map
+
+    keep = n // 2 if cfg.family == "ssm" else n
+    cut = dict(params, layers=tree_map(lambda t: t[:keep], params["layers"]))
+    return cut, dataclasses.replace(cfg, n_layers=n)
+
+
+def decode_against_forward(params, cfg, prompts, max_len, prefill_logits=None, cache=None):
+    """Prefill's last logits against the no-cache forward at that position,
+    then ``T_FORCED`` teacher-forced decode steps against the forward of the
+    grown sequence: (RMS relative of each, argmax agreement of each row and
+    step, and for each the forward's own gap between row 0 run alone and in
+    the batch, which the GEMMs' shapes alone make). For the xLSTM family, whose cache starts the sLSTM stabilizer at
+    0 where its blocks without a state start it at -1e30 (the reference's
+    ``init_cache`` and ``slstm_block``, which the port keeps), the decode
+    steps are held to the prefill of the grown sequence, which runs the same
+    recurrence whole from the same initial state, and the first entry is
+    the prefill's gap to the forward."""
+    import torch
+
+    from repro_torch.models import decode_step, forward_hidden, prefill
+
+    table = params["embed"]["table"]
+    recurrent = cfg.family == "ssm"
+
+    def forward_logits(tokens):
+        h = forward_hidden(params, tokens, cfg)
+        return torch.einsum("bd,vd->bv", h[:, -1], table).float()
+
+    def grown_logits(tokens):
+        return prefill(params, tokens, cfg, max_len)[1] if recurrent else forward_logits(tokens)
+
+    if cache is None:
+        cache, prefill_logits = prefill(params, prompts, cfg, max_len)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    forced = torch.randint(0, cfg.vocab, (prompts.shape[0], T_FORCED), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    def shape_gap(tokens, whole):
+        return logits_agree(grown_logits(tokens[:1]), whole[:1])[0]
+
+    want = forward_logits(prompts)
+    rel, ok = logits_agree(prefill_logits, want)
+    rels, agree, gaps = [rel], [ok], [shape_gap(prompts, want)]
+    seq = prompts
+    for j in range(T_FORCED):
+        tok = forced[:, j:j + 1]
+        cache, lg = decode_step(params, cache, tok, cfg)
+        seq = torch.cat([seq, tok], 1)
+        want = grown_logits(seq)
+        rel, ok = logits_agree(lg, want)
+        rels.append(rel)
+        agree.append(ok)
+        gaps.append(shape_gap(seq, want))
+    return rels, agree, gaps
+
+
+def hold_decoding(r, label, out):
+    """Decoding held to the forward on the parameters and prompts
+    ``serve_lm`` ran (:func:`decode_against_forward`).
+
+    The random model is chaotic: a difference of one bf16 ulp (the decode
+    step's GEMMs run at other shapes than the forward's, so cuBLAS rounds
+    them apart) grows layer after layer, at full depth to the size of the
+    logits themselves, as the same model's forward does against itself with
+    row 0 run alone. So the full depth's numbers are recorded beside that
+    gap, and the check holds the model cut to its first ``T_CHECK_LAYERS``
+    layers (views of the same leaves), where the gap is mostly ~1e-3 with
+    rarer steps that the same growth lifts: the median over prefill and the
+    ``T_FORCED`` decode steps within ``T_RMS_BAR`` and the argmax agreeing
+    on ``T_ARGMAX_BAR`` of rows and steps; a wrong cache slot, position or
+    mask misses both at every step."""
+    params, cfg, prompts = out["params"], out["cfg"], out["prompts"]
+    recurrent = cfg.family == "ssm"
+    against = "the prefill of the grown sequence" if recurrent else "the forward"
+    runs = {"full": (params, cfg), "cut": first_layers(params, cfg, T_CHECK_LAYERS)}
+    for depth, (p, c) in runs.items():
+        kw = dict(prefill_logits=out["prefill_logits"], cache=out["cache0"]) \
+            if depth == "full" else {}
+        rels, agree, gaps = decode_against_forward(p, c, prompts, out["max_len"], **kw)
+        checked = rels[1:] if recurrent else rels
+        flat = [x for row in (agree[1:] if recurrent else agree) for x in row]
+        entry = {"layers": c.n_layers, "rms_rel": rels, "shape_gap": gaps,
+                 "median_rms_rel": statistics.median(checked),
+                 "argmax_agree": sum(flat) / len(flat)}
+        r[depth] = entry
+        print(f"  {label}, {c.n_layers} layers{' (recorded)' if depth == 'full' else ''}: "
+              f"prefill against the forward {rels[0]:.2e}"
+              f"{' (recorded, not checked)' if recurrent and depth == 'cut' else ''}; "
+              f"{T_FORCED} decode steps against {against}: "
+              + ", ".join(f"{x:.2e}" for x in rels[1:])
+              + f"; argmax agreement {entry['argmax_agree']:.3f}; the forward of row 0 alone "
+              "against the batch: " + ", ".join(f"{x:.2e}" for x in gaps))
+    cut = r["cut"]
+    check(cut["median_rms_rel"] <= T_RMS_BAR and cut["argmax_agree"] >= T_ARGMAX_BAR,
+          f"phase {label}: {'' if recurrent else 'prefill and '}{T_FORCED} teacher-forced "
+          f"decode steps agree with {against} at {T_CHECK_LAYERS} layers (median RMS relative "
+          f"<= {T_RMS_BAR:g}, argmax on >= {T_ARGMAX_BAR:g} of rows)")
+
+
+def run_serve_lm(report, phase, argv):
+    """``serve_lm`` on the front end's parsed flags, its two lines and the
+    numbers it leaves."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(argv)
+    out = {}
+    with tee_stdout() as tee:
+        code = counted(report, phase, lambda: serve.serve_lm(args, out))
+    check(code == 0, f"phase {phase}: serve_lm exits 0")
+    lines = tee.lines()
+    check(any(ln.startswith(f"prefill {args.batch}x{args.prompt_len}: ") for ln in lines)
+          and any(ln.startswith(f"decode {args.gen_len} steps: ") for ln in lines),
+          f"phase {phase}: the prefill and decode lines are printed")
+    r = report["phases"][phase]
+    r.update({k: out[k] for k in ("prefill_s", "decode_s", "prefill_tok_s", "decode_tok_s",
+                                  "decode_step_ms")},
+             peak_gib=(out["peak_bytes"] or 0) / 2 ** 30, argv=argv)
+    print(f"  {phase}: prefill {r['prefill_tok_s']:.1f} tok/s, decode {r['decode_tok_s']:.1f} "
+          f"tok/s ({r['decode_step_ms']:.2f} ms a step), peak {r['peak_gib']:.2f} GiB")
+    check(bool(torch.isfinite(out["prefill_logits"]).all()), f"phase {phase}: finite logits")
+    return out
+
+
+def phase_t(report, ckpt_dir):
+    """The paper's Bayesian LM served: ``--workload lm --arch chatglm3-6b``
+    at the front end's defaults (batch 8, prompt 64, 64 decode steps),
+    decoding from the posterior sample phase H's subsampled chain left in
+    its checkpoint."""
+    print(f"phase T: serve_lm, chatglm3-6b from H's subsampled checkpoint ({ckpt_dir}), batch 8, "
+          "prompt 64, 64 decode steps")
+    out = run_serve_lm(report, "T", ["--workload", "lm", "--arch", "chatglm3-6b",
+                                     "--ckpt-dir", ckpt_dir])
+    hold_decoding(report["phases"]["T"], "T", out)
+    return out["params"], out["cfg"]
+
+
+def phase_t_long(report, params, cfg):
+    """A 4 096-token prompt into a cache of 8 200 positions, batch 1: every
+    layer's prefill takes ``_attend_flash``; layer 0's flash output against
+    ``_attend_dense`` on the same q/k/v, then 16 decode steps."""
+    import torch
+
+    import repro_torch.models.layers as layers
+    from repro_torch.models import decode_step, prefill
+
+    print(f"phase T-long: chatglm3-6b (T's parameters), batch 1, a {T_LONG_PROMPT}-token prompt, "
+          f"max_len {T_LONG_MAX}, then {T_LONG_DECODE} decode steps")
+    r = report["phases"]["T-long"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab, (1, T_LONG_PROMPT), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    seen, real = [], layers._attend_flash
+
+    def flash_kept(*a, **k):
+        out = real(*a, **k)
+        seen.append((a, out) if not seen else None)  # layer 0's inputs and output
+        return out
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        layers._attend_flash = flash_kept
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, lg = prefill(params, prompt, cfg, T_LONG_MAX)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+        finally:
+            layers._attend_flash = real
+        tok, finite = lg.argmax(-1)[:, None].to(torch.int32), [bool(torch.isfinite(lg).all())]
+        t0 = time.perf_counter()
+        for _ in range(T_LONG_DECODE):
+            cache, lg = decode_step(params, cache, tok, cfg)
+            finite.append(bool(torch.isfinite(lg).all()))
+            tok = lg.argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        return t_pre, time.perf_counter() - t0, finite, cache
+
+    t_pre, t_dec, finite, cache = counted(report, "T-long", run)
+    r.update(prefill_tok_s=T_LONG_PROMPT / t_pre, prefill_s=t_pre,
+             decode_step_ms=1e3 * t_dec / T_LONG_DECODE, flash_calls=len(seen),
+             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    (args, flash), = seen[:1]
+    dense = layers._attend_dense(*args)
+    rel, _ = logits_agree(flash, dense)
+    r["flash_vs_dense_rms_rel"] = rel
+    r["flash_vs_dense_max_rel"] = float((flash.float() - dense.float()).abs().max()) / float(
+        dense.float().abs().max())
+    print(f"  prefill {r['prefill_tok_s']:.1f} tok/s ({t_pre:.2f} s), {r['flash_calls']} flash "
+          f"calls, decode {r['decode_step_ms']:.2f} ms a step over {cache['k'].shape[2]} slots, "
+          f"peak {r['peak_gib']:.2f} GiB; layer 0 flash vs dense: RMS relative {rel:.2e}, max "
+          f"{r['flash_vs_dense_max_rel']:.2e} of the largest")
+    check(len(seen) == cfg.n_layers, f"phase T-long: every layer's prefill took _attend_flash "
+          f"({len(seen)} of {cfg.n_layers})")
+    check(rel <= 1e-2 and r["flash_vs_dense_max_rel"] <= 5e-2,
+          "phase T-long: layer 0's flash output within bf16's bar of dense on the same q/k/v "
+          "(RMS 1e-2, max 5e-2 of the largest)")
+    check(all(finite) and int(cache["len"]) == T_LONG_PROMPT + T_LONG_DECODE,
+          f"phase T-long: prefill and {T_LONG_DECODE} decode steps finite")
+
+
+def phase_t_xlstm(report):
+    """``--workload lm`` at the front end's defaults: xlstm-350m at full
+    width, randomly initialised, as the reference's ``serve_lm`` is."""
+    print("phase T-xlstm: serve_lm at its defaults (xlstm-350m, random, batch 8, prompt 64, "
+          "64 decode steps)")
+    out = run_serve_lm(report, "T-xlstm", ["--workload", "lm"])
+    hold_decoding(report["phases"]["T-xlstm"], "T-xlstm", out)
 
 
 # ---------------------------------------------------------------------------
@@ -4228,7 +4658,8 @@ def main() -> int:
         "gibbs_z_sweep": csrc + "gibbs_z_sweep.cu",
     }
     report = {"card": card, "kind": kind, "phases": {p: {} for p in
-                                                      [*"BCDEFGHIJKLMN", "B'", "P", "P1",
+                                                      [*"BCDEFGHIJKLMN", "B'", "H-cache",
+                                                       "H-mala", "T", "T-long", "T-xlstm", "P", "P1",
                                                        "P-AR1", "S", "S-compiled", "Q", "Q-bg",
                                                        "Q-sv", "Q-jdpm", "Q-ppl", "Q-resume", "R", "R-sub",
                                                        "R-truth", "R-bg", "R-proc", "O-plain",
@@ -4273,13 +4704,30 @@ def main() -> int:
     print(f"  seconds taken by the joint DP mixture's phases: {report['jdpm_seconds']}")
     del jdpm_data, jdpm_state0
     phase_a_ce(report)
-    params, cfg = phase_h(report)
-    target, theta = phase_i(report, params, cfg)
-    del params  # phase H's model: J needs the room
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        params, cfg = phase_h(report, ckpt_root)
+        phase_h_cache(report, params, cfg)
+        torch.cuda.empty_cache()
+        phase_h_mala(report, params, cfg)
+        torch.cuda.empty_cache()
+        target, theta = phase_i(report, params, cfg)
+        del params  # phase H's model: J needs the room
+        torch.cuda.empty_cache()
+        phase_j(report, target, theta)
+        del target, theta
+        torch.cuda.empty_cache()
+        t_t = time.perf_counter()
+        params, cfg = phase_t(report, os.path.join(ckpt_root, "sub"))
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    phase_t_long(report, params, cfg)
+    del params
     torch.cuda.empty_cache()
-    phase_j(report, target, theta)
-    del target, theta
+    phase_t_xlstm(report)
     torch.cuda.empty_cache()
+    report["t_seconds"] = time.perf_counter() - t_t
+    print(f"  seconds taken by phases T, T-long and T-xlstm: {report['t_seconds']:.1f}")
     t_ps = time.perf_counter()
     compiled = phase_p(report, data, c_samples, c_infos)
     phase_s(report, data, theta_b, compiled)
@@ -4307,7 +4755,8 @@ def main() -> int:
                         ("M", ("gibbs_z_sweep", "logit_delta", "fy_draw", "t_test_round")),
                         ("N", ("gibbs_z_sweep", "batched_logit_delta", "fy_draw",
                                "t_test_round")),
-                        ("H", ("t_test_round",)),
+                        ("H", ("t_test_round",)), ("H-cache", ("t_test_round",)),
+                        ("H-mala", ("t_test_round",)),
                         ("I", ("fused_ce", "fy_draw", "t_test_round")),
                         ("J", ("batched_fused_ce", "fy_draw", "t_test_round")),
                         ("P", ("batched_logit_delta", "t_test_round")),

@@ -13,24 +13,29 @@ Mapping onto the paper:
   - accept/reject = Alg. 2's sequential t-test
     (:func:`repro_torch.core.sequential_test`).
 
-A step is factored into :func:`propose` (log u, then theta') and
-:func:`subsampled_decide` / :func:`exact_decide` (the test and the choice),
-so a caller can hand in a theta' and log u made elsewhere. The decision is
-read on the host (the test reads ``done`` every round anyway), so the new
-state is theta or theta' as they are, without a ``where`` over every leaf.
+A step is factored into :func:`propose` (log u, then theta': the random walk,
+or with ``proposal="mala"`` a Langevin move along the gradient of the
+estimated log posterior) and :func:`subsampled_decide` / :func:`exact_decide`
+/ :func:`cached_decide` (the test and the choice), so a caller can hand in a
+theta' and log u made elsewhere. The decision is read on the host (the test
+reads ``done`` every round anyway), so the new state is theta or theta' as
+they are, without a ``where`` over every leaf. A round's rows are the
+round's slice of the pool, known on the host from the round's number (the
+stream sampler's position), so a round reads nothing else from the card.
 
-Deferred: ``make_cached_train_step`` (the lazy log-likelihood cache threads
-``aux`` through the sequential test) and ``proposal="mala"`` (with
-``MALA``); both raise ``NotImplementedError``.
+:func:`make_cached_train_step` keeps a :class:`LogLikCache` of l(theta) per
+pooled sequence (the paper's Sec. 3.5 lazy stale-node update at tensor
+scale): a round whose whole slice is valid skips the theta forward.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
-from .._device import row_chunks, tree_leaves
+from .._device import resolve_device, row_chunks, tree_leaves
 from ..core.samplers import StreamSliceState, stream_draw, stream_reset
 from ..core.sequential_test import sequential_test
 from ..core.subsampled_mh import draw_log_u
@@ -68,20 +73,17 @@ class LMTrainInfo(NamedTuple):
 
 
 def _check(tc: TrainConfig) -> None:
-    if tc.proposal == "mala":
-        raise NotImplementedError("proposal='mala' comes with MALA in a later slice")
-    if tc.proposal != "rw":
+    if tc.proposal not in ("rw", "mala"):
         raise ValueError(f"unknown proposal {tc.proposal!r}")
-    if tc.cached:
-        raise NotImplementedError("the cached train step comes with the sequential test's aux")
 
 
-# Leaves above this many elements get their noise and their prior terms in
-# chunks of leading-axis rows of at most this size (one 56 M-element layer of
-# chatglm3-6b's stacked MLP leaf, 16384 rows of its embedding table): a
-# float32 temporary of the whole MLP leaf would be 6.3 GB, while every chunk
-# costs a few launches of host time (~107 chunks for the whole model here;
-# 4 M-element chunks left the card idle two thirds of a step).
+# Leaves above this many elements get their noise, their prior terms and
+# their Langevin moves in chunks of leading-axis rows of at most this size
+# (one 56 M-element layer of chatglm3-6b's stacked MLP leaf, 16384 rows of
+# its embedding table): a float32 temporary of the whole MLP leaf would be
+# 6.3 GB, while every chunk costs a few launches of host time (~107 chunks
+# for the whole model here; 4 M-element chunks left the card idle two
+# thirds of a step).
 _CHUNK = 1 << 26
 
 
@@ -152,12 +154,80 @@ def _prior_delta(theta: Params, theta_p: Params, prior_var: float) -> torch.Tens
     return (-0.5 / prior_var) * (_sq_total(theta_p) - _sq_total(theta))
 
 
-def propose(gen: torch.Generator, params: Params, tc: TrainConfig):
-    """Steps 2-4 of Alg. 3 for the LM: log u, then the random-walk theta'.
-    Returns ``(theta_p, log_u)``."""
+def _noise_chunks(gen: torch.Generator, leaf: torch.Tensor):
+    """N(0, I) in float32, chunk by chunk of ``leaf``'s rows, in the order
+    and shapes :func:`_perturb_leaf` draws them."""
+    for row in row_chunks(leaf, _CHUNK):
+        yield torch.randn(row.shape, generator=gen, dtype=F32, device=row.device)
+
+
+def mala_grads(cfg: ModelConfig, tc: TrainConfig, params: Params, batch: dict) -> dict:
+    """The gradient of the reference's estimated log posterior,
+    ``sum(l(first round_batch rows)) * N / rb - 0.5 sum(theta^2) / prior_var``,
+    as ``{path: grad}`` in sorted path order, each in its leaf's dtype.
+
+    Autograd takes the log-likelihood part (the reference's ``jax.grad``);
+    the prior's part is the cotangent ``jax.grad`` forms for it, (2 theta)
+    times (-1 / prior_var) * 0.5 in float32, cast to the leaf's dtype and
+    added to the first, in chunks of rows. Nothing of theta is copied: the
+    forward reads the leaves through detached views that require grad."""
+    pool = batch["tokens"].shape[0]
+    rb = min(tc.round_batch, pool)
+    n_sections = tc.dataset_size or pool
+    flat = _flat_paths(params)
+    leaves = {name: leaf.detach().requires_grad_(True) for name, leaf in flat}
+    with torch.enable_grad():
+        ll = forward_loglik(_rebuild(params, leaves), _rows_of(batch, 0, rb), cfg,
+                            ce_chunk=tc.ce_chunk)
+        grads = torch.autograd.grad(ll.sum() * (n_sections / rb), list(leaves.values()))
+    del ll, leaves
+    coef = torch.tensor(-1.0 / tc.prior_var, dtype=F32) * 0.5
+    out = {}
+    for (name, leaf), g in zip(flat, grads):
+        for row, g_row in zip(row_chunks(leaf, _CHUNK), row_chunks(g, _CHUNK)):
+            g_row.add_((2 * row.to(F32)).mul_(coef.to(row.device)).to(g.dtype))
+        out[name] = g
+    return out
+
+
+def mala_move(params: Params, grads: dict, tc: TrainConfig, noise) -> Params:
+    """theta' = theta + (step / 2) g + sqrt(step) xi, in float32, cast back
+    to each leaf's dtype, leaf by leaf in sorted path order and chunk by
+    chunk of rows. ``noise`` is a generator (xi drawn as the random walk
+    draws its noise, rounded to the leaf's dtype, as the reference's
+    ``_tree_rw_propose`` on zeros rounds it) or ``{path: xi}``. ``grads``
+    (from :func:`mala_grads`) is emptied as it goes, so theta, theta', the
+    gradient and xi are never all held whole at once."""
+    half = 0.5 * tc.mala_step
+    root = tc.mala_step ** 0.5
+    new = {}
+    for name, leaf in _flat_paths(params):
+        g = grads.pop(name)
+        out = torch.empty_like(leaf)
+        xis = (_noise_chunks(noise, leaf) if isinstance(noise, torch.Generator)
+               else row_chunks(noise[name], _CHUNK))
+        for row, g_row, xi, dst in zip(row_chunks(leaf, _CHUNK), row_chunks(g, _CHUNK), xis,
+                                       row_chunks(out, _CHUNK)):
+            xi = xi.to(leaf.dtype).to(F32)
+            dst.copy_(row.to(F32) + half * g_row.to(F32) + root * xi)
+        del g
+        new[name] = out
+    return _rebuild(params, new)
+
+
+def propose(gen: torch.Generator, params: Params, tc: TrainConfig, batch: dict | None = None,
+            cfg: ModelConfig | None = None):
+    """Steps 2-4 of Alg. 3 for the LM: log u, then theta'. The random walk
+    needs only ``params``; ``proposal="mala"`` needs the ``batch`` and the
+    ``cfg`` its gradient is taken over. Returns ``(theta_p, log_u)``."""
     _check(tc)
     log_u = draw_log_u(gen, (), tree_leaves(params)[0].device)
-    theta_p = _tree_rw_propose(gen, params, tc.sigma, tc.propose_paths)
+    if tc.proposal == "mala":
+        if batch is None or cfg is None:
+            raise ValueError("proposal='mala' needs the batch and the model config")
+        theta_p = mala_move(params, mala_grads(cfg, tc, params, batch), tc, gen)
+    else:
+        theta_p = _tree_rw_propose(gen, params, tc.sigma, tc.propose_paths)
     return theta_p, log_u
 
 
@@ -169,30 +239,114 @@ def _rows_of(batch: dict, start: int, rb: int) -> dict:
     return {k: v[start:start + rb] for k, v in batch.items()}
 
 
-def subsampled_decide(cfg: ModelConfig, tc: TrainConfig, params: Params, theta_p: Params,
-                      log_u: torch.Tensor, batch: dict, *, mode: str = "auto"):
-    """The sequential test over the pool's sequences for a given theta' and
-    log u, then the choice. Returns ``(new_params, LMTrainInfo)``."""
+def _test_setup(tc: TrainConfig, params: Params, theta_p: Params, log_u: torch.Tensor,
+                batch: dict):
+    """(pool, rb, rounds_total, n_sections, mu0, the stream sampler's state)."""
     pool = batch["tokens"].shape[0]
     rb = min(tc.round_batch, pool)
     rounds_total = tc.max_rounds or -(-pool // rb)
     n_sections = tc.dataset_size or pool
     g = _prior_delta(params, theta_p, tc.prior_var)
     mu0 = (log_u - g) / n_sections
+    state = stream_reset(StreamSliceState(torch.zeros((), dtype=torch.int32,
+                                                      device=mu0.device), pool))
+    return pool, rb, rounds_total, n_sections, mu0, state
+
+
+def subsampled_decide(cfg: ModelConfig, tc: TrainConfig, params: Params, theta_p: Params,
+                      log_u: torch.Tensor, batch: dict, *, mode: str = "auto"):
+    """The sequential test over the pool's sequences for a given theta' and
+    log u, then the choice. Returns ``(new_params, LMTrainInfo)``."""
+    pool, rb, rounds_total, n_sections, mu0, state = _test_setup(tc, params, theta_p, log_u,
+                                                                  batch)
+    rounds = iter(range(rounds_total))
 
     def eval_fn(idx):
-        rows = _rows_of(batch, int(idx[0]), rb)
+        rows = _rows_of(batch, next(rounds) * rb, rb)  # the stream's slice of this round
         lp = forward_loglik(theta_p, rows, cfg, ce_chunk=tc.ce_chunk)
         lc = forward_loglik(params, rows, cfg, ce_chunk=tc.ce_chunk)
         return lp - lc
 
-    state = stream_reset(StreamSliceState(torch.zeros((), dtype=torch.int32,
-                                                      device=mu0.device), pool))
     res = sequential_test(None, mu0, stream_draw, eval_fn, state, n_sections, rb,
                           tc.epsilon, max_rounds=rounds_total, mode=mode)
     info = LMTrainInfo(accepted=res.decision, rounds=res.rounds, n_evaluated=res.n_evaluated,
                        mu_hat=res.mu_hat, mu0=mu0, pvalue=res.pvalue, log_u=log_u)
     return (theta_p if bool(res.decision) else params), info
+
+
+class LogLikCache(NamedTuple):
+    """Per-sequence log p(seq_i | theta) of the resident pool with a
+    validity mask: the paper's Sec. 3.5 lazy stale-node update at tensor
+    scale. An accepted proposal leaves the sections it did not evaluate
+    stale (valid False); they are recomputed on first access.
+
+    ``valid_host`` mirrors ``valid`` on the host, so deciding whether a
+    round may skip its theta forward reads nothing from the card."""
+
+    ll: torch.Tensor  # (pool,) float32
+    valid: torch.Tensor  # (pool,) bool
+    valid_host: np.ndarray | None = None  # (pool,) bool; None: read from ``valid``
+
+    @staticmethod
+    def empty(pool: int, *, device=None) -> "LogLikCache":
+        dev = resolve_device(device)
+        return LogLikCache(torch.zeros((pool,), dtype=F32, device=dev),
+                           torch.zeros((pool,), dtype=torch.bool, device=dev),
+                           np.zeros((pool,), dtype=bool))
+
+    def host_valid(self) -> np.ndarray:
+        return self.valid.cpu().numpy() if self.valid_host is None else self.valid_host
+
+
+def cached_decide(cfg: ModelConfig, tc: TrainConfig, params: Params, theta_p: Params,
+                  log_u: torch.Tensor, batch: dict, cache: LogLikCache, *,
+                  mode: str = "auto"):
+    """:func:`subsampled_decide` over a log-likelihood cache of theta.
+    Returns ``(new_params, new_cache, LMTrainInfo)``.
+
+    A round evaluates theta' on its slice, and theta only where the cache is
+    stale: not at all when the whole slice is valid. The round writes
+    l(theta) into the current cache (the slice becomes valid) and records
+    l(theta'). After an accept the evaluated sections carry l(theta') and
+    the rest go stale; after a reject the updated current cache is kept.
+    ``cache`` itself is not changed."""
+    pool, rb, rounds_total, n_sections, mu0, state = _test_setup(tc, params, theta_p, log_u,
+                                                                  batch)
+    if cache.ll.shape != (pool,):
+        raise ValueError(f"a cache of {tuple(cache.ll.shape)} for a pool of {pool}")
+    cur_ll, cur_valid = cache.ll.clone(), cache.valid.clone()
+    cur_host = cache.host_valid().copy()
+    prop_ll = torch.zeros_like(cur_ll)
+    evald = torch.zeros_like(cur_valid)
+    evald_host = np.zeros((pool,), dtype=bool)
+    rounds = iter(range(rounds_total))
+
+    def eval_fn(idx, aux):
+        start = min(next(rounds) * rb, pool - rb)  # the stream's slice, clamped to fit
+        sl = slice(start, start + rb)
+        rows = _rows_of(batch, start, rb)
+        lp = forward_loglik(theta_p, rows, cfg, ce_chunk=tc.ce_chunk)
+        if cur_host[sl].all():  # every cached value is fresh: no theta forward
+            lcur = cur_ll[sl].clone()
+        else:
+            lc = forward_loglik(params, rows, cfg, ce_chunk=tc.ce_chunk)
+            lcur = torch.where(cur_valid[sl], cur_ll[sl], lc)
+        cur_ll[sl] = lcur
+        cur_valid[sl] = True
+        cur_host[sl] = True
+        prop_ll[sl] = lp
+        evald[sl] = True
+        evald_host[sl] = True
+        return lp - lcur, aux
+
+    res = sequential_test(None, mu0, stream_draw, eval_fn, state, n_sections, rb,
+                          tc.epsilon, max_rounds=rounds_total, mode=mode, aux=())
+    accept = bool(res.decision)
+    new_cache = (LogLikCache(prop_ll, evald, evald_host) if accept
+                 else LogLikCache(cur_ll, cur_valid, cur_host))
+    info = LMTrainInfo(accepted=res.decision, rounds=res.rounds, n_evaluated=res.n_evaluated,
+                       mu_hat=res.mu_hat, mu0=mu0, pvalue=res.pvalue, log_u=log_u)
+    return (theta_p if accept else params), new_cache, info
 
 
 def exact_decide(cfg: ModelConfig, tc: TrainConfig, params: Params, theta_p: Params,
@@ -228,7 +382,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mode: str = "auto"):
     _check(tc)
 
     def train_step(gen, params, batch):
-        theta_p, log_u = propose(gen, params, tc)
+        theta_p, log_u = propose(gen, params, tc, batch, cfg)
         return subsampled_decide(cfg, tc, params, theta_p, log_u, batch, mode=mode)
 
     return train_step
@@ -240,11 +394,28 @@ def make_exact_step(cfg: ModelConfig, tc: TrainConfig):
     _check(tc)
 
     def exact_step(gen, params, batch):
-        theta_p, log_u = propose(gen, params, tc)
+        theta_p, log_u = propose(gen, params, tc, batch, cfg)
         return exact_decide(cfg, tc, params, theta_p, log_u, batch)
 
     return exact_step
 
 
-def make_cached_train_step(cfg: ModelConfig, tc: TrainConfig):
-    raise NotImplementedError("the cached train step comes with the sequential test's aux")
+def make_cached_train_step(cfg: ModelConfig, tc: TrainConfig, *, mode: str = "auto"):
+    """``step(gen, params, batch, cache) -> (params', cache', LMTrainInfo)``:
+    subsampled MH with the lazy log-likelihood cache.
+
+    Each round of the plain step runs two forwards (theta and theta'). With
+    the cache the theta forward is skipped whenever the round's slice is
+    entirely valid: on a resident pool that stays the same across steps, a
+    round's forwards drop from 2 to 1 + the acceptance rate. The proposal
+    is the random walk, as in the reference's cached step (which reads
+    neither ``proposal`` nor ``mala_step``); start with
+    ``LogLikCache.empty(pool, device=...)``."""
+    _check(tc)
+
+    def train_step(gen, params, batch, cache: LogLikCache):
+        log_u = draw_log_u(gen, (), tree_leaves(params)[0].device)
+        theta_p = _tree_rw_propose(gen, params, tc.sigma, tc.propose_paths)
+        return cached_decide(cfg, tc, params, theta_p, log_u, batch, cache, mode=mode)
+
+    return train_step

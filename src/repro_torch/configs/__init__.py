@@ -1,22 +1,23 @@
 """Architecture registry of the port: the dense configurations, the input
 shape sets and the reduced smoke variants (the port of ``repro.configs``).
 
-``ARCHS`` holds the dense family, the same dataclass values as the
-reference's; the MoE, SSM, hybrid, audio and VLM entries join with their
-families.
+``ARCHS`` holds the dense family and xlstm-350m (the ssm family), the same
+dataclass values as the reference's; the MoE, hybrid, audio and VLM entries
+join with their families.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from ..models.transformer import ModelConfig
-from . import chatglm3_6b, gemma3_4b, internlm2_20b, qwen1_5_32b
+from . import chatglm3_6b, gemma3_4b, internlm2_20b, qwen1_5_32b, xlstm_350m
 
 ARCHS: dict[str, ModelConfig] = {
     "qwen1.5-32b": qwen1_5_32b.CONFIG,
     "gemma3-4b": gemma3_4b.CONFIG,
     "internlm2-20b": internlm2_20b.CONFIG,
     "chatglm3-6b": chatglm3_6b.CONFIG,
+    "xlstm-350m": xlstm_350m.CONFIG,
 }
 
 

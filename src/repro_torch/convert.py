@@ -2,8 +2,8 @@
 
 The counterpart of loading weights: the BayesLR data pool, a batch of chain
 positions theta (K, D), the stochastic-volatility data (obs, h_true) and
-theta ``{phi, sigma2, h}``, the joint DP mixture's data and state, an LM's parameter tree and the ``ce`` family's
-data (hidden states and next tokens), and the samplers' state (the
+theta ``{phi, sigma2, h}``, the joint DP mixture's data and state, an LM's parameter tree and its
+decode cache, the ``ce`` family's data (hidden states and next tokens), and the samplers' state (the
 stream's ``pos``; the Fisher–Yates ``idx``/``pos``/``size``; one state per component of a
 composite cycle) and a serving resident's checkpointed state, each handed
 over as numpy arrays and built into the port's types on a given device. Taking numpy keeps this module free of JAX:
@@ -32,14 +32,19 @@ def _i32(a, dev) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.int32), device=dev)
 
 
+_BIT_TYPES = {"bfloat16": (np.int16, torch.bfloat16),
+              "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def _float_leaf(a, dev) -> torch.Tensor:
-    """A float array as a tensor of the same float type: bfloat16 (numpy's
-    ``ml_dtypes`` type, recognised by name) keeps its bits, float32 and
-    float16 convert as they are."""
+    """A float array as a tensor of the same float type: bfloat16 and
+    float8_e4m3fn (numpy's ``ml_dtypes`` types, recognised by name) keep
+    their bits, float32 and float16 convert as they are."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(a).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    if a.dtype.name in _BIT_TYPES:
+        int_type, torch_type = _BIT_TYPES[a.dtype.name]
+        bits = np.ascontiguousarray(a).view(int_type)
+        return torch.from_numpy(bits.copy()).view(torch_type).to(dev)
     return torch.tensor(a, device=dev)
 
 
@@ -137,6 +142,20 @@ def lm_params(tree, *, device=None) -> dict:
     if isinstance(tree, dict):
         return {k: lm_params(v, device=dev) for k, v in tree.items()}
     return _float_leaf(tree, dev)
+
+
+def lm_cache(tree, *, device=None):
+    """The reference's decode cache (``prefill``'s or ``init_cache``'s, as
+    numpy: ``jax.tree.map(np.asarray, cache)``) as the port's, every bit
+    kept: a dense cache's k/v in bf16 or fp8 and ``pos``/``len`` as int32;
+    an ssm cache's ``m`` and ``s`` tuples of float32 states."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_cache(v, device=dev) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(lm_cache(v, device=dev) for v in tree)
+    a = np.asarray(tree)
+    return _i32(a, dev) if a.dtype.kind in "iu" else _float_leaf(a, dev)
 
 
 def ce_data(h, targets, *, device=None) -> tuple[torch.Tensor, torch.Tensor]:

@@ -98,6 +98,16 @@ target, or a callable pool, is scored in place, on the home device, and on
 slots of other devices ``"auto"`` runs it unsharded while an explicit
 request raises. Masked stepping shards on the 2-d mesh only, and composite
 cycles run unsharded, as in the reference.
+
+What ``"auto"`` costs: each slot adds a whole wrapper call and two block
+copies, about 100 µs of host a slot a round, while the kernels take a few µs.
+On one NVIDIA H100 (700 W) four slots ran BayesLR at K=32 at 0.56-0.75x the
+unsharded transitions/s in fp32 and 0.34-0.41x at bf16 (``chip_smoke.py``
+phase X, PERF.md §5). ``"auto"`` builds the mesh whenever more than one slot
+is visible and K divides their count, so on a machine with several cards
+pass ``shard=False`` unless the mesh is wanted; its rate on two or more
+cards is held against ``shard=False`` by
+``tests/test_torch_cuda.py::test_shard_auto_against_unsharded_on_cards``.
 """
 from __future__ import annotations
 

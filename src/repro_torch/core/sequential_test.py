@@ -18,7 +18,7 @@ once per round.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -43,6 +43,7 @@ class SeqTestResult(NamedTuple):
     mu_hat: torch.Tensor  # f32
     pvalue: torch.Tensor  # f32 (final)
     sampler_state: tuple  # threaded sampler state
+    aux: Any = ()  # threaded evaluator state (e.g. the LM's log-likelihood cache)
 
 
 def sequential_test(
@@ -59,6 +60,7 @@ def sequential_test(
     mode: str = "auto",
     batch_eff=None,
     draw_bounded_fn: Callable | None = None,
+    aux=None,
 ) -> SeqTestResult:
     """Run the sequential test for one chain (mu0 shape ()) or K lock-step
     chains (mu0 shape (K,)).
@@ -76,6 +78,10 @@ def sequential_test(
     the shape ``batch_size`` but only ``batch_eff`` sections a chain are
     drawn, merged and consumed: the adaptive scheduler's buckets. Pass a
     ``max_rounds`` that covers exhaustion at the smallest bucket then.
+
+    With ``aux`` the evaluator is stateful: ``eval_fn(idx, aux) -> (l, aux)``,
+    and the result carries the final ``aux`` (the lazy log-likelihood cache
+    of :func:`repro_torch.bayes.make_cached_train_step` rides on it).
 
     Example — an easy decision (all l_i far above mu0) stops after one round::
 
@@ -119,7 +125,10 @@ def sequential_test(
         else:
             sampler, idx, valid = draw_bounded_fn(gen, sampler, batch_size, batch_eff, active,
                                                   mode=mode)
-        l = eval_fn(idx)
+        if aux is None:
+            l = eval_fn(idx)
+        else:
+            l, aux = eval_fn(idx, aux)
         ops.t_test_round(
             l.reshape(-1, batch_size), valid.reshape(-1, batch_size),
             flat(w.count), flat(w.mean), flat(w.m2), flat(mu0), flat(eps),
@@ -135,4 +144,5 @@ def sequential_test(
         mu_hat=w.mean,
         pvalue=pval,
         sampler_state=sampler,
+        aux=() if aux is None else aux,
     )

@@ -68,8 +68,16 @@ unsharded one:
     PYTHONPATH=src python -m repro_torch.launch.serve --fleet --mesh 2d --devices 4 \
         --smoke --device cpu
 
-Not here yet: ``--workload lm`` (LM decoding comes with the rest of the LM
-stack) raises ``NotImplementedError``.
+``--workload lm`` is the LM decoding demo: batched decoding from one
+posterior sample (``--arch``, default xlstm-350m; ``--reduced``,
+``--batch``, ``--prompt-len``, ``--gen-len``), randomly initialised or
+restored from ``--ckpt-dir`` (a ``repro_torch.launch.train`` checkpoint). It
+prints the prefill's and the decode's tokens/s:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch chatglm3-6b \
+        --ckpt-dir /tmp/chain
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -84,6 +92,7 @@ import numpy as np
 import torch
 
 POSTERIOR_WORKLOADS = ("bayeslr", "stochvol", "jointdpm", "ppl")
+BURST_FILLS = 40  # the soak's overload burst: at most this many fills to the shed point
 MESHES = {"auto": "auto", "2d": ("chains", "data"), "off": False}
 
 
@@ -91,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--workload", default="bayeslr", choices=POSTERIOR_WORKLOADS + ("lm",),
-                    help="posterior workload to serve ('lm', the decoding demo, is not ported)")
+                    help="posterior workload to serve, or 'lm', the LM decoding demo")
     ap.add_argument("--smoke", action="store_true",
                     help="CI-sized: small model, >=100 queries, parity check")
     ap.add_argument("--queries", type=int, default=None,
@@ -183,6 +192,16 @@ def build_parser() -> argparse.ArgumentParser:
     ob.add_argument("--trace-dir", default=None,
                     help="end-to-end request tracing: tee every span to <dir>/spans.jsonl and "
                          "export a Chrome/Perfetto <dir>/trace.json on exit (prints TRACE_OK)")
+    # -- LM decoding flags (only read under --workload lm) -------------------
+    from ..configs import ARCHS
+
+    lm = ap.add_argument_group("lm decoding demo (--workload lm)")
+    lm.add_argument("--arch", default="xlstm-350m", choices=list(ARCHS))
+    lm.add_argument("--reduced", action="store_true")
+    lm.add_argument("--batch", type=int, default=8)
+    lm.add_argument("--prompt-len", type=int, default=64)
+    lm.add_argument("--gen-len", type=int, default=64)
+    lm.add_argument("--model-parallel", type=int, default=1)
     return ap
 
 
@@ -1044,6 +1063,15 @@ def _serve_soak(args, out: dict) -> int:
     # Drive submissions past the admission shed point and hold them there
     # until the loop closes: the sampler records the active shed floor, the
     # admission_overload rule fires, and the scaler actuates a scale-up.
+    # The floor stands only while the backlog is at the shed point, and on a
+    # fast card the lanes drain as fast as this thread submits, each popping
+    # a batch the moment it runs: the sample would read a depth already
+    # below the point, and the overload alert the loop waits for would not
+    # fire. So the lanes' workers are stopped while a fill builds the
+    # backlog and the probe, the sample and the scaler read it (a stall the
+    # lanes cannot serve through), then started again. At most BURST_FILLS
+    # fills are made; a loop that has not closed by then leaves SOAK_OK's
+    # checks to say what is missing.
     burst_submitted = burst_shed = 0
     if scaler is not None:
         low = next((c for c in classes if c != top), top)
@@ -1058,26 +1086,38 @@ def _serve_soak(args, out: dict) -> int:
                               and (engine is None or engine.fired_total > fired_before
                                    or bool(overload & set(engine.firing()))))
         burst_deadline = time.perf_counter() + 60.0
-        while not burst_done() and time.perf_counter() < burst_deadline:
-            while router.pending_count < args.max_depth + 8:
-                xs = workload.query_specs[top].make_queries(qgen, args.rows_per_query)
-                pending.append(router.submit(args.workload, top, xs))
-                burst_submitted += 1
-            # With the floor up, a low-class submission is refused: the shed
-            # that proves the overload point was actually crossed.
-            shed_probe = router.submit(
-                args.workload, low,
-                workload.query_specs[low].make_queries(qgen, args.rows_per_query))
-            burst_shed += int((shed_probe.error or "").startswith("shed"))
-            if sampler is not None:
-                sampler.sample()
-            if engine is not None:
-                engine.evaluate()
-            scaler.tick()
+        fills, reasons = 0, []
+        while (not burst_done() and fills < BURST_FILLS
+               and time.perf_counter() < burst_deadline):
+            router.stop_workers()
+            try:
+                while router.pending_count < args.max_depth + 8:
+                    xs = workload.query_specs[top].make_queries(qgen, args.rows_per_query)
+                    pending.append(router.submit(args.workload, top, xs))
+                    burst_submitted += 1
+                fills += 1
+                # With the floor up, a low-class submission is refused: the
+                # shed that proves the overload point was actually crossed.
+                shed_probe = router.submit(
+                    args.workload, low,
+                    workload.query_specs[low].make_queries(qgen, args.rows_per_query))
+                burst_shed += int((shed_probe.error or "").startswith("shed"))
+                if sampler is not None:
+                    sampler.sample()
+                if engine is not None:
+                    engine.evaluate()
+                decision = scaler.tick()
+            finally:
+                router.start_workers()
+            if decision["action"] == "scale_up":
+                reasons.append(decision["reason"])
             time.sleep(0.05)
         print(f"chaos: overload burst submitted {burst_submitted} top-class "
-              f"requests (depth {router.pending_count}), {burst_shed} low-class shed, "
-              f"scale_up={scaler.events['scale_up']}")
+              f"requests in {fills} fills (depth {router.pending_count}), {burst_shed} "
+              f"low-class shed, scale_up={scaler.events['scale_up']} "
+              f"(on {'; '.join(reasons) or 'nothing'}), alerts fired in the burst "
+              f"{(engine.fired_total - fired_before) if engine is not None else 0}")
+        out["burst_fills"] = fills
 
     for req in pending:
         req.done.wait(timeout=120.0)
@@ -1211,18 +1251,108 @@ def _serve_soak(args, out: dict) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# LM decoding demo (--workload lm)
+# ---------------------------------------------------------------------------
+
+
+def serve_lm(args, out: dict | None = None) -> int:
+    """Batched decoding from one posterior sample: the parameters of
+    ``--ckpt-dir`` (or random ones from seed 0), prompts of ``--prompt-len``
+    tokens from a generator seeded 1, a prefill into a cache of
+    ``prompt_len + gen_len + 8`` positions, then ``--gen-len`` decode steps,
+    the first token the prefill's argmax and each later one sampled from the
+    logits (Gumbel-max, as ``jax.random.categorical`` draws) by a generator
+    seeded 3. Prints the two rates. ``out``, when given, receives the
+    parameters, the prompts, the prefill's cache and logits, the times,
+    tokens/s and the peak device memory."""
+    from .._device import make_generator, resolve_device, tree_map
+    from ..checkpoint import manager as ckpt
+    from ..configs import ARCHS, reduce_config
+    from ..models import decode_step, init_params, param_specs, prefill
+
+    if args.model_parallel != 1:
+        raise NotImplementedError("--model-parallel > 1 comes with the distributed slice")
+    out = {} if out is None else out
+    device = resolve_device(args.device)
+    cfg = ARCHS[args.arch]
+    if args.reduced:
+        cfg = reduce_config(cfg)
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    if args.ckpt_dir:
+        # the checkpoint's leaves replace every initial one: a target that
+        # names them and their device, with nothing drawn
+        target = tree_map(lambda _: torch.empty(0, device=device), param_specs(cfg))
+        _, params = ckpt.restore(args.ckpt_dir, target=target)
+        print(f"restored posterior sample from {args.ckpt_dir}")
+    else:
+        params = init_params(0, cfg, device=device)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), dtype=torch.int32,
+                            device=device, generator=make_generator(1, device))
+    max_len = args.prompt_len + args.gen_len + 8
+
+    sync()
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, prompts, cfg, max_len)
+    sync()
+    t_pre = time.perf_counter() - t0
+    out.update(params=params, cfg=cfg, prompts=prompts, max_len=max_len, cache0=cache,
+               prefill_logits=logits)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    gen = make_generator(3, device)
+    t0 = time.perf_counter()
+    for _ in range(args.gen_len):
+        cache, logits = decode_step(params, cache, tok, cfg)
+        u = torch.rand(logits.shape, generator=gen, device=device).clamp_min(1e-20)
+        tok = torch.argmax(logits - torch.log(-torch.log(u)), -1)[:, None].to(torch.int32)
+    sync()
+    t_dec = time.perf_counter() - t0
+    out.update(prefill_s=t_pre, decode_s=t_dec,
+               prefill_tok_s=args.batch * args.prompt_len / t_pre,
+               decode_tok_s=args.batch * args.gen_len / t_dec,
+               decode_step_ms=1e3 * t_dec / max(args.gen_len, 1), last_tokens=tok,
+               peak_bytes=torch.cuda.max_memory_allocated(device) if cuda else None)
+    print(f"prefill {args.batch}x{args.prompt_len}: {t_pre:.2f}s "
+          f"({args.batch * args.prompt_len / t_pre:.0f} tok/s)")
+    print(f"decode {args.gen_len} steps: {t_dec:.2f}s "
+          f"({args.batch * args.gen_len / t_dec:.0f} tok/s)")
+    return 0
+
+
+_LM_ONLY_FLAGS = ("arch", "reduced", "batch", "prompt_len", "gen_len", "model_parallel")
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.workload == "lm":
-        raise NotImplementedError("--workload lm (prefill, decode_step and the KV caches) comes "
-                                  "with the rest of the LM stack")
+    lm = args.workload == "lm"
+    if args.fleet and lm:
+        parser.error("--fleet serves posterior workloads, not the lm demo")
     if args.subposterior > 1 or args.stream:
+        if lm:
+            parser.error("--subposterior/--stream serve posterior workloads through the fleet, "
+                         "not the lm demo")
         args.fleet = True  # both modes live on the fleet's serve path
     if args.autoscale:
+        if lm:
+            parser.error("--autoscale scales the replica fleet, not the lm demo")
         args.fleet = True  # the actuator needs replica lanes to scale
-    if args.soak and not args.fleet:
+    if args.alerts and lm:
+        parser.error("--alerts applies to posterior serving, not the lm demo")
+    if not lm:
+        # the LM flags must not be silently ignored by posterior serving
+        drifted = [f"--{name.replace('_', '-')}" for name in _LM_ONLY_FLAGS
+                   if getattr(args, name) != parser.get_default(name)]
+        if drifted:
+            parser.error(f"{', '.join(drifted)} only apply to the LM decoding demo; "
+                         "add --workload lm (posterior serving ignores them)")
+    if args.soak and (lm or not args.fleet):
         parser.error("--soak drives the replica fleet: add --fleet (and a posterior --workload)")
+    if lm:
+        return serve_lm(args)
     if args.soak:
         return serve_soak(args)
     if args.fleet:

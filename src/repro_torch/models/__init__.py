@@ -1,9 +1,13 @@
-"""The LM stack, dense family (the port of ``repro.models``)."""
+"""The LM stack, dense and ssm (xLSTM) families (the port of ``repro.models``)."""
 from .transformer import (
     ModelConfig,
+    abstract_cache,
+    cache_template,
     decode_step,
+    effective_cache_len,
     forward_hidden,
     forward_loglik,
+    init_cache,
     init_params,
     layer_schedules,
     param_specs,
@@ -12,9 +16,13 @@ from .transformer import (
 
 __all__ = [
     "ModelConfig",
+    "abstract_cache",
+    "cache_template",
     "decode_step",
+    "effective_cache_len",
     "forward_hidden",
     "forward_loglik",
+    "init_cache",
     "init_params",
     "layer_schedules",
     "param_specs",

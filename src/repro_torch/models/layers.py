@@ -10,9 +10,15 @@ back in the weights' dtype. The reference's logical sharding constraints
 Conventions: B batch, S sequence, D d_model, H q-heads, K kv-heads, h
 head_dim, F d_ff, V vocab.
 
-Deferred: ``_attend_flash`` (the reference's chunked path above
-``FLASH_THRESHOLD`` query rows), the KV cache, ``layer_norm``, ``gelu_mlp``
-and ``moe_mlp`` come with the families and serving paths that use them.
+Attention has the reference's three paths under one mask rule: dense
+(the (S, T) logits whole), flash (online softmax over chunks of q and kv,
+above ``FLASH_THRESHOLD`` query rows) and cached (a ring-buffer KV cache
+whose slots carry their absolute positions, -1 while empty). All three are
+plain PyTorch, as the reference's are plain ``jnp``: no TPU kernel lies
+behind them.
+
+Deferred: ``layer_norm``, ``gelu_mlp`` and ``moe_mlp`` come with the
+families that use them.
 """
 from __future__ import annotations
 
@@ -125,14 +131,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, rot: int) 
 
 # ---------------------------------------------------------------------------
 # Attention (GQA, sliding window and rope base as data, optional qk-norm and
-# qkv bias). The dense path materializes (S, S) logits.
+# qkv bias). The dense path materializes (S, T) logits; the flash path runs
+# an online softmax over chunks, so (S, T) never exists at once.
 # ---------------------------------------------------------------------------
 
-FLASH_THRESHOLD = 2048  # the reference switches to chunked attention above this
+FLASH_THRESHOLD = 2048  # chunked attention above this many query rows
 _NEG = -1e30
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int, causal: bool) -> torch.Tensor:
+    """(S, T) True where query i may attend key j: causal, inside the window,
+    and a filled slot (an empty ring-buffer slot carries pos = -1)."""
     diff = q_pos[:, None] - k_pos[None, :]
     m = diff < window
     if causal:
@@ -149,6 +158,63 @@ def _attend_dense(qg, k_all, v_all, q_pos, k_pos, window, causal, scale):
     return torch.einsum("bkgst,btkh->bskgh", probs, v_all)
 
 
+def _attend_flash(qg, k_all, v_all, q_pos, k_pos, window, causal, scale,
+                  chunk_q: int = 256, chunk_kv: int = 512):
+    """Online-softmax chunked attention, the reference's operation for
+    operation: a loop over q chunks, an inner loop over kv chunks, float32
+    running max, sum and accumulator. Memory is O(chunk_q * chunk_kv) a head
+    instead of O(S * T). q is padded with position -(1 << 29) and kv with
+    position -1 (masked), to whole chunks, as there."""
+    b, s, n_kv, group, hd = qg.shape
+    t = k_all.shape[1]
+    cq, ckv = min(chunk_q, s), min(chunk_kv, t)
+    nq, nkv = -(-s // cq), -(-t // ckv)
+    pad_q, pad_kv = nq * cq - s, nkv * ckv - t
+    pad = torch.nn.functional.pad
+    qg_p = pad(qg, (0, 0, 0, 0, 0, 0, 0, pad_q))
+    qpos_p = pad(q_pos, (0, pad_q), value=-(1 << 29))
+    k_p = pad(k_all, (0, 0, 0, 0, 0, pad_kv))
+    v_p = pad(v_all, (0, 0, 0, 0, 0, pad_kv))
+    kpos_p = pad(k_pos, (0, pad_kv), value=-1)
+    neg = torch.tensor(_NEG, dtype=F32, device=qg.device)
+    outs = []
+    for i in range(nq):
+        q_c, qp = qg_p[:, i * cq:(i + 1) * cq], qpos_p[i * cq:(i + 1) * cq]
+        m_run = torch.full((b, n_kv, group, cq), _NEG, dtype=F32, device=qg.device)
+        l_run = torch.zeros((b, n_kv, group, cq), dtype=F32, device=qg.device)
+        acc = torch.zeros((b, n_kv, group, cq, hd), dtype=F32, device=qg.device)
+        for j in range(nkv):
+            kv = slice(j * ckv, (j + 1) * ckv)
+            k_c, v_c = k_p[:, kv], v_p[:, kv]
+            logits = torch.einsum("bskgh,btkh->bkgst", q_c, k_c).to(F32) * scale
+            mask = _mask(qp, kpos_p[kv], window, causal)[None, None, None]
+            logits = torch.where(mask, logits, neg)
+            m_new = torch.maximum(m_run, logits.amax(-1))
+            corr = torch.exp(m_run - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l_run = l_run * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgst,btkh->bkgsh", p.to(q_c.dtype), v_c).to(F32)
+            m_run = m_new
+        outs.append((acc / torch.clamp_min(l_run, 1e-30)[..., None]).to(q_c.dtype))
+    out = torch.stack(outs)  # (nq, B, K, g, cq, h) -> (B, S, K, g, h)
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, nq * cq, n_kv, group, hd)
+    return out[:, :s]
+
+
+def _ring_insert(buf: torch.Tensor, new: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``new`` (B, S, ...) written along axis 1 from slot
+    ``length % C``, the start clamped so the rows fit (the reference's
+    ``dynamic_update_slice_in_dim``); the index stays on the device."""
+    c, s = buf.shape[1], new.shape[1]
+    start = torch.clamp(length % c, max=c - s)
+    idx = start + torch.arange(s, device=buf.device)
+    new = new.to(buf.dtype)
+    if buf.element_size() == 1:  # fp8: copied as its bytes (no fp8 index_copy)
+        return buf.view(torch.uint8).index_copy(1, idx, new.view(torch.uint8)).view(buf.dtype)
+    return buf.index_copy(1, idx, new)
+
+
 def attention(
     x: torch.Tensor,  # (B, S, D)
     p: Params,  # wq (D, H, h), wk/wv (D, K, h), wo (H, h, D), optional bq/bk/bv, qnorm/knorm
@@ -161,16 +227,15 @@ def attention(
     rope_base: float,
     rotary_frac: float = 1.0,
     causal: bool = True,
+    kv_cache: tuple | None = None,  # (k_buf (B, C, K, h), v_buf, length, slot_pos (C,))
     q_scale: float | None = None,
     use_rope: bool = True,
-) -> torch.Tensor:
-    """Self-attention without a KV cache. Raises above ``FLASH_THRESHOLD``
-    query rows, where the reference takes its chunked path (not ported)."""
+) -> tuple[torch.Tensor, tuple | None]:
+    """Self-attention; returns ``(y, new_cache)`` as the reference's does,
+    ``new_cache`` being ``(k_buf, v_buf)`` with this step's keys and values
+    written, or None without a cache. ``slot_pos`` must already be advanced
+    for this step (the caller's ``_advance_slot_pos``)."""
     b, s, _ = x.shape
-    if s > FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"{s} query rows: above FLASH_THRESHOLD={FLASH_THRESHOLD} the reference uses "
-            "_attend_flash, which comes with a later slice")
     q = torch.einsum("bsd,dnh->bsnh", x, p["wq"])
     k = torch.einsum("bsd,dkh->bskh", x, p["wk"])
     v = torch.einsum("bsd,dkh->bskh", x, p["wv"])
@@ -186,12 +251,36 @@ def attention(
         cos, sin, rot = rope_table(pos, head_dim, rope_base, rotary_frac)
         q = apply_rope(q, cos, sin, rot)
         k = apply_rope(k, cos, sin, rot)
+
+    new_cache = None
+    k_all, v_all, k_pos = k, v, pos
+    if kv_cache is not None:
+        k_buf, v_buf, length, slot_pos = kv_cache
+        cache_len = k_buf.shape[1]
+        if s >= cache_len:
+            # prefilling a window-sized ring: attend in-sequence, keep the
+            # tail at its ring slots (absolute position p at slot p % C, so
+            # later decode inserts at len % C overwrite the oldest entry)
+            shift = (s - cache_len) % cache_len
+            k_buf = torch.roll(k[:, -cache_len:].to(k_buf.dtype), shift, dims=1)
+            v_buf = torch.roll(v[:, -cache_len:].to(v_buf.dtype), shift, dims=1)
+        else:
+            k_buf = _ring_insert(k_buf, k, length)
+            v_buf = _ring_insert(v_buf, v, length)
+            k_all, v_all, k_pos = k_buf, v_buf, slot_pos
+        new_cache = (k_buf, v_buf)
+        if k_all.dtype != q.dtype:  # a quantized (fp8) cache: dequantized on read
+            k_all, v_all = k_all.to(q.dtype), v_all.to(q.dtype)
+
     group = n_heads // n_kv
     qg = q.reshape(b, s, n_kv, group, head_dim)
     scale = q_scale if q_scale is not None else head_dim ** -0.5
-    out5 = _attend_dense(qg, k, v, pos, pos, window, causal, scale)
+    if s > FLASH_THRESHOLD or (k_all.shape[1] > 4 * FLASH_THRESHOLD and s > 1):
+        out5 = _attend_flash(qg, k_all, v_all, pos, k_pos, window, causal, scale)
+    else:
+        out5 = _attend_dense(qg, k_all, v_all, pos, k_pos, window, causal, scale)
     out = out5.reshape(b, s, n_heads, head_dim)
-    return torch.einsum("bsnh,nhd->bsd", out, p["wo"])
+    return torch.einsum("bsnh,nhd->bsd", out, p["wo"]), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ machine with a card and no JAX:
 Without a card every test skips (the CUDA kernels have no CPU mode).
 """
 import hashlib
+import time
 import warnings
 
 import numpy as np
@@ -1350,3 +1351,146 @@ def test_mesh_round_on_card_slots_is_the_whole_round(precision, cuda_device, mon
                     for s in ((0, 0), (0, 1), (1, 0), (1, 1))}
         assert per_slot == dict.fromkeys(per_slot, 1), dict(ops.slot_launches)
         assert ops.launches["batched_logit_delta"] == 4
+
+
+# ---------------------------------------------------------------------------
+# shard="auto" on several cards; the LM's cached step, flash attention and
+# the xLSTM family on the card
+# ---------------------------------------------------------------------------
+
+
+def _ensemble_run(data, shard, steps, dev):
+    from repro_torch.core import ChainEnsemble, RandomWalk, SubsampledMHConfig
+    from repro_torch.experiments import bayeslr
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    target = bayeslr.make_target(data.x_train, data.y_train)
+    ens = ChainEnsemble(target, RandomWalk(0.05), 32, device=dev, shard=shard,
+                        config=SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="stream"))
+    theta0 = 0.5 * torch.randn(32, data.x_train.shape[1], generator=gen, device=dev)
+    state0 = ens.init(theta0, batched=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, samples, infos = ens.run(gen, state0, steps)
+    torch.cuda.synchronize()
+    return samples, infos, 32 * steps / (time.perf_counter() - t0)
+
+
+@pytest.mark.cuda
+def test_shard_auto_against_unsharded_on_cards(cuda_device):
+    """``shard="auto"`` on every visible card (two or more) against
+    ``shard=False``: BayesLR at phase C's setting (K = 32, m = 100, N =
+    12 214, D = 50), 100 steps, the samples and infos bit for bit; both rates
+    are printed (the cost of ``"auto"``, ROADMAP §3). Skips on one card."""
+    from repro_torch.experiments import bayeslr
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("shard='auto' spreads over several cards; this machine has one")
+    data = bayeslr.synth_mnist_like(0, device=cuda_device)
+    rates = {}
+    out = {}
+    for shard in (False, "auto", "auto", False):  # in turns: plain, auto, auto, plain
+        samples, infos, rate = _ensemble_run(data, shard, 100, cuda_device)
+        rates.setdefault(str(shard), []).append(rate)
+        out[str(shard)] = (samples, infos)
+    (sa, ia), (sf, if_) = out["auto"], out["False"]
+    assert torch.equal(sa, sf)
+    for a, b in zip(ia, if_):
+        assert torch.equal(a, b)
+    print(f"\nshard='auto' on {torch.cuda.device_count()} cards: transitions/s "
+          f"{rates['auto']} against shard=False {rates['False']} "
+          f"({torch.cuda.get_device_name(0)})")
+
+
+def _lm_case(dev, pool=8, seq=16):
+    from repro_torch.configs import ARCHS, reduce_config
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.models import init_params
+
+    cfg = reduce_config(ARCHS["chatglm3-6b"])
+    params = init_params(0, cfg, device=dev)
+    batch = TokenStream(DataConfig(cfg.vocab, seq, pool, 0), device=dev).batch(0)
+    return cfg, params, batch
+
+
+@pytest.mark.cuda
+def test_cached_step_equals_uncached_step_on_card(cuda_device):
+    """The lazy log-likelihood cache changes no bit: 8 steps from one
+    generator seed give the same decisions, rounds, n_evaluated and mu_hat
+    and the same final parameters as the plain step, at reduced width."""
+    from repro_torch.bayes import (LogLikCache, TrainConfig, make_cached_train_step,
+                                   make_train_step)
+
+    cfg, params, batch = _lm_case(cuda_device)
+    tc = TrainConfig(round_batch=2, epsilon=0.2, sigma=1e-3)
+    plain, cached = make_train_step(cfg, tc), make_cached_train_step(cfg, tc)
+    g1 = torch.Generator(device=cuda_device).manual_seed(5)
+    g2 = torch.Generator(device=cuda_device).manual_seed(5)
+    th1 = th2 = params
+    cache = LogLikCache.empty(8, device=cuda_device)
+    accepted = 0
+    for _ in range(8):
+        th1, i1 = plain(g1, th1, batch)
+        th2, cache, i2 = cached(g2, th2, batch, cache)
+        for f in ("accepted", "rounds", "n_evaluated", "mu_hat", "mu0"):
+            assert torch.equal(getattr(i1, f), getattr(i2, f)), f
+        accepted += int(i1.accepted)
+    assert 0 < accepted < 8
+    assert np.array_equal(cache.valid.cpu().numpy(), cache.valid_host)
+    for a, b in zip(_leaves(th1), _leaves(th2)):
+        assert torch.equal(a, b)
+
+
+def _leaves(tree):
+    from repro_torch._device import tree_leaves
+
+    return tree_leaves(tree)
+
+
+@pytest.mark.cuda
+def test_flash_attention_against_dense_at_chatglm_heads(cuda_device):
+    """``_attend_flash`` against ``_attend_dense`` on the same bf16 q/k/v at
+    chatglm3-6b's head shape (32 query heads over 2 kv heads, hd 128) and
+    2 304 rows, causal, full window: the two round their bf16 products at
+    other places (chunked p against the whole softmax), so the bar is bf16's:
+    RMS of the difference within 1e-2 of the output's RMS, max within 5e-2
+    of its largest magnitude."""
+    from repro_torch.models.layers import _attend_dense, _attend_flash
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    b, s, kv, g, hd = 1, 2304, 2, 16, 128
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = rnd(b, s, kv, g, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+    pos = torch.arange(s, device=cuda_device)
+    dense = _attend_dense(q, k, v, pos, pos, 1 << 30, True, hd ** -0.5).float()
+    flash = _attend_flash(q, k, v, pos, pos, 1 << 30, True, hd ** -0.5).float()
+    assert flash.shape == dense.shape and bool(torch.isfinite(flash).all())
+    rms = lambda t: float(t.pow(2).mean().sqrt())
+    assert rms(flash - dense) <= 1e-2 * rms(dense)
+    assert float((flash - dense).abs().max()) <= 5e-2 * float(dense.abs().max())
+
+
+@pytest.mark.cuda
+def test_xlstm_forward_on_card_matches_cpu(cuda_device):
+    """xlstm-350m's family at reduced width, in float32: hidden states and
+    per-sequence log-likelihoods on the card equal the CPU's within 1e-4 of
+    their largest magnitude and 1e-5 relative (TF32 off)."""
+    from repro_torch._device import tree_map
+    from repro_torch.configs import ARCHS, reduce_config
+    from repro_torch.models import forward_hidden, forward_loglik, init_params
+
+    cfg = reduce_config(ARCHS["xlstm-350m"])
+    cpu = tree_map(lambda t: t.float(), init_params(0, cfg, device="cpu"))
+    card = tree_map(lambda t: t.to(cuda_device), cpu)
+    tok = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab, (3, 24)), dtype=torch.int32)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        h_cpu = forward_hidden(cpu, tok, cfg)
+        h_card = forward_hidden(card, tok.to(cuda_device), cfg).cpu()
+        l_cpu = forward_loglik(cpu, {"tokens": tok}, cfg)
+        l_card = forward_loglik(card, {"tokens": tok.to(cuda_device)}, cfg).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert float((h_card - h_cpu).abs().max()) <= 1e-4 * float(h_cpu.abs().max())
+    np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-5)

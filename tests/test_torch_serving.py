@@ -731,27 +731,24 @@ def test_serve_front_end_profile_dir(tmp_path, capsys):
 
 # --fleet, --subposterior and --stream are ported (tests/test_torch_fleet.py),
 # and so are the observability flags (tests/test_torch_obs.py,
-# tests/test_torch_autoscale.py) and --mesh 2d / --devices
-# (tests/test_torch_distributed.py): those cases now check which serve path
-# each reaches (--devices without --fleet is ignored, as in the reference),
-# and --soak without the fleet is refused as the reference refuses it
+# tests/test_torch_autoscale.py), --mesh 2d / --devices
+# (tests/test_torch_distributed.py) and --workload lm
+# (tests/test_torch_decode.py): those cases now check which serve path each
+# reaches (--devices without --fleet is ignored, as in the reference), and
+# --soak without the fleet is refused as the reference refuses it
 @pytest.mark.parametrize("argv", [["--workload", "lm"], ["--fleet", "--mesh", "2d"],
                                   ["--devices", "2"], ["--stream", "--soak"], ["--autoscale"],
                                   ["--stats-addr", "127.0.0.1:0"], ["--obs-dir", "x"],
                                   ["--alerts"], ["--soak"], ["--trace-dir", "x"]])
 def test_serve_flags_of_later_slices_raise(argv, monkeypatch):
-    if argv[0] == "--workload":
-        with pytest.raises(NotImplementedError, match="comes with"):
-            serve.main(argv + ["--device", "cpu"])
-        return
     if argv == ["--soak"]:
         with pytest.raises(SystemExit):
             serve.main(argv + ["--device", "cpu"])
         return
     seen = []
-    for path in ("serve_posterior", "serve_fleet", "serve_soak"):
+    for path in ("serve_posterior", "serve_fleet", "serve_soak", "serve_lm"):
         monkeypatch.setattr(serve, path, lambda args, path=path: seen.append(path) or 0)
     assert serve.main(argv + ["--device", "cpu"]) == 0
-    want = {"--stream": "serve_soak", "--autoscale": "serve_fleet",
-            "--fleet": "serve_fleet"}.get(argv[0], "serve_posterior")
+    want = {"--stream": "serve_soak", "--autoscale": "serve_fleet", "--fleet": "serve_fleet",
+            "--workload": "serve_lm"}.get(argv[0], "serve_posterior")
     assert seen == [want]
