@@ -88,6 +88,22 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      table kernel runs in H-cache, H-mala or T (the LM forward takes the
      plain ``unembed_loglik``, as the reference does); H-cache and H-mala
      launch the round op;
+  T-whisper, T-vlm, T-moe, T-hybrid  the other families decoded at the front
+     end's defaults (batch 8, prompt 64, 64 decode steps), each at full
+     width, random: whisper-base whole (``--workload lm --arch whisper-base``,
+     frames 0.1 N(0, 1) in bf16), chameleon-34b whole (67.5 GB of bf16
+     parameters; the deepest stack that fits if the card cannot hold it),
+     mixtral-8x22b cut to 8 of its 56 layers and jamba-v0.1-52b cut to one
+     period of 8 (``decode_lm``, the body of ``serve_lm``, on the cut
+     config): T's decode checks at 2 layers (jamba: its one period), the
+     moe and hybrid decode steps held to the forward run one row at a time
+     (the MoE capacity couples the tokens of a chunk), with the assignments
+     the forward dropped counted;
+  H-moe  the LM launcher's step (``make_exact_step`` / ``make_train_step``
+     through ``run_loop``) on phi3.5-moe-42b-a6.6b at full width cut to 8 of
+     its 32 layers, H's settings: 3 exact steps, then 10 subsampled steps
+     twice from one seed, their infos and final parameters bit for bit; the
+     share of expert assignments dropped a forward;
   P  compiled programs (``repro_torch.ppl``): the BayesLR program on B's
      data, compiled onto the ``logit`` family, held bit for bit to B's
      hand-built target on C's 200 fixed proposals, then K=32 lock-step
@@ -1888,17 +1904,95 @@ def logits_agree(got, want) -> tuple[float, list[bool]]:
 
 def first_layers(params, cfg, n):
     """The model cut to its first ``n`` layers (``n`` // 2 pairs for the
-    xLSTM family): views of the stacked leaves, nothing copied."""
+    xLSTM family, ``n`` // ``attn_period`` periods for the hybrid, the
+    decoder's first ``n`` for the audio family, whose encoder stays whole):
+    views of the stacked leaves, nothing copied."""
     import dataclasses
 
     from repro_torch._device import tree_map
 
-    keep = n // 2 if cfg.family == "ssm" else n
+    keep = {"ssm": n // 2, "hybrid": n // max(cfg.attn_period, 1)}.get(cfg.family, n)
     cut = dict(params, layers=tree_map(lambda t: t[:keep], params["layers"]))
     return cut, dataclasses.replace(cfg, n_layers=n)
 
 
-def decode_against_forward(params, cfg, prompts, max_len, prefill_logits=None, cache=None):
+def rowwise(cfg) -> bool:
+    """Whether decoding is held to the forward one row at a time: the MoE
+    capacity makes a token's output depend on the other tokens of its chunk,
+    so a one-token decode step (every assignment kept) and a forward over
+    the whole batch (capacity 1.25x the mean load) differ wherever the
+    forward dropped one."""
+    return cfg.family in ("moe", "hybrid")
+
+
+def cat_caches(caches, cfg):
+    """Caches of single rows joined on the batch axis (k/v, and the hybrid's
+    conv/ssm behind their period and layer axes; ``enc_out`` first); the
+    slot positions and length are the rows' common ones."""
+    import torch
+
+    out = {}
+    for key, first in caches[0].items():
+        if key in ("pos", "len"):
+            out[key] = first
+        else:
+            dim = {"conv": 2, "ssm": 2, "enc_out": 0}.get(key, 1)
+            out[key] = torch.cat([c[key] for c in caches], dim=dim)
+    return out
+
+
+@contextlib.contextmanager
+def float32_cache():
+    """``prefill`` builds its cache with float32 k/v (and Mamba conv
+    state) in place of bf16: ``init_cache``'s dtype patched while it runs."""
+    import functools
+
+    import torch
+
+    import repro_torch.models.transformer as tr
+
+    orig = tr.init_cache
+    tr.init_cache = functools.partial(orig, dtype=torch.float32)
+    try:
+        yield
+    finally:
+        tr.init_cache = orig
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """Within the block, every ``moe_mlp`` call of the model appends the
+    experts it picks for each token, (B, S, k), as it picks them (the
+    router's softmax, a stable descending sort)."""
+    import torch
+
+    import repro_torch.models.transformer as tr
+
+    real, log = tr.moe_mlp, []
+
+    def recorded(x, p, *, top_k, **kw):
+        gates = torch.softmax(torch.einsum("bsd,de->bse", x, p["router"]).float(), dim=-1)
+        log.append(torch.sort(gates, dim=-1, descending=True, stable=True).indices[..., :top_k])
+        return real(x, p, top_k=top_k, **kw)
+
+    tr.moe_mlp = recorded
+    try:
+        yield log
+    finally:
+        tr.moe_mlp = real
+
+
+def float32_tree(tree):
+    """Every leaf of the nested dicts replaced, in place, by its float32
+    copy: each bf16 leaf is freed as its copy is made (when nothing else
+    holds it)."""
+    for key, leaf in tree.items():
+        tree[key] = float32_tree(leaf) if isinstance(leaf, dict) else leaf.float()
+    return tree
+
+
+def decode_against_forward(params, cfg, prompts, max_len, prefill_logits=None, cache=None,
+                           extra=None, drops=None, routes=None):
     """Prefill's last logits against the no-cache forward at that position,
     then ``T_FORCED`` teacher-forced decode steps against the forward of the
     grown sequence: (RMS relative of each, argmax agreement of each row and
@@ -1908,46 +2002,88 @@ def decode_against_forward(params, cfg, prompts, max_len, prefill_logits=None, c
     ``init_cache`` and ``slstm_block``, which the port keeps), the decode
     steps are held to the prefill of the grown sequence, which runs the same
     recurrence whole from the same initial state, and the first entry is
-    the prefill's gap to the forward."""
+    the prefill's gap to the forward. ``extra`` (the audio family's frames)
+    goes to every forward and prefill, sliced with the rows. For the moe and
+    hybrid families (:func:`rowwise`) the forward runs one row at a time
+    and, without a given cache, so does the prefill (its caches joined);
+    ``drops`` (a dict) then receives the MoE assignments and drops of the
+    forwards and of the prefills and decode steps, and ``routes`` (a dict)
+    how many of the prompt's (token, MoE layer) pairs the row prefill and
+    the row forward after the first decode step route to other experts:
+    the two run the prompt's tokens through GEMMs of S and S + 1 rows."""
     import torch
 
     from repro_torch.models import decode_step, forward_hidden, prefill
+    from repro_torch.models.layers import record_moe_drops
 
     table = params["embed"]["table"]
     recurrent = cfg.family == "ssm"
+    by_row = rowwise(cfg)
+    rows = lambda e, a, b: None if e is None else {k: v[a:b] for k, v in e.items()}  # noqa: E731
+    counts = {"forward": [], "decode": []}
 
-    def forward_logits(tokens):
-        h = forward_hidden(params, tokens, cfg)
+    def forward_logits(tokens, ex):
+        with record_moe_drops() as log:
+            if by_row:
+                h = torch.cat([forward_hidden(params, tokens[i:i + 1], cfg, rows(ex, i, i + 1))
+                               for i in range(tokens.shape[0])])
+            else:
+                h = forward_hidden(params, tokens, cfg, ex)
+        counts["forward"] += log
         return torch.einsum("bd,vd->bv", h[:, -1], table).float()
 
-    def grown_logits(tokens):
-        return prefill(params, tokens, cfg, max_len)[1] if recurrent else forward_logits(tokens)
+    def grown_logits(tokens, ex):
+        return prefill(params, tokens, cfg, max_len, ex)[1] if recurrent \
+            else forward_logits(tokens, ex)
 
-    if cache is None:
-        cache, prefill_logits = prefill(params, prompts, cfg, max_len)
+    track = routes is not None and by_row and cache is None
+    routing = moe_routes() if track else contextlib.nullcontext([])
+    with record_moe_drops() as log, routing as picked:
+        if cache is None and by_row:
+            parts = [prefill(params, prompts[i:i + 1], cfg, max_len, rows(extra, i, i + 1))
+                     for i in range(prompts.shape[0])]
+            cache = cat_caches([c for c, _ in parts], cfg)
+            prefill_logits = torch.cat([lg for _, lg in parts])
+        elif cache is None:
+            cache, prefill_logits = prefill(params, prompts, cfg, max_len, extra)
+    counts["decode"] += log
+    prompt_routes = list(picked)
     gen = torch.Generator(device="cuda").manual_seed(7)
     forced = torch.randint(0, cfg.vocab, (prompts.shape[0], T_FORCED), generator=gen,
                            device="cuda", dtype=torch.int32)
-    def shape_gap(tokens, whole):
-        return logits_agree(grown_logits(tokens[:1]), whole[:1])[0]
 
-    want = forward_logits(prompts)
+    def shape_gap(tokens, whole):
+        return logits_agree(grown_logits(tokens[:1], rows(extra, 0, 1)), whole[:1])[0]
+
+    want = forward_logits(prompts, extra)
     rel, ok = logits_agree(prefill_logits, want)
     rels, agree, gaps = [rel], [ok], [shape_gap(prompts, want)]
     seq = prompts
     for j in range(T_FORCED):
         tok = forced[:, j:j + 1]
-        cache, lg = decode_step(params, cache, tok, cfg)
+        with record_moe_drops() as log:
+            cache, lg = decode_step(params, cache, tok, cfg)
+        counts["decode"] += log
         seq = torch.cat([seq, tok], 1)
-        want = grown_logits(seq)
+        with (moe_routes() if track and j == 0 else contextlib.nullcontext([])) as picked:
+            want = grown_logits(seq, extra)
+        if track and j == 0:
+            s = prompts.shape[1]
+            routes["prompt_pairs"] = sum(a.shape[1] for a in prompt_routes)
+            routes["prompt_pairs_rerouted"] = sum(
+                int((a[0, :s] != b[0, :s]).any(-1).sum()) for a, b in zip(prompt_routes, picked))
         rel, ok = logits_agree(lg, want)
         rels.append(rel)
         agree.append(ok)
         gaps.append(shape_gap(seq, want))
+    if drops is not None:
+        for key, log in counts.items():
+            drops[f"{key}_assignments"] = sum(n for n, _ in log)
+            drops[f"{key}_dropped"] = int(sum(int(d) for _, d in log))
     return rels, agree, gaps
 
 
-def hold_decoding(r, label, out):
+def hold_decoding(r, label, out, check_layers=T_CHECK_LAYERS):
     """Decoding held to the forward on the parameters and prompts
     ``serve_lm`` ran (:func:`decode_against_forward`).
 
@@ -1956,53 +2092,103 @@ def hold_decoding(r, label, out):
     them apart) grows layer after layer, at full depth to the size of the
     logits themselves, as the same model's forward does against itself with
     row 0 run alone. So the full depth's numbers are recorded beside that
-    gap, and the check holds the model cut to its first ``T_CHECK_LAYERS``
+    gap, and the check holds the model cut to its first ``check_layers``
     layers (views of the same leaves), where the gap is mostly ~1e-3 with
     rarer steps that the same growth lifts: the median over prefill and the
     ``T_FORCED`` decode steps within ``T_RMS_BAR`` and the argmax agreeing
     on ``T_ARGMAX_BAR`` of rows and steps; a wrong cache slot, position or
-    mask misses both at every step."""
+    mask misses both at every step.
+
+    For the moe and hybrid families the forward runs row by row, and in
+    bf16 the same rounding moves tokens to other experts: the prompt's
+    tokens, run through GEMMs of 64 rows in the prefill and 65 in the
+    forward, are routed apart on a share of their (token, MoE layer) pairs,
+    and each such token's keys and values differ whole. So for them the cut
+    depth in bf16 is recorded beside that share and the assignments the
+    forwards dropped, and the check runs the cut model on float32 copies of
+    its leaves with float32 caches (``float32_cache``), where no token is
+    routed apart; at jamba's one period (the cut is the whole model) the
+    leaves are made float32 in place once the bf16 runs are done."""
+    import torch
+
+    from repro_torch._device import tree_map
+
     params, cfg, prompts = out["params"], out["cfg"], out["prompts"]
-    recurrent = cfg.family == "ssm"
+    recurrent, by_row = cfg.family == "ssm", rowwise(cfg)
     against = "the prefill of the grown sequence" if recurrent else "the forward"
-    runs = {"full": (params, cfg), "cut": first_layers(params, cfg, T_CHECK_LAYERS)}
-    for depth, (p, c) in runs.items():
+    if by_row:
+        against += " run one row at a time"
+    cut = first_layers(params, cfg, check_layers) if check_layers < cfg.n_layers \
+        else (params, cfg)
+    runs = [("full", params, cfg, "bf16"), ("cut", *cut, "bf16")]
+    if by_row:
+        runs.append(("cut_fp32", None, cut[1], "float32"))
+    checked = "cut_fp32" if by_row else "cut"
+    for depth, p, c, prec in runs:
         kw = dict(prefill_logits=out["prefill_logits"], cache=out["cache0"]) \
             if depth == "full" else {}
-        rels, agree, gaps = decode_against_forward(p, c, prompts, out["max_len"], **kw)
-        checked = rels[1:] if recurrent else rels
+        ctx = contextlib.nullcontext()
+        if prec == "float32":
+            if c.n_layers == cfg.n_layers:
+                p = float32_tree(params)
+                out["cache0"] = out["prefill_logits"] = None
+            else:
+                p = tree_map(lambda t: t.float(), cut[0])
+            torch.cuda.empty_cache()
+            ctx = float32_cache()
+        drops, routes = {}, {}
+        with ctx:
+            rels, agree, gaps = decode_against_forward(
+                p, c, prompts, out["max_len"], extra=out.get("extra"), drops=drops,
+                routes=routes if depth == "cut" else None, **kw)
+        del p
+        flat_rels = rels[1:] if recurrent else rels
         flat = [x for row in (agree[1:] if recurrent else agree) for x in row]
-        entry = {"layers": c.n_layers, "rms_rel": rels, "shape_gap": gaps,
-                 "median_rms_rel": statistics.median(checked),
+        entry = {"layers": c.n_layers, "precision": prec, "rms_rel": rels, "shape_gap": gaps,
+                 "median_rms_rel": statistics.median(flat_rels),
                  "argmax_agree": sum(flat) / len(flat)}
+        note = ""
+        if by_row:
+            entry["moe"] = {**drops, **routes}
+            note = (f"; MoE assignments dropped: forwards {drops['forward_dropped']} of "
+                    f"{drops['forward_assignments']}, prefill and decode steps "
+                    f"{drops['decode_dropped']} of {drops['decode_assignments']}")
+            if routes:
+                note += (f"; prompt (token, MoE layer) pairs routed apart by the row prefill "
+                         f"and the row forward: {routes['prompt_pairs_rerouted']} of "
+                         f"{routes['prompt_pairs']}")
         r[depth] = entry
-        print(f"  {label}, {c.n_layers} layers{' (recorded)' if depth == 'full' else ''}: "
-              f"prefill against the forward {rels[0]:.2e}"
-              f"{' (recorded, not checked)' if recurrent and depth == 'cut' else ''}; "
-              f"{T_FORCED} decode steps against {against}: "
+        role = " (checked)" if depth == checked else " (recorded)"
+        print(f"  {label}, {c.n_layers} layers, {prec}{role}: prefill against the forward "
+              f"{rels[0]:.2e}; {T_FORCED} decode steps against {against}: "
               + ", ".join(f"{x:.2e}" for x in rels[1:])
               + f"; argmax agreement {entry['argmax_agree']:.3f}; the forward of row 0 alone "
-              "against the batch: " + ", ".join(f"{x:.2e}" for x in gaps))
-    cut = r["cut"]
-    check(cut["median_rms_rel"] <= T_RMS_BAR and cut["argmax_agree"] >= T_ARGMAX_BAR,
+              "against the batch: " + ", ".join(f"{x:.2e}" for x in gaps) + note)
+    got = r[checked]
+    check(got["median_rms_rel"] <= T_RMS_BAR and got["argmax_agree"] >= T_ARGMAX_BAR,
           f"phase {label}: {'' if recurrent else 'prefill and '}{T_FORCED} teacher-forced "
-          f"decode steps agree with {against} at {T_CHECK_LAYERS} layers (median RMS relative "
-          f"<= {T_RMS_BAR:g}, argmax on >= {T_ARGMAX_BAR:g} of rows)")
+          f"decode steps agree with {against} at {check_layers} layers"
+          f"{' in float32' if by_row else ''} (median RMS relative <= {T_RMS_BAR:g}, argmax on "
+          f">= {T_ARGMAX_BAR:g} of rows)")
 
 
 def run_serve_lm(report, phase, argv):
     """``serve_lm`` on the front end's parsed flags, its two lines and the
     numbers it leaves."""
-    import torch
-
     from repro_torch.launch import serve
 
     args = serve.build_parser().parse_args(argv)
     out = {}
     with tee_stdout() as tee:
         code = counted(report, phase, lambda: serve.serve_lm(args, out))
+    return decode_record(report, phase, code, tee.lines(), out, args, argv)
+
+
+def decode_record(report, phase, code, lines, out, args, argv):
+    """The checks and numbers of one ``serve_lm`` / ``decode_lm`` run."""
+    import torch
+
     check(code == 0, f"phase {phase}: serve_lm exits 0")
-    lines = tee.lines()
     check(any(ln.startswith(f"prefill {args.batch}x{args.prompt_len}: ") for ln in lines)
           and any(ln.startswith(f"decode {args.gen_len} steps: ") for ln in lines),
           f"phase {phase}: the prefill and decode lines are printed")
@@ -2101,6 +2287,251 @@ def phase_t_xlstm(report):
           "64 decode steps)")
     out = run_serve_lm(report, "T-xlstm", ["--workload", "lm"])
     hold_decoding(report["phases"]["T-xlstm"], "T-xlstm", out)
+
+
+# ---------------------------------------------------------------------------
+# Phases T-whisper, T-vlm, T-moe, T-hybrid, H-moe: the other model families
+# ---------------------------------------------------------------------------
+
+T_VLM_HEADROOM = 4 << 30  # bytes T-vlm keeps free beside its parameters (cache, activations)
+FAMILY_CUTS = {  # arch -> (layers run, why)
+    "mixtral-8x22b": (8, "its 56 layers are 281 GB of bf16 parameters, past one 80 GB card; "
+                         "8 layers are 40.4 GB"),
+    "jamba-v0.1-52b": (8, "its 4 periods of 8 layers are 103 GB of bf16 parameters, past one "
+                          "80 GB card; one period, 26.1 GB (the stack cannot be cut inside a "
+                          "period)"),
+}
+HMOE_ARCH, HMOE_LAYERS = "phi3.5-moe-42b-a6.6b", 8
+HMOE_EXACT, HMOE_SUB = 3, 10
+
+
+def param_bytes(cfg) -> int:
+    """Bytes of the model's parameters, from ``abstract_params`` on the meta
+    device (nothing allocated)."""
+    from repro_torch.models import abstract_params
+
+    return sum(t.numel() * t.element_size() for t in _leaves(abstract_params(cfg)))
+
+
+def family_header(phase, cfg, full, why):
+    """The line each family phase starts with: the arch, its width, the
+    depth it runs and why, the parameter bytes, the card."""
+    experts = f", {cfg.n_experts} experts top-{cfg.top_k}" if cfg.n_experts else ""
+    extra = f", encoder {cfg.enc_layers} layers over {cfg.n_audio_frames} frames" \
+        if cfg.family == "audio" else ""
+    print(f"phase {phase}: {cfg.name} ({cfg.family}) at full width (d={cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv}, d_ff={cfg.d_ff}, V={cfg.vocab}{experts}{extra}), "
+          f"{cfg.n_layers} of {full.n_layers} layers ({why}); {cfg.param_count():,} "
+          f"parameters, {param_bytes(cfg) / 1e9:.2f} GB in bf16; card: {card_line()}")
+
+
+def decode_cut(report, phase, cfg):
+    """``decode_lm`` (the body of ``serve_lm``) at the front end's defaults
+    on random parameters of ``cfg`` (seed 0), which the front end cannot
+    build: a config whose depth was cut."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    argv = ["--workload", "lm", "--arch", cfg.name]
+    args = serve.build_parser().parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(0, cfg)
+    out = {}
+    with tee_stdout() as tee:
+        code = counted(report, phase, lambda: serve.decode_lm(
+            params, cfg, batch=args.batch, prompt_len=args.prompt_len, gen_len=args.gen_len,
+            out=out))
+    return decode_record(report, phase, code, tee.lines(), out, args,
+                         argv + [f"(n_layers={cfg.n_layers})"])
+
+
+def phase_t_whisper(report):
+    """``--workload lm --arch whisper-base`` at the front end's defaults,
+    whole: 6 encoder layers over 1 500 frames, 6 decoder layers."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS["whisper-base"]
+    family_header("T-whisper", cfg, cfg, "whole: it fits one card many times over")
+    out = run_serve_lm(report, "T-whisper", ["--workload", "lm", "--arch", "whisper-base"])
+    hold_decoding(report["phases"]["T-whisper"], "T-whisper", out)
+
+
+def phase_t_vlm(report):
+    """``--workload lm --arch chameleon-34b`` at the front end's defaults,
+    whole (67.5 GB of bf16 parameters) on the emptied card; if it does not
+    fit, the deepest stack that does, through ``decode_lm``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS["chameleon-34b"]
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    need = param_bytes(cfg)
+    r = report["phases"]["T-vlm"]
+    r.update(free_gib=free / 2 ** 30, param_gib=need / 2 ** 30)
+    if need + T_VLM_HEADROOM <= free:
+        family_header("T-vlm", cfg, cfg, f"whole: {need / 2 ** 30:.1f} GiB of parameters in "
+                      f"{free / 2 ** 30:.1f} GiB free")
+        out = run_serve_lm(report, "T-vlm", ["--workload", "lm", "--arch", "chameleon-34b"])
+    else:
+        base = param_bytes(dataclasses.replace(cfg, n_layers=0))
+        per_layer = param_bytes(dataclasses.replace(cfg, n_layers=1)) - base
+        n = int((free - T_VLM_HEADROOM - base) // per_layer)
+        cut = dataclasses.replace(cfg, n_layers=n)
+        family_header("T-vlm", cut, cfg, f"cut: {need / 2 ** 30:.1f} GiB of parameters do not "
+                      f"fit in {free / 2 ** 30:.1f} GiB free with "
+                      f"{T_VLM_HEADROOM / 2 ** 30:.0f} GiB beside; the deepest stack that does")
+        out = decode_cut(report, "T-vlm", cut)
+    r["layers"] = out["cfg"].n_layers
+    hold_decoding(r, "T-vlm", out)
+
+
+def phase_t_cut(report, phase, arch, check_layers):
+    """An arch that does not fit one card, at full width with its depth cut
+    (``FAMILY_CUTS``), decoded by ``decode_lm`` at the front end's defaults."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
+    n, why = FAMILY_CUTS[arch]
+    full = ARCHS[arch]
+    cfg = dataclasses.replace(full, n_layers=n)
+    family_header(phase, cfg, full, why)
+    out = decode_cut(report, phase, cfg)
+    hold_decoding(report["phases"][phase], phase, out, check_layers=check_layers)
+
+
+def moe_shares(log, layers_a_forward):
+    """(share of assignments dropped over all forwards, the largest share of
+    one forward) from ``record_moe_drops``' log, ``layers_a_forward`` MoE
+    calls a forward."""
+    n = [a for a, _ in log]
+    d = [int(x) for _, x in log]
+    per = [sum(d[i:i + layers_a_forward]) / sum(n[i:i + layers_a_forward])
+           for i in range(0, len(log), layers_a_forward)]
+    return sum(d) / max(sum(n), 1), max(per, default=0.0), len(per)
+
+
+def phase_h_moe(report, root):
+    """The LM launcher's step on phi3.5-moe-42b-a6.6b at full width, cut to
+    ``HMOE_LAYERS`` layers (the launcher has no depth flag, so its steps run
+    through ``run_loop`` here, as phase H's resume check does): H's settings
+    (batch 16, seq 64, round batch 4, eps 0.05, sigma 1e-4), ``HMOE_EXACT``
+    exact steps, then ``HMOE_SUB`` subsampled steps twice from one seed,
+    whose infos and final parameters must be equal bit for bit (the MoE
+    combine adds in a fixed order). Each run ends with a checkpoint under
+    ``root``, removed at once."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.bayes import TrainConfig, make_exact_step, make_train_step
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataConfig, MarkovStream
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import record_moe_drops
+    from repro_torch.runtime import LoopConfig, run_loop
+
+    full = ARCHS[HMOE_ARCH]
+    cfg = dataclasses.replace(full, n_layers=HMOE_LAYERS)
+    family_header("H-moe", cfg, full, f"its 32 layers are 83.5 GB of bf16 parameters and a step "
+                  f"holds theta and theta'; {HMOE_LAYERS} layers hold both in ~42 GB")
+    print(f"  H's settings: batch 16, seq 64, round batch 4, eps 0.05, sigma 1e-4; {HMOE_EXACT} "
+          f"exact steps, then {HMOE_SUB} subsampled steps twice from one seed")
+    tc = TrainConfig(round_batch=4, epsilon=0.05, sigma=1e-4)
+    stream = MarkovStream(DataConfig(cfg.vocab, 64, 16, seed=0))
+    r = report["phases"]["H-moe"]
+
+    def chain(maker, steps, name):
+        step, step_s = maker(cfg, tc), []
+
+        def timed(gen, params, batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(gen, params, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with record_moe_drops() as log:
+            out = run_loop(timed, init_params(0, cfg), stream.batch,
+                           LoopConfig(num_steps=steps, ckpt_dir=f"{root}/{name}",
+                                      ckpt_every=steps))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        shutil.rmtree(f"{root}/{name}", ignore_errors=True)
+        share, worst, forwards = moe_shares(log, HMOE_LAYERS)
+        infos = out["infos"]
+        steady = step_s[1:] or step_s
+        r[name] = {"steps": len(infos), "steps_per_s": len(steady) / sum(steady),
+                   "step_ms_median": 1e3 * statistics.median(steady), "wall_s": wall,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "accept": float(np.mean([i["accepted"] for i in infos])),
+                   "mean_rounds": float(np.mean([i["rounds"] for i in infos])),
+                   "mean_sections": float(np.mean([i["n_evaluated"] for i in infos])),
+                   "forwards": forwards, "drop_share": share, "drop_share_max": worst}
+        print(f"  {name}: {r[name]}")
+        return out
+
+    def run():
+        chain(make_exact_step, HMOE_EXACT, "exact").pop("params")
+        first = chain(make_train_step, HMOE_SUB, "subsampled")
+        again = chain(make_train_step, HMOE_SUB, "subsampled_again")
+        return first, again
+
+    first, again = counted(report, "H-moe", run)
+    same_params = all(torch.equal(a, b) for a, b in zip(_leaves(first["params"]),
+                                                        _leaves(again["params"])))
+    same_infos = len(first["infos"]) == len(again["infos"]) == HMOE_SUB and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(first["infos"], again["infos"]) for k in a)
+    r.update(params_bitwise=same_params, infos_bitwise=same_infos)
+    check(all(np.isfinite(i["mu_hat"]) for i in first["infos"])
+          and all(bool(torch.isfinite(t.float()).all()) for t in
+                  (first["params"]["embed"]["table"], first["params"]["layers"]["moe"]["wo"])),
+          "phase H-moe: finite mu_hat on every step and finite parameters")
+    check(same_params and same_infos,
+          f"phase H-moe: two runs of {HMOE_SUB} subsampled steps from one seed are equal bit "
+          "for bit (every info field and every parameter)")
+
+
+FAMILY_PHASES = ("T-whisper", "T-vlm", "T-moe", "T-hybrid", "H-moe")
+
+
+def family_phases(report, wanted=FAMILY_PHASES) -> dict:
+    """The family phases named in ``wanted``, in ``FAMILY_PHASES``' order,
+    the card emptied after each; returns their seconds (and the total). H-moe
+    writes its checkpoints under a temporary root removed before it returns."""
+    import torch
+
+    hybrid_layers = FAMILY_CUTS["jamba-v0.1-52b"][0]
+    runs = {"T-whisper": lambda root: phase_t_whisper(report),
+            "T-vlm": lambda root: phase_t_vlm(report),
+            "T-moe": lambda root: phase_t_cut(report, "T-moe", "mixtral-8x22b", T_CHECK_LAYERS),
+            "T-hybrid": lambda root: phase_t_cut(report, "T-hybrid", "jamba-v0.1-52b",
+                                                 hybrid_layers),
+            "H-moe": lambda root: phase_h_moe(report, root)}
+    seconds = report.setdefault("family_seconds", {})
+    root = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    try:
+        for phase in FAMILY_PHASES:
+            if phase in wanted:
+                t0 = time.perf_counter()
+                runs[phase](root)
+                torch.cuda.empty_cache()
+                seconds[phase] = time.perf_counter() - t0
+                print(f"  {phase}: {seconds[phase]:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds["total"] = sum(v for k, v in seconds.items() if k != "total")
+    return seconds
 
 
 # ---------------------------------------------------------------------------
@@ -4659,7 +5090,9 @@ def main() -> int:
     }
     report = {"card": card, "kind": kind, "phases": {p: {} for p in
                                                       [*"BCDEFGHIJKLMN", "B'", "H-cache",
-                                                       "H-mala", "T", "T-long", "T-xlstm", "P", "P1",
+                                                       "H-mala", "T", "T-long", "T-xlstm", "T-whisper",
+                                                       "T-vlm", "T-moe", "T-hybrid", "H-moe",
+                                                       "P", "P1",
                                                        "P-AR1", "S", "S-compiled", "Q", "Q-bg",
                                                        "Q-sv", "Q-jdpm", "Q-ppl", "Q-resume", "R", "R-sub",
                                                        "R-truth", "R-bg", "R-proc", "O-plain",
@@ -4728,6 +5161,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["t_seconds"] = time.perf_counter() - t_t
     print(f"  seconds taken by phases T, T-long and T-xlstm: {report['t_seconds']:.1f}")
+    fam_s = family_phases(report)
+    print("  seconds taken by the family phases: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in fam_s.items()))
     t_ps = time.perf_counter()
     compiled = phase_p(report, data, c_samples, c_infos)
     phase_s(report, data, theta_b, compiled)
@@ -4756,7 +5192,7 @@ def main() -> int:
                         ("N", ("gibbs_z_sweep", "batched_logit_delta", "fy_draw",
                                "t_test_round")),
                         ("H", ("t_test_round",)), ("H-cache", ("t_test_round",)),
-                        ("H-mala", ("t_test_round",)),
+                        ("H-mala", ("t_test_round",)), ("H-moe", ("t_test_round",)),
                         ("I", ("fused_ce", "fy_draw", "t_test_round")),
                         ("J", ("batched_fused_ce", "fy_draw", "t_test_round")),
                         ("P", ("batched_logit_delta", "t_test_round")),

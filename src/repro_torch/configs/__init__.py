@@ -1,23 +1,39 @@
-"""Architecture registry of the port: the dense configurations, the input
+"""Architecture registry of the port: the ten configurations, the input
 shape sets and the reduced smoke variants (the port of ``repro.configs``).
 
-``ARCHS`` holds the dense family and xlstm-350m (the ssm family), the same
-dataclass values as the reference's; the MoE, hybrid, audio and VLM entries
-join with their families.
+``ARCHS`` holds the reference's ten architectures in its order, the same
+dataclass values: four dense, two moe, the ssm xlstm-350m, the hybrid
+jamba-v0.1-52b, the audio whisper-base and the vlm chameleon-34b.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from ..models.transformer import ModelConfig
-from . import chatglm3_6b, gemma3_4b, internlm2_20b, qwen1_5_32b, xlstm_350m
+from . import (
+    chameleon_34b,
+    chatglm3_6b,
+    gemma3_4b,
+    internlm2_20b,
+    jamba_v0_1_52b,
+    mixtral_8x22b,
+    phi3_5_moe_42b,
+    qwen1_5_32b,
+    whisper_base,
+    xlstm_350m,
+)
 
 ARCHS: dict[str, ModelConfig] = {
     "qwen1.5-32b": qwen1_5_32b.CONFIG,
     "gemma3-4b": gemma3_4b.CONFIG,
     "internlm2-20b": internlm2_20b.CONFIG,
     "chatglm3-6b": chatglm3_6b.CONFIG,
+    "mixtral-8x22b": mixtral_8x22b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi3_5_moe_42b.CONFIG,
     "xlstm-350m": xlstm_350m.CONFIG,
+    "jamba-v0.1-52b": jamba_v0_1_52b.CONFIG,
+    "whisper-base": whisper_base.CONFIG,
+    "chameleon-34b": chameleon_34b.CONFIG,
 }
 
 
@@ -35,6 +51,18 @@ SHAPES: dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
+
+
+def shape_applicable(arch: str, shape: str) -> tuple[bool, str]:
+    """(runs?, reason). long_500k needs sub-quadratic decoding; every
+    architecture here has a decoder. The reason is the reference's string."""
+    cfg = ARCHS[arch]
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "pure full attention: a 524288-token KV cache at full attention is "
+            "the quadratic regime this shape excludes (skip noted in DESIGN.md)"
+        )
+    return True, ""
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
@@ -77,4 +105,4 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "reduce_config"]
+__all__ = ["ARCHS", "SHAPES", "ShapeSpec", "reduce_config", "shape_applicable"]

@@ -72,12 +72,17 @@ unsharded one:
 posterior sample (``--arch``, default xlstm-350m; ``--reduced``,
 ``--batch``, ``--prompt-len``, ``--gen-len``), randomly initialised or
 restored from ``--ckpt-dir`` (a ``repro_torch.launch.train`` checkpoint). It
-prints the prefill's and the decode's tokens/s:
+prints the prefill's and the decode's tokens/s. Every architecture of
+``repro_torch.configs.ARCHS`` decodes; whisper-base's encoder reads frame
+embeddings ``0.1 * N(0, 1)`` in bf16, (batch, 1 500, 512), drawn from a
+generator seeded 2 (the reference draws them from key 2; the bits differ):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch chatglm3-6b \
         --ckpt-dir /tmp/chain
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch whisper-base \
+        --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -1258,29 +1263,21 @@ def _serve_soak(args, out: dict) -> int:
 
 def serve_lm(args, out: dict | None = None) -> int:
     """Batched decoding from one posterior sample: the parameters of
-    ``--ckpt-dir`` (or random ones from seed 0), prompts of ``--prompt-len``
-    tokens from a generator seeded 1, a prefill into a cache of
-    ``prompt_len + gen_len + 8`` positions, then ``--gen-len`` decode steps,
-    the first token the prefill's argmax and each later one sampled from the
-    logits (Gumbel-max, as ``jax.random.categorical`` draws) by a generator
-    seeded 3. Prints the two rates. ``out``, when given, receives the
-    parameters, the prompts, the prefill's cache and logits, the times,
-    tokens/s and the peak device memory."""
-    from .._device import make_generator, resolve_device, tree_map
+    ``--ckpt-dir`` (or random ones from seed 0) of ``--arch``, decoded by
+    :func:`decode_lm`. ``out``, when given, receives what ``decode_lm``
+    leaves there."""
+    from .._device import resolve_device, tree_map
     from ..checkpoint import manager as ckpt
     from ..configs import ARCHS, reduce_config
-    from ..models import decode_step, init_params, param_specs, prefill
+    from ..models import init_params, param_specs
 
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel > 1 comes with the distributed slice")
-    out = {} if out is None else out
     device = resolve_device(args.device)
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduce_config(cfg)
-    cuda = device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    if cuda:
+    if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     if args.ckpt_dir:
         # the checkpoint's leaves replace every initial one: a target that
@@ -1290,35 +1287,62 @@ def serve_lm(args, out: dict | None = None) -> int:
         print(f"restored posterior sample from {args.ckpt_dir}")
     else:
         params = init_params(0, cfg, device=device)
-    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), dtype=torch.int32,
+    return decode_lm(params, cfg, batch=args.batch, prompt_len=args.prompt_len,
+                     gen_len=args.gen_len, out=out)
+
+
+def decode_lm(params: dict, cfg, *, batch: int, prompt_len: int, gen_len: int,
+              out: dict | None = None) -> int:
+    """The body of ``serve_lm`` on given parameters and config: prompts of
+    ``prompt_len`` tokens from a generator seeded 1 (and, for the audio
+    family, frames from one seeded 2), a prefill into a cache of
+    ``prompt_len + gen_len + 8`` positions, then ``gen_len`` decode steps,
+    the first token the prefill's argmax and each later one sampled from the
+    logits (Gumbel-max, as ``jax.random.categorical`` draws) by a generator
+    seeded 3. Prints the two rates. ``out``, when given, receives the
+    parameters, the config, the prompts, the extra inputs, the prefill's
+    cache and logits, the times, tokens/s and the peak device memory."""
+    from .._device import make_generator, tree_leaves
+    from ..models import decode_step, prefill
+
+    out = {} if out is None else out
+    device = tree_leaves(params)[0].device
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), dtype=torch.int32,
                             device=device, generator=make_generator(1, device))
-    max_len = args.prompt_len + args.gen_len + 8
+    extra = None
+    if cfg.family == "audio":
+        extra = {"frames": 0.1 * torch.randn((batch, cfg.n_audio_frames, cfg.d_model),
+                                             generator=make_generator(2, device),
+                                             dtype=torch.bfloat16, device=device)}
+    max_len = prompt_len + gen_len + 8
 
     sync()
     t0 = time.perf_counter()
-    cache, logits = prefill(params, prompts, cfg, max_len)
+    cache, logits = prefill(params, prompts, cfg, max_len, extra)
     sync()
     t_pre = time.perf_counter() - t0
-    out.update(params=params, cfg=cfg, prompts=prompts, max_len=max_len, cache0=cache,
-               prefill_logits=logits)
+    out.update(params=params, cfg=cfg, prompts=prompts, extra=extra, max_len=max_len,
+               cache0=cache, prefill_logits=logits)
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     gen = make_generator(3, device)
     t0 = time.perf_counter()
-    for _ in range(args.gen_len):
+    for _ in range(gen_len):
         cache, logits = decode_step(params, cache, tok, cfg)
         u = torch.rand(logits.shape, generator=gen, device=device).clamp_min(1e-20)
         tok = torch.argmax(logits - torch.log(-torch.log(u)), -1)[:, None].to(torch.int32)
     sync()
     t_dec = time.perf_counter() - t0
     out.update(prefill_s=t_pre, decode_s=t_dec,
-               prefill_tok_s=args.batch * args.prompt_len / t_pre,
-               decode_tok_s=args.batch * args.gen_len / t_dec,
-               decode_step_ms=1e3 * t_dec / max(args.gen_len, 1), last_tokens=tok,
+               prefill_tok_s=batch * prompt_len / t_pre,
+               decode_tok_s=batch * gen_len / t_dec,
+               decode_step_ms=1e3 * t_dec / max(gen_len, 1), last_tokens=tok,
                peak_bytes=torch.cuda.max_memory_allocated(device) if cuda else None)
-    print(f"prefill {args.batch}x{args.prompt_len}: {t_pre:.2f}s "
-          f"({args.batch * args.prompt_len / t_pre:.0f} tok/s)")
-    print(f"decode {args.gen_len} steps: {t_dec:.2f}s "
-          f"({args.batch * args.gen_len / t_dec:.0f} tok/s)")
+    print(f"prefill {batch}x{prompt_len}: {t_pre:.2f}s "
+          f"({batch * prompt_len / t_pre:.0f} tok/s)")
+    print(f"decode {gen_len} steps: {t_dec:.2f}s "
+          f"({batch * gen_len / t_dec:.0f} tok/s)")
     return 0
 
 

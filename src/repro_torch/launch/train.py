@@ -10,6 +10,11 @@ On the CPU, at the reduced size the tests use:
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 5
 
+``--arch`` takes every architecture of ``repro_torch.configs.ARCHS``.
+whisper-base is refused at its first step with a ValueError that names the
+missing frame embeddings: the token stream carries none, and the
+reference's launcher fails there too.
+
 ``--device`` defaults to the card and raises without one. The reference's
 ``--model-parallel`` mesh comes with the distributed slice (only 1 is
 accepted).

@@ -1,7 +1,9 @@
-"""The LM stack, dense and ssm (xLSTM) families (the port of ``repro.models``)."""
+"""The LM stack, every family: dense, moe, ssm (xLSTM), hybrid (Jamba),
+audio (Whisper) and vlm (the port of ``repro.models``)."""
 from .transformer import (
     ModelConfig,
     abstract_cache,
+    abstract_params,
     cache_template,
     decode_step,
     effective_cache_len,
@@ -17,6 +19,7 @@ from .transformer import (
 __all__ = [
     "ModelConfig",
     "abstract_cache",
+    "abstract_params",
     "cache_template",
     "decode_step",
     "effective_cache_len",

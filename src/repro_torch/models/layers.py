@@ -1,5 +1,4 @@
-"""Transformer building blocks for the dense family: the port of
-``repro.models.layers``.
+"""Transformer building blocks: the port of ``repro.models.layers``.
 
 Parameters are plain nested dicts of tensors. Shapes, layouts and the
 dtype at each step are the reference's: weights in bf16 by default, norms,
@@ -8,7 +7,7 @@ back in the weights' dtype. The reference's logical sharding constraints
 (``lc``) have no counterpart on one device.
 
 Conventions: B batch, S sequence, D d_model, H q-heads, K kv-heads, h
-head_dim, F d_ff, V vocab.
+head_dim, F d_ff, E experts, V vocab, T = B*S flattened tokens.
 
 Attention has the reference's three paths under one mask rule: dense
 (the (S, T) logits whole), flash (online softmax over chunks of q and kv,
@@ -17,11 +16,13 @@ whose slots carry their absolute positions, -1 while empty). All three are
 plain PyTorch, as the reference's are plain ``jnp``: no TPU kernel lies
 behind them.
 
-Deferred: ``layer_norm``, ``gelu_mlp`` and ``moe_mlp`` come with the
-families that use them.
+``moe_mlp`` is the reference's capacity-bounded top-k dispatch, plain
+PyTorch as the reference's is plain ``jnp``; ``record_moe_drops`` counts the
+assignments it drops past capacity.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -95,6 +96,17 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * (1.0 + gamma.to(F32))).to(dt)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * gamma + beta, in float32, back in x's dtype."""
+    dt = x.dtype
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gamma.to(F32) + beta.to(F32)).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +296,7 @@ def attention(
 
 
 # ---------------------------------------------------------------------------
-# MLP, embedding, unembedding
+# MLPs
 # ---------------------------------------------------------------------------
 
 
@@ -294,6 +306,114 @@ def swiglu_mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
     u = torch.einsum("bsd,df->bsf", x, p["wi_up"])
     h = torch.nn.functional.silu(g.to(F32)).to(x.dtype) * u
     return torch.einsum("bsf,fd->bsd", h, p["wo"])
+
+
+def gelu_mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """p: wi (D, F), bi (F,), wo (F, D), bo (D,) (Whisper's). The GELU is the
+    tanh form, ``jax.nn.gelu``'s default."""
+    h = torch.einsum("bsd,df->bsf", x, p["wi"]) + p["bi"]
+    h = torch.nn.functional.gelu(h.to(F32), approximate="tanh").to(x.dtype)
+    return torch.einsum("bsf,fd->bsd", h, p["wo"]) + p["bo"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (top-k, capacity-bounded dispatch)
+# ---------------------------------------------------------------------------
+
+_moe_drops: list | None = None  # set by record_moe_drops: (assignments, dropped) a call
+
+
+@contextlib.contextmanager
+def record_moe_drops():
+    """Within the block, every ``moe_mlp`` call appends ``(assignments,
+    dropped)`` to the yielded list: its number of (token, expert)
+    assignments and a device tensor counting those past capacity. Nothing is
+    read back to the host until the caller sums them."""
+    global _moe_drops
+    prev, _moe_drops = _moe_drops, []
+    try:
+        yield _moe_drops
+    finally:
+        _moe_drops = prev
+
+
+def moe_mlp(
+    x: torch.Tensor,  # (B, S, D)
+    p: Params,  # router (D, E), wi_gate / wi_up (E, D, F), wo (E, F, D)
+    *,
+    top_k: int,
+    capacity_factor: float = 1.25,
+    n_groups: int | None = None,
+) -> torch.Tensor:
+    """Top-k MoE with the reference's grouped, capacity-bounded dispatch.
+
+    Tokens split into ``n_groups`` groups (B when S > 1 and B >= 16, else
+    one), each routed alone: the router's logits upcast to float32, softmax,
+    the top k gates (ties to the lower expert index, as ``lax.top_k``: a
+    stable descending sort), renormalised with a 1e-9 floor. A group runs in
+    chunks of ``min(group, 8192)`` tokens, which must divide it, as the
+    reference's reshape requires. In a chunk each expert holds ``capacity =
+    max(int(cf * chunk * k / E), min(chunk * k, 32))`` rows; an assignment's
+    row is its expert's running count in flattened (token, k) order, and
+    assignments past capacity are dropped (the reference's trash row). The
+    combine gathers each token's k weighted rows and adds them in k order,
+    the order of the reference's ``.at[token].add``, with no atomics, so a
+    call gives the same bits every time."""
+    b, s, d = x.shape
+    e = p["router"].shape[-1]
+    t = b * s
+    gn = n_groups if n_groups is not None else (b if (s > 1 and b >= 16) else 1)
+    g_sz = t // gn
+    xt = x.reshape(gn, g_sz, d)
+    logits = torch.einsum("gtd,de->gte", xt, p["router"]).to(F32)
+    gate_all = torch.softmax(logits, dim=-1)
+    gate_sorted, order = torch.sort(gate_all, dim=-1, descending=True, stable=True)
+    gate, sel = gate_sorted[..., :top_k], order[..., :top_k]  # (G, T/G, k)
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+
+    chunk = min(g_sz, 8192)
+    n_c = g_sz // chunk
+    if n_c * chunk != g_sz:
+        raise ValueError(f"moe_mlp: a group of {g_sz} tokens is not a whole number of "
+                         f"{chunk}-token chunks (the reference's reshape needs it)")
+    capacity = max(int(capacity_factor * chunk * top_k / e), min(chunk * top_k, 32))
+    token_id = torch.arange(chunk, device=x.device).repeat_interleave(top_k)
+    ys = []
+    for c in range(n_c):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        xc, gate_c, sel_c = xt[:, rows], gate[:, rows], sel[:, rows]
+        sel_flat = sel_c.reshape(gn, chunk * top_k)
+        onehot = torch.nn.functional.one_hot(sel_flat, e)
+        pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1)
+        keep = pos < capacity
+        slot = torch.where(keep, sel_flat * capacity + pos, e * capacity)  # (G, chunk * k)
+        if _moe_drops is not None:
+            _moe_drops.append((gn * chunk * top_k, (~keep).sum()))
+        # scatter each kept assignment's token into its expert row; every
+        # dropped one goes to the trash row e * capacity, cut off after
+        buf = torch.zeros((gn, e * capacity + 1, d), dtype=x.dtype, device=x.device)
+        buf.scatter_(1, slot[..., None].expand(-1, -1, d), xc[:, token_id])
+        buf = buf[:, :-1].reshape(gn, e, capacity, d)
+        g = torch.einsum("gecd,edf->gecf", buf, p["wi_gate"])
+        u = torch.einsum("gecd,edf->gecf", buf, p["wi_up"])
+        h = torch.nn.functional.silu(g.to(F32)).to(x.dtype) * u
+        out_buf = torch.einsum("gecf,efd->gecd", h, p["wo"]).reshape(gn, e * capacity, d)
+        out_buf = torch.cat([out_buf, torch.zeros((gn, 1, d), dtype=x.dtype, device=x.device)],
+                            dim=1)
+        wgt = (gate_c.reshape(gn, -1, 1) * keep[..., None]).to(x.dtype)
+        per_assign = (torch.gather(out_buf, 1, slot[..., None].expand(-1, -1, d)) * wgt)
+        per_assign = per_assign.reshape(gn, chunk, top_k, d)
+        y = per_assign[:, :, 0]
+        for j in range(1, top_k):
+            y = y + per_assign[:, :, j]
+        ys.append(y)
+    y = ys[0] if n_c == 1 else torch.cat(ys, dim=1)
+    return y.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# Embedding, unembedding
+# ---------------------------------------------------------------------------
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor, scale: bool = False) -> torch.Tensor:

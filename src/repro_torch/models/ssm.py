@@ -1,5 +1,5 @@
-"""Recurrent sequence blocks of the xLSTM family: mLSTM (matrix memory) and
-sLSTM (scalar memory, recurrent gates). The port of the xLSTM half of
+"""Recurrent sequence blocks: Mamba (selective SSM), xLSTM (mLSTM, matrix
+memory, and sLSTM, scalar memory with recurrent gates). The port of
 ``repro.models.ssm``.
 
 Both blocks share the reference's calling convention
@@ -10,8 +10,6 @@ with ``x: (B, S, D)``; ``state`` carries the recurrent summary for decoding
 (one-token steps with S = 1 continue from it). The recurrence is a Python
 loop over time steps in float32, with the reference's order of operations
 inside each step (its ``lax.scan`` body).
-
-Deferred: ``MambaState`` and ``mamba_block`` come with the hybrid family.
 """
 from __future__ import annotations
 
@@ -22,6 +20,71 @@ import torch.nn.functional as F
 
 Params = dict[str, Any]
 F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Mamba (S6)
+# ---------------------------------------------------------------------------
+
+
+class MambaState(NamedTuple):
+    conv: torch.Tensor  # (B, kernel - 1, di) trailing inputs of the causal conv
+    ssm: torch.Tensor  # (B, di, ds) float32
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prefix: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, S, di); w: (k, di); prefix: (B, k-1, di).
+    The taps are added in the reference's order, each rounded to x's dtype."""
+    k, s = w.shape[0], x.shape[1]
+    xp = torch.cat([prefix, x], dim=1)
+    out = torch.zeros_like(x)
+    for j in range(k):
+        out = out + w[j] * xp[:, j:j + s]
+    return out + b
+
+
+def mamba_block(x: torch.Tensor, p: Params,
+                state: MambaState | None = None) -> tuple[torch.Tensor, MambaState]:
+    """The selective scan over time steps in float32. The conv state comes
+    back in the activations' dtype (the cache's conv prefix is cast to it, as
+    the reference's concatenation promotes it), the SSM state in float32."""
+    b, s, _ = x.shape
+    di, ds = p["a_log"].shape
+    kernel = p["conv_w"].shape[0]
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    x_in, z = torch.split(xz, di, dim=-1)  # (B, S, di) each
+
+    if state is not None:
+        prefix = state.conv.to(x_in.dtype)
+    else:
+        prefix = torch.zeros((b, kernel - 1, di), dtype=x.dtype, device=x.device)
+    x_c = _causal_conv(x_in, p["conv_w"], p["conv_b"], prefix)
+    new_conv = torch.cat([prefix, x_in], dim=1)[:, -(kernel - 1):, :]
+    x_c = F.silu(x_c.to(F32)).to(x.dtype)
+
+    proj = torch.einsum("bse,ef->bsf", x_c, p["x_proj"])
+    dt_rank = p["dt_proj"].shape[0]
+    dt_r = proj[..., :dt_rank]
+    b_mat = proj[..., dt_rank:dt_rank + ds].to(F32)
+    c_mat = proj[..., dt_rank + ds:].to(F32)
+    dt_pre = torch.einsum("bsr,re->bse", dt_r, p["dt_proj"]).to(F32) + p["dt_bias"]
+    dt = torch.logaddexp(dt_pre, torch.zeros((), dtype=F32, device=x.device))  # softplus
+    a = -torch.exp(p["a_log"].to(F32))  # (di, ds)
+
+    h = state.ssm.to(F32) if state is not None else \
+        torch.zeros((b, di, ds), dtype=F32, device=x.device)
+    xcf = x_c.to(F32)
+    ys = []
+    for t in range(s):
+        dt_t, b_t, c_t, x_t = dt[:, t], b_mat[:, t], c_mat[:, t], xcf[:, t]
+        decay = torch.exp(dt_t[..., None] * a)  # (B, di, ds)
+        h = h * decay + (dt_t * x_t)[..., None] * b_t[:, None, :]
+        ys.append(torch.einsum("bes,bs->be", h, c_t))
+    y = torch.stack(ys, dim=1) + p["d_skip"].to(F32) * xcf
+    y = (y * F.silu(z.to(F32))).to(x.dtype)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return out, MambaState(conv=new_conv, ssm=h)
 
 
 # ---------------------------------------------------------------------------

@@ -1494,3 +1494,86 @@ def test_xlstm_forward_on_card_matches_cpu(cuda_device):
         torch.backends.cuda.matmul.allow_tf32 = old
     assert float((h_card - h_cpu).abs().max()) <= 1e-4 * float(h_cpu.abs().max())
     np.testing.assert_allclose(l_card.numpy(), l_cpu.numpy(), rtol=1e-5)
+
+
+def _moe_case(seed, b, s, dev, d=64, f=128, e=8):
+    """bf16 inputs of ``moe_mlp`` from a numpy seed: x (b, s, d), a router
+    and e experts at the init scales of the LM's leaves."""
+    rng = np.random.default_rng(seed)
+    bf = lambda a: torch.tensor(a, dtype=torch.float32).to(dev, torch.bfloat16)  # noqa: E731
+    x = bf(rng.standard_normal((b, s, d)))
+    p = {"router": bf(rng.standard_normal((d, e)) * d ** -0.5),
+         "wi_gate": bf(rng.standard_normal((e, d, f)) * d ** -0.5),
+         "wi_up": bf(rng.standard_normal((e, d, f)) * d ** -0.5),
+         "wo": bf(rng.standard_normal((e, f, d)) * f ** -0.5)}
+    return x, p
+
+
+@pytest.mark.cuda
+def test_moe_on_card_is_bit_for_bit_with_drops(cuda_device):
+    """``moe_mlp`` in bf16 on the card, 8 x 256 tokens at capacity factor
+    0.5 (one group; capacity 256 against a mean load of 512 an expert: 2 048
+    of the 4 096 assignments drop on the CPU), called twice: equal bit for bit, as the combine adds
+    each token's k rows in k order with no atomics."""
+    from repro_torch.models.layers import moe_mlp, record_moe_drops
+
+    x, p = _moe_case(0, 8, 256, cuda_device)
+    with record_moe_drops() as log:
+        a = moe_mlp(x, p, top_k=2, capacity_factor=0.5)
+        b = moe_mlp(x, p, top_k=2, capacity_factor=0.5)
+    dropped = int(sum(int(n) for _, n in log))
+    assert dropped > 0 and torch.equal(a, b)
+    assert bool(torch.isfinite(a.float()).all())
+
+
+@pytest.mark.cuda
+def test_moe_on_card_matches_cpu(cuda_device):
+    """``moe_mlp`` in bf16 on the card against the CPU on the same inputs,
+    at the bf16 bar of the forward (RMS of the difference within 5e-2 of
+    the output's RMS). A router near-tie could send a token to another
+    expert on the two devices, so the case asserts its precondition on the
+    CPU's router logits (k-th and (k+1)-th more than 2 bf16 ulps apart on
+    every token); the inputs' numpy seed is the first from 0 up for which
+    it holds."""
+    from repro_torch._device import tree_map
+    from repro_torch.models.layers import moe_mlp
+
+    for seed in range(30):
+        x, p = _moe_case(seed, 2, 16, torch.device("cpu"))
+        top = torch.sort(torch.einsum("bsd,de->bse", x, p["router"]).float(), dim=-1,
+                         descending=True).values
+        ulp = 2.0 ** (torch.floor(torch.log2(top[..., 1].abs().clamp_min(1e-30))) - 7)
+        if bool(((top[..., 1] - top[..., 2]) / ulp > 2).all()):
+            break
+    else:
+        pytest.fail("no seed of 30 meets the router-gap precondition")
+    want = moe_mlp(x, p, top_k=2).float()
+    got = moe_mlp(x.to(cuda_device), tree_map(lambda t: t.to(cuda_device), p), top_k=2)
+    rms = lambda t: float(t.pow(2).mean().sqrt())  # noqa: E731
+    assert rms(got.float().cpu() - want) <= 5e-2 * rms(want)
+
+
+@pytest.mark.cuda
+def test_whisper_decode_on_card_gives_finite_logits(cuda_device):
+    """whisper-base at reduced width on the card: a prefill that encodes
+    bf16 frames, then four decode steps whose cross-attention reads the
+    cached encoder output; every logit finite, the cache's length advanced."""
+    from repro_torch.configs import ARCHS, reduce_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = reduce_config(ARCHS["whisper-base"])
+    params = init_params(0, cfg, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (2, 8), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    frames = 0.1 * torch.randn((2, cfg.n_audio_frames, cfg.d_model), generator=gen,
+                               device=cuda_device, dtype=torch.bfloat16)
+    cache, logits = prefill(params, tok, cfg, 16, {"frames": frames})
+    finite = [bool(torch.isfinite(logits).all())]
+    nxt = logits.argmax(-1)[:, None].to(torch.int32)
+    for _ in range(4):
+        cache, logits = decode_step(params, cache, nxt, cfg)
+        finite.append(bool(torch.isfinite(logits).all()))
+        nxt = logits.argmax(-1)[:, None].to(torch.int32)
+    assert all(finite) and int(cache["len"]) == 12
+    assert tuple(cache["enc_out"].shape) == (2, cfg.n_audio_frames, cfg.d_model)

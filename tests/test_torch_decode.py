@@ -9,6 +9,7 @@ a seed. float32 results are held at ``test_forward_matches_jax``'s
 tolerances unless a case names its own.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +44,8 @@ from repro_torch.models.transformer import _flatten
 
 torch.set_num_threads(1)
 DENSE = ["chatglm3-6b", "qwen1.5-32b", "gemma3-4b", "internlm2-20b"]
+NEW_FAMILIES = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b", "whisper-base",
+                "chameleon-34b"]
 
 
 def _jax_params(jcfg, dtype=jnp.float32, seed=0):
@@ -146,23 +149,47 @@ def test_forward_above_flash_threshold_matches_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", DENSE + ["xlstm-350m"])
-def test_prefill_and_decode_match_reference(name):
+@pytest.mark.parametrize("name", DENSE + ["xlstm-350m"] + NEW_FAMILIES)
+def test_prefill_and_decode_match_reference(name, monkeypatch):
     """float32 parameters: prefill's cache and last logits, then three
     decode steps, each from the reference's own cache (``lm_cache``), against
     the reference's: logits within 1e-5 (relative to their largest
     magnitude for the prefill, 1e-4 for a decode step, which attends its own
     key as rounded into the bf16 cache, where the two frameworks may round
-    one ulp apart; 1e-4 throughout for the recurrent family's float32
-    state), caches as ``_hold_cache`` says (the k/v caches are bf16, as the
-    reference's ``init_cache`` makes them)."""
+    one ulp apart; 1e-4 throughout for the recurrent families' float32
+    state, xLSTM's and the hybrid's Mamba), caches as ``_hold_cache`` says
+    (the k/v caches are bf16, as the reference's ``init_cache`` makes them;
+    the hybrid's conv state comes back in the activations' dtype, float32
+    here, as the reference's does). The audio family's prefill encodes
+    frames (0.1 N(0, 1), numpy seed 12) and keeps ``enc_out`` in the cache;
+    each decode step reads it from the reference's cache.
+    A prefill of 10 tokens into 24 slots attends its keys as rounded into
+    the bf16 cache too, so the new families' prefill logits are held at the
+    decode steps' 1e-4 (whisper: 5 of 6 144 cached keys round one bf16 ulp
+    apart in the two packages here and move the logits by 1.2e-5 of their
+    largest; with no key apart they agree to 5e-7). jamba-v0.1-52b runs
+    with float32 k/v caches in both packages (``init_cache``'s dtype
+    patched in both): with bf16 ones one of its 1 536 keys rounds apart,
+    which moves the logits by 1.0e-4 and the later Mamba layers' float32
+    states by up to 2.7e-4 of their largest, past the states' 1e-4."""
     jcfg, cfg = j_reduce(J_ARCHS[name]), reduce_config(ARCHS[name])
     jp = _jax_params(jcfg)
     tp = _port(jp)
     tok = _tokens(4, 2, 14, cfg.vocab)
-    tol = 1e-4 if cfg.family == "ssm" else 1e-5
-    jcache, jl = j_prefill(jp, jnp.asarray(tok[:, :10]), jcfg, 24)
-    tcache, tl = prefill(tp, torch.tensor(tok[:, :10]), cfg, 24)
+    tol = 1e-5 if name in DENSE else 1e-4
+    if cfg.family == "hybrid":
+        import repro.models.transformer as jt
+        import repro_torch.models.transformer as tt
+
+        monkeypatch.setattr(jt, "init_cache", functools.partial(jt.init_cache, dtype=jnp.float32))
+        monkeypatch.setattr(tt, "init_cache", functools.partial(tt.init_cache, dtype=torch.float32))
+    jextra = textra = None
+    if cfg.family == "audio":
+        frames = 0.1 * np.random.default_rng(12).standard_normal(
+            (2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+        jextra, textra = {"frames": jnp.asarray(frames)}, {"frames": torch.tensor(frames)}
+    jcache, jl = j_prefill(jp, jnp.asarray(tok[:, :10]), jcfg, 24, jextra)
+    tcache, tl = prefill(tp, torch.tensor(tok[:, :10]), cfg, 24, textra)
     jl = np.asarray(jl)
     np.testing.assert_allclose(tl.numpy(), jl, rtol=0, atol=tol * np.abs(jl).max())
     _hold_cache(tcache, jcache)
@@ -256,7 +283,7 @@ def test_fp8_cache_matches_reference():
                                    atol=1e-4 * np.abs(np.asarray(jl)).max())
 
 
-@pytest.mark.parametrize("name", ["chatglm3-6b", "xlstm-350m"])
+@pytest.mark.parametrize("name", ["chatglm3-6b", "xlstm-350m"] + NEW_FAMILIES)
 def test_cache_templates_match_reference(name):
     """``abstract_cache`` (meta-device tensors) has the reference's leaves,
     shapes and dtypes, at full size and without allocating; ``init_cache``

@@ -52,6 +52,8 @@ from repro_torch.runtime import InjectedFailure, LoopConfig, run_loop
 
 torch.set_num_threads(1)
 DENSE = ["chatglm3-6b", "qwen1.5-32b", "gemma3-4b", "internlm2-20b"]
+NEW_FAMILIES = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b", "whisper-base",
+                "chameleon-34b"]
 
 
 def _jax_params(name, dtype=jnp.float32, seed=0):
@@ -99,16 +101,18 @@ def _jax_flat(tree, prefix=""):
 
 
 def test_reduce_config_and_deferred_families():
-    """``reduce_config`` is the reference's for every ported config; the
-    families still to come (moe, hybrid, audio, vlm) raise, the ssm family
-    and 2 049+ query rows (the flash path) no longer do."""
-    for name in DENSE + ["xlstm-350m"]:
+    """``reduce_config`` is the reference's for all ten architectures; no
+    family is deferred any more: an unknown one raises ValueError, and 2 049+
+    query rows (the flash path) run."""
+    assert list(ARCHS) == list(J_ARCHS)
+    for name in ARCHS:
         assert dataclasses.asdict(reduce_config(ARCHS[name])) == \
             dataclasses.asdict(j_reduce(J_ARCHS[name]))
-    for family in ("moe", "hybrid", "audio", "vlm"):
-        cfg = dataclasses.replace(ARCHS["chatglm3-6b"], family=family)
-        with pytest.raises(NotImplementedError, match="slice"):
-            param_specs(cfg)
+    for name in ARCHS:
+        param_specs(reduce_config(ARCHS[name]))
+    cfg = dataclasses.replace(ARCHS["chatglm3-6b"], family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
+        param_specs(cfg)
     cfg = reduce_config(ARCHS["chatglm3-6b"])
     h = forward_hidden(init_params(0, cfg, device="cpu"), torch.zeros((1, 2049), dtype=torch.int32),
                        cfg)
@@ -135,23 +139,83 @@ def test_init_params_shapes_dtypes_and_scale():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", DENSE)
+def _router_gaps(monkeypatch):
+    """Wrap the port's ``moe_mlp`` to keep, for every call, each token's gap
+    between its k-th and (k+1)-th router logits in bf16 ulps of the k-th."""
+    import repro_torch.models.transformer as tr
+
+    real, gaps = tr.moe_mlp, []
+
+    def recorded(x, p, *, top_k, **kw):
+        lg = torch.einsum("bsd,de->bse", x, p["router"]).float()
+        top = torch.sort(lg, dim=-1, descending=True).values
+        ulp = 2.0 ** (torch.floor(torch.log2(top[..., top_k - 1].abs().clamp_min(1e-30))) - 7)
+        gaps.append(((top[..., top_k - 1] - top[..., top_k]) / ulp).min().item())
+        return real(x, p, top_k=top_k, **kw)
+
+    monkeypatch.setattr(tr, "moe_mlp", recorded)
+    return gaps
+
+
+@pytest.mark.parametrize("name", DENSE + NEW_FAMILIES)
 @pytest.mark.parametrize("prec", ["fp32", "bf16"])
-def test_forward_matches_jax(name, prec):
+def test_forward_matches_jax(name, prec, monkeypatch):
     """fp32: hidden states within 1e-4 of their largest magnitude, per-
     sequence log-likelihoods within 1e-5 relative. bf16 (the default dtype):
     the two frameworks round the bf16 products at other places, and one
     flipped ulp propagates through the layers; the hidden states agree to 5e-2
-    in RMS relative to their RMS and the log-likelihoods to 2e-3 relative."""
+    in RMS relative to their RMS and the log-likelihoods to 2e-3 relative.
+    The audio family is given frames (0.1 N(0, 1), numpy seed 11) in both.
+    In bf16 a router near-tie could send a token to another expert in the
+    two packages, so for the moe and hybrid families the case asserts its own
+    precondition: on every token of every MoE layer the k-th and (k+1)-th
+    router logits of the port's forward lie more than 2 bf16 ulps apart.
+    These cases take 2 x 12 tokens, and their numpy seed is the first from 1
+    up for which it holds: a gap of 2 ulps or less comes on 0.6-1.4% of
+    token-layers at these sizes, so over 3 x 24 tokens through jamba's 4 MoE
+    layers it held on none of 30 seeds.
+    The five configurations of the moe, hybrid, audio and vlm families are
+    held in bf16 to the reference compiled with XLA's
+    ``xla_allow_excess_precision`` off, which rounds to bf16 where its code
+    says, as the port does: by default XLA fuses elementwise chains inside
+    ``lax.scan`` in float32, and for whisper-base and jamba-v0.1-52b that run
+    differs from the reference's own op-by-op run (``jax.disable_jit``) by
+    6.4e-2 and 8.2e-2 of the hidden states' RMS at these sizes, above the
+    bar. Against the strict run the port's hidden states are equal bit for
+    bit in most cases here (at most 9.4e-4 of the RMS apart)."""
     jcfg, cfg = j_reduce(J_ARCHS[name]), reduce_config(ARCHS[name])
-    jp = _jax_params(name, jnp.float32 if prec == "fp32" else jnp.bfloat16)
+    dtype = jnp.float32 if prec == "fp32" else jnp.bfloat16
+    jp = _jax_params(name, dtype)
     tp = _port(jp)
-    tok = _tokens(1, 3, 24, cfg.vocab)
-    jh = np.asarray(j_hidden(jp, jnp.asarray(tok), jcfg).astype(jnp.float32))
-    th = forward_hidden(tp, torch.tensor(tok), cfg).float().numpy()
-    jl = np.asarray(j_loglik(jp, {"tokens": jnp.asarray(tok)}, jcfg, ce_chunk=8))
-    tl = forward_loglik(tp, {"tokens": torch.tensor(tok)}, cfg, ce_chunk=8).numpy()
-    assert th.shape == jh.shape and tl.shape == (3,)
+    extra = {}
+    if cfg.family == "audio":
+        frames = 0.1 * np.random.default_rng(11).standard_normal(
+            (3, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+        extra = {"frames": jnp.asarray(frames).astype(dtype)}
+    textra = {k: convert.lm_params(np.asarray(v), device="cpu") for k, v in extra.items()}
+    routed = prec == "bf16" and cfg.family in ("moe", "hybrid")
+    gaps = _router_gaps(monkeypatch) if routed else []
+    for seed in range(1, 31):
+        tok = _tokens(seed, *((2, 12) if routed else (3, 24)), cfg.vocab)
+        gaps.clear()
+        th = forward_hidden(tp, torch.tensor(tok), cfg, textra or None).float().numpy()
+        if all(g > 2 for g in gaps):
+            break
+    assert all(g > 2 for g in gaps), gaps
+    options = {"xla_allow_excess_precision": False} if prec == "bf16" and \
+        name in NEW_FAMILIES else None
+
+    def run(fn, *args):
+        if options is None:
+            return np.asarray(fn(*args))
+        return np.asarray(jax.jit(fn).lower(*args).compile(compiler_options=options)(*args))
+
+    jh = run(lambda p, t, e: j_hidden(p, t, jcfg, e or None).astype(jnp.float32), jp,
+             jnp.asarray(tok), extra)
+    jl = run(lambda p, b: j_loglik(p, b, jcfg, ce_chunk=8), jp,
+             {"tokens": jnp.asarray(tok), **extra})
+    tl = forward_loglik(tp, {"tokens": torch.tensor(tok), **textra}, cfg, ce_chunk=8).numpy()
+    assert th.shape == jh.shape and tl.shape == (tok.shape[0],)
     if prec == "fp32":
         np.testing.assert_allclose(th, jh, rtol=0, atol=1e-4 * np.abs(jh).max())
         np.testing.assert_allclose(tl, jl, rtol=1e-5)
