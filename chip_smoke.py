@@ -597,6 +597,33 @@ def record(report, name, label, err, ms, plain_ms, byts, ops_, host_ms, plain_ho
                  library_ms=library_ms)
 
 
+def ar1_library(xt, xp, par, idx=None, rows=None):
+    """The library composite of the AR(1) delta (the yardstick the port never
+    calls): the sections (``index_select`` of shared pools or ``gather`` of
+    per-chain ones by ``idx`` (K, m), a slice ``rows``, or the (K, m) pair as
+    it is), then ``torch.distributions.Normal(phi xp, sqrt(s2)).log_prob(xt)``
+    for theta' and theta, and the difference. No argument validation: it
+    would read the card from the host inside the timed queue."""
+    import torch
+    from torch.distributions import Normal
+
+    if idx is not None:
+        k, m = idx.shape
+        if xt.ndim == 1:
+            flat = idx.reshape(-1)
+            a, b = xt.index_select(0, flat).view(k, m), xp.index_select(0, flat).view(k, m)
+        else:
+            a, b = torch.gather(xt, 1, idx.long()), torch.gather(xp, 1, idx.long())
+    elif rows is not None:
+        a, b = xt[None, rows.start:rows.stop], xp[None, rows.start:rows.stop]
+    else:
+        a, b = xt, xp
+    a, b = a.float(), b.float()
+    phi_c, s2_c, phi_p, s2_p = (t[:, None] for t in par)
+    lp = Normal(phi_p * b, s2_p.clamp_min(1e-12).sqrt(), validate_args=False).log_prob(a)
+    return lp - Normal(phi_c * b, s2_c.clamp_min(1e-12).sqrt(), validate_args=False).log_prob(a)
+
+
 def phase_a_sv(report):
     """The stochvol kernels against their plain versions."""
     import torch
@@ -651,28 +678,32 @@ def phase_a_sv(report):
             if what == "pre-gathered":
                 fn = lambda xt, xp, par=par, mode="always", p=precision: \
                     ops.batched_gaussian_ar1_delta(xt, xp, *par, mode=mode, precision=p)
+                lib = lambda xt, xp, par=par: ar1_library(xt, xp, par)
                 byts, m = k * n * (2 * bx + 4) + k * 16, n
                 label = f"pre-gathered K={k} m={n} {prec}"
             elif what == "G's exact pass":
                 fn = lambda xt, xp, par=par, n=n, mode="always", p=precision: ops.gather_ar1_delta(
                     xt, xp, range(0, n), *par, mode=mode, precision=p)
+                lib = lambda xt, xp, par=par, n=n: ar1_library(xt, xp, par, rows=range(0, n))
                 byts, m, label = n * (2 * bx + 4) + 16, n, f"{what} range N={n} {prec}"
             else:
                 m = 100
                 idx = torch.randint(0, n, (k, m), generator=g, device=dev, dtype=torch.int32)
                 fn = lambda xt, xp, idx=idx, par=par, mode="always", p=precision: \
                     ops.gather_ar1_delta(xt, xp, idx, *par, mode=mode, precision=p)
+                lib = lambda xt, xp, idx=idx, par=par: ar1_library(xt, xp, par, idx=idx)
                 byts = k * m * (2 * bx + 4 + 4) + k * 16
                 label = f"{what} K={k} m={m} of N={n} {'shared' if shared else 'per-chain'} {prec}"
             ar1.append((label, fn, pools, byts, k * m * 16, what == "G's exact pass",
-                        (k, n, prec, what) == (32, 1000, "fp32", "F's round")))
+                        (k, n, prec, what) == (32, 1000, "fp32", "F's round"),
+                        lib if prec == "fp32" else None))
             if what == "G's exact pass" and prec == "fp32":
                 full = torch.arange(n, dtype=torch.int32, device=dev)[None]
                 fn = lambda xt, xp, idx=full, par=par, mode="always": ops.gather_ar1_delta(
                     xt, xp, idx, *par, mode=mode)
                 ar1.append((f"{what} index tensor N={n} {prec}", fn, pools,
-                            n * (2 * bx + 4 + 4) + 16, n * 16, False, False))
-    for label, fn, pools, byts, flops, cold, main_shape in ar1:
+                            n * (2 * bx + 4 + 4) + 16, n * 16, False, False, None))
+    for label, fn, pools, byts, flops, cold, main_shape, lib in ar1:
         run = lambda fn=fn, pools=pools: fn(*pools)
         plain = lambda fn=fn, pools=pools: fn(*pools, mode="never")
         got, want = run(), plain()
@@ -681,9 +712,14 @@ def phase_a_sv(report):
         check(err <= tol * max(1.0, float(want.abs().max())),
               f"gaussian_ar1_delta {label} within {tol:g} (relative to max |l|) of its plain version")
         (ms, host_ms), (plain_ms, plain_host_ms) = time_ms(run, 60), time_ms(plain, 10)
+        lib_ms = lib_err = None
+        if lib is not None:
+            lib_err = float((lib(*pools).reshape(want.shape) - want).abs().max())
+            lib_ms, _ = time_ms(lambda lib=lib, pools=pools: lib(*pools), 30)
         cold_ms = cold and time_cold(pools, fn)
         record(report, "gaussian_ar1_delta", label, err, ms, plain_ms, byts, flops, host_ms,
-               plain_host_ms, main_shape, cold_ms=cold_ms, above_floor_ms=ms - floor)
+               plain_host_ms, main_shape, library_ms=lib_ms, cold_ms=cold_ms,
+               above_floor_ms=ms - floor, library_err=lib_err)
         print(f"    above the launch floor: {(ms - floor) * 1e3:.2f}us" + (
             f"; pools out of L2: kernel={cold_ms * 1e3:.2f}us, "
             f"{byts / HBM_BYTES_PER_S * 1e3 / cold_ms:.1%} of the byte bound" if cold_ms else ""))
@@ -4256,6 +4292,239 @@ def phase_x_fleet(report):
           f"{runs['2d']['wall']:.2f} / {runs['off']['wall']:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase U: the launch-parameter tuner; phase H-adam: the optimizer substrate
+# ---------------------------------------------------------------------------
+
+# The main path's shapes by tuner family (the buckets phase U races besides
+# ``warm(fast=False)``, so that no later phase holds a race): B's and D's
+# rounds and M's w move (one chain), D's and B's exact passes; C/K's, L's and
+# N's rounds and the mesh slots' splits of C's round (X: chains over 4 slots,
+# 2 x 2, data over 4); E's and F/P's rounds and G's exact passes. Then, at
+# the bucket's own shape, the buckets a full run reached after U without
+# them: Q's, Q-sv's, Q-ppl's and X-fleet's rounds and four more. The CE
+# families' grids are one: nothing to race.
+U_SHAPES = {
+    "logit_delta": [(100, 50), (100, 2), (100, 3), (12214, 50), (10_000, 2), (100_000, 2),
+                    (1_000_000, 2)],
+    "batched_loglik": [(32, 100, 50), (32, 400, 50), (8, 100, 3), (8, 100, 50), (16, 50, 50),
+                       (32, 25, 50), (8, 512, 32), (8, 64, 4), (4, 256, 32), (256, 128, 64),
+                       (1, 128, 4)],
+    "gaussian_ar1": [(1, 100), (32, 100), (1, 1000), (1, 10_000), (1, 100_000), (8, 128),
+                     (1, 64), (256, 128)],
+}
+U_KERNEL = {"logit_delta": "logit_delta", "batched_loglik": "batched_logit_delta",
+            "gaussian_ar1": "gaussian_ar1_delta", "fused_ce": "fused_ce",
+            "batched_fused_ce": "batched_fused_ce"}
+
+
+def phase_u(report):
+    """The tuner forced on (``REPRO_AUTOTUNE=1``) over a fresh cache
+    directory: ``warm(fast=False)`` and the main path's buckets, each raced
+    with every candidate held to the default's bits; then ``auto`` for every
+    later phase."""
+    from repro_torch.kernels import autotune
+
+    print(f"phase U: the launch-parameter tuner, cache {os.environ[autotune.DIR_ENV_VAR]}")
+    r = report["phases"]["U"]
+    os.environ[autotune.ENV_VAR] = "1"
+    t0 = time.perf_counter()
+
+    def run():
+        autotune.warm(fast=False)
+        for family, shapes in U_SHAPES.items():
+            for shape in shapes:
+                autotune.tiles_for(family, shape)
+
+    counted(report, "U", run)
+    r["seconds"] = time.perf_counter() - t0
+    r["races"] = autotune.race_stats["races"]
+    r["race_s"] = autotune.race_stats["seconds"]
+    r["race_launches"] = dict(autotune.race_launches)
+    r["raced_keys"] = len(autotune.race_stats["keys"])  # later races happen inside a phase
+    with open(autotune._cache_path(autotune.card_name())) as f:
+        entries = json.load(f)
+    r["entries"] = entries
+    for key, e in sorted(entries.items()):
+        family = key.split("|")[1]
+        tuned = {"bucket": key.split("|", 1)[1], "shape": e["shape"], "tiles": e["tiles"],
+                 "us": e["us"], "default_us": e["default_us"], "candidates": e["candidates"]}
+        report["kernels"][U_KERNEL[family]].setdefault("tuned", []).append(tuned)
+        print(f"  {key.split('|', 1)[1]:40s} shape {tuple(e['shape'])}: default "
+              f"{e['default_us']:.2f}us, winner {e['tiles']} {e['us']:.2f}us, "
+              f"{e['candidates']} candidates, every one bit for bit the default: {e['bitwise']}")
+    for family, cands in autotune.CANDIDATES.items():
+        if len(cands) == 1:
+            report["kernels"][U_KERNEL[family]]["tuned"] = [{"tiles": cands[0], "candidates": 1}]
+            print(f"  {family}: a grid of one, its default {cands[0]}: not raced")
+    print(f"  the races: {r['races']} buckets, {sum(r['race_launches'].values())} launches "
+          f"({r['race_launches']}), {r['race_s']:.2f}s; the phase {r['seconds']:.2f}s")
+    check(all(e["bitwise"] and e["tiles"] in list(autotune.CANDIDATES[k.split("|")[1]])
+              for k, e in entries.items()),
+          f"phase U: {len(entries)} buckets tuned, every candidate bit for bit its default")
+    check(not r["launches"], "phase U: the races' launches count apart from the work's")
+    # what each dispatch pays to consult the tuner once its bucket is resolved
+    import torch
+
+    from repro_torch.kernels import ops
+
+    x, n = torch.zeros(1, device="cuda"), 20_000
+    ops._tuned("batched_loglik", (32, 100, 50), x, {})
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ops._tuned("batched_loglik", (32, 100, 50), x, {})
+    r["consult_host_us"] = 1e6 * (time.perf_counter() - t0) / n
+    print(f"  a dispatch's consult of a resolved bucket: {r['consult_host_us']:.2f} us of host")
+    os.environ[autotune.ENV_VAR] = "auto"  # every later phase: tuned on the card
+
+
+ADAM_PRESET = "100m"  # examples/lm_train_torch.py's largest preset
+ADAM_STEPS, ADAM_MH_STEPS, ADAM_BATCH, ADAM_SEQ = 300, 60, 16, 64
+ADAM_WIDE_LAYERS = 2  # chatglm3-6b at full width, depth cut for phase H-adam (b)
+
+
+def _finite(tree) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(t.float()).all()) for t in _leaves(tree))
+
+
+def phase_h_adam(report):
+    """The hybrid Adam-then-MH path: (a) ``examples/lm_train_torch.run`` at
+    its ``100m`` preset, 300 Adam steps then 60 MH steps over the final norm,
+    each pass twice from one seed; the Adam step's time by
+    ``wall_clock_step_stats``; (b) one Adam step alone on chatglm3-6b at
+    full width cut to 2 layers."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    import lm_train_torch as ex
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    from repro_torch.optim import adam_init, adam_step, lm_loss_fn
+    from repro_torch.optim.optimizers import value_and_grad
+    from repro_torch.runtime import wall_clock_step_stats
+
+    r = report["phases"]["H-adam"]
+    cfg = ex.PRESETS[ADAM_PRESET]
+    print(f"phase H-adam: (a) examples/lm_train_torch.py --preset {ADAM_PRESET} "
+          f"({cfg.n_layers} layers, d={cfg.d_model}, V={cfg.vocab}; {cfg.param_count():,} "
+          f"parameters), {ADAM_STEPS} Adam steps at batch {ADAM_BATCH} x {ADAM_SEQ}, then "
+          f"{ADAM_MH_STEPS} MH steps over final_norm, subsampled and exact, each twice")
+
+    def adam_stats(model_cfg, params, stream):
+        """``wall_clock_step_stats`` (n=5) of one Adam step (loss, gradient,
+        update) and the peak memory of those calls."""
+        vg = value_and_grad(lm_loss_fn(model_cfg))
+        opt = adam_init(params)
+        batch = stream.batch(0)
+
+        def step(p, o):
+            _, grads = vg(p, batch)
+            return adam_step(grads, o, p, lr=ex.LR)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stats = wall_clock_step_stats(step, (params, opt), n=5)
+        out = step(params, opt)
+        torch.cuda.synchronize()
+        finite = _finite(out[0]) and _finite(out[1].mu) and _finite(out[1].nu)
+        tokens = batch["tokens"].numel()
+        return {"mean_ms": 1e3 * stats["mean_s"], "min_ms": 1e3 * stats["min_s"],
+                "tokens_per_s": tokens / stats["mean_s"],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "adam_state_gib": sum(t.numel() * 4 for t in _leaves(opt.mu)) * 2 / 2 ** 30,
+                "finite": finite}
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_adam_")
+
+    def run_a():
+        torch.cuda.reset_peak_memory_stats()
+        out = ex.run(cfg, steps=ADAM_STEPS, mh_steps=ADAM_MH_STEPS, batch=ADAM_BATCH,
+                     seq=ADAM_SEQ, ckpt_dir=ckpt_dir, log=print)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["adam"] = adam_stats(cfg, out["params"], out["stream"])
+        return out
+
+    try:
+        out = counted(report, "H-adam", run_a)
+        step, restored = ckpt.restore(ckpt_dir, target=out["params"])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(int(step) == ADAM_STEPS and all(
+        torch.equal(x, y) for x, y in zip(_leaves(restored), _leaves(out["params"]))),
+        "phase H-adam (a): the checkpoint of the trained weights restores bit for bit")
+    del restored
+    losses = out["losses"]
+    a = {"losses": losses, "first_loss": losses[0][1], "last_loss": losses[-1][1],
+         "adam_s": out["adam_s"], "peak_gib": out["peak_gib"], **out["adam"],
+         "params_finite": _finite(out["params"])}
+    for name, m in out["mh"].items():
+        a[name] = {k: v for k, v in m.items() if k not in ("accepted", "n_evaluated")}
+    r["a"] = a
+    print(f"  Adam: loss {a['first_loss']:.4f} -> {a['last_loss']:.4f} over {ADAM_STEPS} steps "
+          f"({a['adam_s']:.1f}s); one step {a['mean_ms']:.2f} ms mean, {a['min_ms']:.2f} min "
+          f"(wall_clock_step_stats, n=5), {a['tokens_per_s']:.0f} tokens/s, peak "
+          f"{a['peak_gib']:.2f} GiB")
+    for name in ("subsampled", "exact"):
+        m = a[name]
+        print(f"  {name}: acceptance {m['acceptance']:.3f}, sections/transition "
+              f"{m['sections_per_transition']:.2f} of {ADAM_BATCH}, rounds "
+              f"{m['rounds_per_transition']:.2f}, {m['ms_per_transition']:.2f} ms/transition, "
+              f"launches {m['launches']}, passes bit for bit: {m['passes_equal']}")
+    del out
+    torch.cuda.empty_cache()
+
+    wide = dataclasses.replace(ARCHS[LM_ARCH], n_layers=ADAM_WIDE_LAYERS)
+    print(f"  (b) one Adam step on {wide.name} at full width cut to {ADAM_WIDE_LAYERS} layers "
+          f"(d={wide.d_model}, V={wide.vocab}; {wide.param_count():,} parameters), batch "
+          f"{ADAM_BATCH} x {ADAM_SEQ}")
+    from repro_torch.data import DataConfig, MarkovStream
+
+    params = init_params(0, wide)
+    stream = MarkovStream(DataConfig(wide.vocab, ADAM_SEQ, ADAM_BATCH, seed=0))
+    b = adam_stats(wide, params, stream)
+    b.update(layers=ADAM_WIDE_LAYERS, params=wide.param_count())
+    r["b"] = b
+    print(f"  (b): {b['mean_ms']:.2f} ms mean, {b['min_ms']:.2f} min, "
+          f"{b['tokens_per_s']:.0f} tokens/s, Adam state {b['adam_state_gib']:.2f} GiB, peak "
+          f"{b['peak_gib']:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    check(a["last_loss"] <= a["first_loss"] - 0.1,
+          f"phase H-adam (a): the loss falls by at least 0.1 ({a['first_loss']:.4f} -> "
+          f"{a['last_loss']:.4f})")
+    check(a["params_finite"] and a["finite"] and b["finite"],
+          "phase H-adam: every parameter and moment finite in (a) and (b)")
+    check(a["subsampled"]["passes_equal"] and a["exact"]["passes_equal"],
+          "phase H-adam (a): each MH pass equals its twin from the same seed (decisions, "
+          "n_evaluated, rounds, mu_hat, final parameters) bit for bit")
+    check(a["subsampled"]["launches"].get("t_test_round", 0) > 0,
+          "phase H-adam (a): the round op launched in the subsampled passes")
+    check(a["exact"]["sections_per_transition"] == ADAM_BATCH,
+          "phase H-adam (a): exact MH evaluates the whole pool")
+
+
+def hold_to_proof(report):
+    """Every deterministic value of the earlier phases (``tools/proof_values.json``:
+    the values equal in the runs it was made from) reproduced by this run."""
+    sys.path.insert(0, os.path.join(HERE, "tools"))
+    import proof_values
+
+    with open(os.path.join(HERE, "tools", "proof_values.json")) as f:
+        values = json.load(f)
+    diffs = proof_values.differences(values, report["phases"])
+    report["proof_differences"] = diffs
+    for d in diffs[:40]:
+        print(f"  differs: {d}")
+    check(not diffs, f"every one of {len(values)} deterministic values of B-X equals the proof "
+          f"run's ({len(diffs)} differ)")
+
+
 Q_PROFILE_S = 3.0  # each window of the paced load in ``profile_q_bg``
 Q_SWITCH_INTERVALS = (5e-3, 5e-4, 5e-5)  # sys.setswitchinterval tried; 5e-3 is Python's own
 
@@ -4607,16 +4876,20 @@ def counted(report, phase, fn):
     held = torch.cuda.memory_allocated() / 2 ** 30
     report["phases"][phase]["gib_held_at_start"] = held
     print(f"  device memory held at the start of phase {phase}: {held:.2f} GiB")
-    ops.reset_launches()
-    out = fn()
-    import torch
+    from repro_torch.kernels import autotune
 
+    ops.reset_launches()
+    raced = len(autotune.race_stats["keys"])
+    out = fn()
     torch.cuda.synchronize()
     counts = dict(ops.launches)
     report["phases"][phase]["launches"] = counts
     for name, n in counts.items():
         report["kernels"][name]["launches"] += n
     print(f"  launches during phase {phase}: {counts}")
+    if phase != "U" and autotune.race_stats["keys"][raced:]:
+        report["phases"][phase]["raced"] = autotune.race_stats["keys"][raced:]
+        print(f"  buckets raced inside phase {phase}: {report['phases'][phase]['raced']}")
     return out
 
 
@@ -5026,7 +5299,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, autotune
+
+    # the tuner: defaults pinned for phase A (the CE kernels' too), forced on
+    # in phase U, ``auto`` after it; its cache in a fresh directory, never a
+    # stale one from $HOME
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    os.environ[autotune.DIR_ENV_VAR] = tempfile.mkdtemp(prefix="autotune_",
+                                                        dir=os.path.join(HERE, "build"))
+    os.environ[autotune.ENV_VAR] = "0"
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5080,7 +5361,7 @@ def main() -> int:
     sources = {
         "fused_ce": csrc + "fused_ce.cu",
         "batched_fused_ce": csrc + "fused_ce.cu",
-        "logit_delta": csrc + "logit_delta.cu",
+        "logit_delta": csrc + "logit_delta.cu",  # and logit_delta_warps.cu, the tuner's twin
         "batched_logit_delta": csrc + "logit_delta.cu",
         "t_test_round": csrc + "t_test_round.cu",
         "gaussian_ar1_delta": csrc + "gaussian_ar1_delta.cu",
@@ -5097,7 +5378,7 @@ def main() -> int:
                                                        "Q-sv", "Q-jdpm", "Q-ppl", "Q-resume", "R", "R-sub",
                                                        "R-truth", "R-bg", "R-proc", "O-plain",
                                                        "O", "O-soak", "O-kill-proc", *X_RUNS,
-                                                       "X-fleet"]},
+                                                       "X-fleet", "U", "H-adam"]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -5105,8 +5386,9 @@ def main() -> int:
                           for name in replaces}}
     print("library_ms: torch.matmul + F.cross_entropy(reduction='none') for the two CE kernels "
           "(two calls that build the (T, V) logits); index_select + bmm (or matmul) against the "
-          "stacked (D, 2) pair + softplus for the two logit kernels; null for the others, which "
-          "no PyTorch call computes")
+          "stacked (D, 2) pair + softplus for the two logit kernels; index_select (or gather) + "
+          "torch.distributions.Normal.log_prob for theta' and theta for the AR(1) delta; null for "
+          "the others, which no PyTorch call computes")
 
     from repro_torch.experiments import bayeslr, jointdpm
 
@@ -5117,6 +5399,7 @@ def main() -> int:
     t_jdpm = time.perf_counter()
     phase_a_jdpm(report, jdpm_data)
     report["jdpm_seconds"] = {"A": time.perf_counter() - t_jdpm}
+    phase_u(report)
     data = bayeslr.synth_mnist_like(0)
     theta_b = phase_b(report, data)
     phase_b_mala(report, data, theta_b)
@@ -5136,7 +5419,9 @@ def main() -> int:
     report["jdpm_seconds"]["N"] = time.perf_counter() - t_jdpm - report["jdpm_seconds"]["M"]
     print(f"  seconds taken by the joint DP mixture's phases: {report['jdpm_seconds']}")
     del jdpm_data, jdpm_state0
+    os.environ[autotune.ENV_VAR] = "0"  # phase A times the defaults, as before phase U
     phase_a_ce(report)
+    os.environ[autotune.ENV_VAR] = "auto"
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         params, cfg = phase_h(report, ckpt_root)
@@ -5178,6 +5463,15 @@ def main() -> int:
     phase_o(report)
     torch.cuda.empty_cache()
     phase_x(report, data, (c_samples, c_infos, report["phases"]["C"]["transitions_per_s"]), k_out)
+    torch.cuda.empty_cache()
+    t_adam = time.perf_counter()
+    phase_h_adam(report)
+    report["h_adam_seconds"] = time.perf_counter() - t_adam
+    print(f"  seconds taken by phase H-adam: {report['h_adam_seconds']:.1f}")
+    report["raced_after_u"] = autotune.race_stats["keys"][report["phases"]["U"]["raced_keys"]:]
+    print(f"buckets raced after phase U, inside later phases' windows: "
+          f"{len(report['raced_after_u'])} {report['raced_after_u']}")
+    hold_to_proof(report)
     for name, e in report["kernels"].items():
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
     sv = ("gaussian_ar1_delta", "fy_draw", "pgibbs_sweep", "t_test_round")
@@ -5193,6 +5487,7 @@ def main() -> int:
                                "t_test_round")),
                         ("H", ("t_test_round",)), ("H-cache", ("t_test_round",)),
                         ("H-mala", ("t_test_round",)), ("H-moe", ("t_test_round",)),
+                        ("H-adam", ("t_test_round",)),
                         ("I", ("fused_ce", "fy_draw", "t_test_round")),
                         ("J", ("batched_fused_ce", "fy_draw", "t_test_round")),
                         ("P", ("batched_logit_delta", "t_test_round")),

@@ -7,8 +7,8 @@ Hopper live in :mod:`repro_torch.kernels`; entry points put their tensors on
 the card unless told ``device="cpu"``.
 """
 from . import (bayes, checkpoint, configs, convert, core, data, distributed, experiments, fleet,
-               inference, kernels, models, obs, partition, ppl, runtime, serving)
+               inference, kernels, models, obs, optim, partition, ppl, runtime, serving)
 
 __all__ = ["bayes", "checkpoint", "configs", "convert", "core", "data", "distributed",
-           "experiments", "fleet", "inference", "kernels", "models", "obs", "partition", "ppl",
-           "runtime", "serving"]
+           "experiments", "fleet", "inference", "kernels", "models", "obs", "optim", "partition",
+           "ppl", "runtime", "serving"]

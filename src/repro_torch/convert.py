@@ -2,8 +2,8 @@
 
 The counterpart of loading weights: the BayesLR data pool, a batch of chain
 positions theta (K, D), the stochastic-volatility data (obs, h_true) and
-theta ``{phi, sigma2, h}``, the joint DP mixture's data and state, an LM's parameter tree and its
-decode cache, the ``ce`` family's data (hidden states and next tokens), and the samplers' state (the
+theta ``{phi, sigma2, h}``, the joint DP mixture's data and state, an LM's parameter tree, its
+decode cache and an Adam state over it, the ``ce`` family's data (hidden states and next tokens), and the samplers' state (the
 stream's ``pos``; the Fisher–Yates ``idx``/``pos``/``size``; one state per component of a
 composite cycle) and a serving resident's checkpointed state, each handed
 over as numpy arrays and built into the port's types on a given device. Taking numpy keeps this module free of JAX:
@@ -142,6 +142,23 @@ def lm_params(tree, *, device=None) -> dict:
     if isinstance(tree, dict):
         return {k: lm_params(v, device=dev) for k, v in tree.items()}
     return _float_leaf(tree, dev)
+
+
+def adam_state(state, *, device=None):
+    """The reference's ``AdamState`` (``mu`` and ``nu`` trees, ``count``; as
+    numpy: ``jax.tree.map(np.asarray, state)``) as the port's
+    :class:`repro_torch.optim.AdamState`: float32 moments, an int32 count."""
+    from .optim import AdamState
+
+    dev = resolve_device(device)
+
+    def moments(tree):
+        if isinstance(tree, dict):
+            return {k: moments(v) for k, v in tree.items()}
+        return _f32(tree, dev)
+
+    return AdamState(mu=moments(state.mu), nu=moments(state.nu),
+                     count=_i32(np.asarray(state.count).reshape(()), dev))
 
 
 def lm_cache(tree, *, device=None):

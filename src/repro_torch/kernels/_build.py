@@ -36,6 +36,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 class _Slot(threading.local):
     slot = None
+    racing = False
 
 
 _SLOT = _Slot()
@@ -45,8 +46,16 @@ _SLOT = _Slot()
 SLOT_LAUNCHES: collections.Counter = collections.Counter()
 
 
+# Launches made by the launch-parameter tuner's races (repro_torch.kernels.
+# autotune), by kernel name: kept apart so that LAUNCHES counts the work.
+RACE_LAUNCHES: collections.Counter = collections.Counter()
+
+
 class _Launches(collections.Counter):
     def __setitem__(self, name, n):
+        if _SLOT.racing:
+            RACE_LAUNCHES[name] += n - self[name]
+            return
         slot = _SLOT.slot
         if slot is not None:
             SLOT_LAUNCHES[(slot, name)] += n - self[name]
@@ -67,6 +76,18 @@ def enter_slot(slot):
 
 def leave_slot(prev) -> None:
     _SLOT.slot = prev
+
+
+class racing:
+    """``with racing():`` counts this thread's launches under
+    :data:`RACE_LAUNCHES` in place of :data:`LAUNCHES`."""
+
+    def __enter__(self):
+        self._prev, _SLOT.racing = _SLOT.racing, True
+        return self
+
+    def __exit__(self, *exc):
+        _SLOT.racing = self._prev
 build_log: dict[str, str] = {}  # nvcc/ptxas output per source
 
 

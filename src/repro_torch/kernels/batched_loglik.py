@@ -36,27 +36,31 @@ def _on_cuda(t: torch.Tensor, what: str) -> bool:
 
 
 def batched_logit_delta(xg: torch.Tensor, yg: torch.Tensor, w_cur: torch.Tensor,
-                        w_prop: torch.Tensor, *, round_bf16: bool = False) -> torch.Tensor:
+                        w_prop: torch.Tensor, *, round_bf16: bool = False,
+                        warps: int = 0) -> torch.Tensor:
     """l[k, i] = log sig(y x.w'_k) - log sig(y x.w_k): xg (K, m, D) f32 or
     bf16, yg (K, m), w_* (K, D) f32 -> (K, m) f32. ``round_bf16`` (kernel
-    only) rounds w, w' and fp32 rows to bf16."""
+    only) rounds w, w' and fp32 rows to bf16; ``warps`` overrides the launch
+    (:func:`repro_torch.kernels.logit_loglik.launch_pair_delta`)."""
     if not _on_cuda(xg, "batched_logit_delta"):
         return batched_logit_delta_ref(xg, yg, w_cur, w_prop)
     if xg.ndim != 3:
         raise ValueError(f"xg must be (K, m, D), got {tuple(xg.shape)}")
     k, m, _ = xg.shape
-    return launch_pair_delta(xg, yg, None, w_cur, w_prop, k, m, NAME, round_bf16=round_bf16)
+    return launch_pair_delta(xg, yg, None, w_cur, w_prop, k, m, NAME, round_bf16=round_bf16,
+                             warps=warps)
 
 
 def gather_and_delta(x: torch.Tensor, y: torch.Tensor, idx: torch.Tensor,
                      w_cur: torch.Tensor, w_prop: torch.Tensor, *,
-                     round_bf16: bool = False) -> torch.Tensor:
+                     round_bf16: bool = False, warps: int = 0) -> torch.Tensor:
     """The same delta on rows ``idx`` (K, m) int32 of the pool x (N, D),
     y (N,) -> (K, m) f32. Indices must lie in [0, N): the samplers clamp
-    them. ``round_bf16`` as in :func:`batched_logit_delta`."""
+    them. ``round_bf16``, ``warps`` as in :func:`batched_logit_delta`."""
     if not _on_cuda(x, "gather_and_delta"):
         return gather_and_delta_ref(x, y, idx, w_cur, w_prop)
     if idx.ndim != 2:
         raise ValueError(f"idx must be (K, m), got {tuple(idx.shape)}")
     k, m = idx.shape
-    return launch_pair_delta(x, y, idx, w_cur, w_prop, k, m, NAME, round_bf16=round_bf16)
+    return launch_pair_delta(x, y, idx, w_cur, w_prop, k, m, NAME, round_bf16=round_bf16,
+                             warps=warps)

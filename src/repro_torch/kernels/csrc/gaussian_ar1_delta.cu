@@ -44,6 +44,9 @@
 //   * precision bf16 on fp32 pools rounds the loaded values to bf16 in
 //     registers (__float2bfloat16_rn, the bits of x.to(bfloat16)), so a bf16
 //     call is this one launch with no copy of the pools in front of it.
+// `warps` overrides the warps a block (1, 2, 4 or 8; 0 keeps the choice
+// above): a lane's section is the same whatever the block, so every choice
+// gives the default's bits. repro_torch.kernels.autotune races it.
 // The arithmetic repeats the plain version's float32 operations in its order
 // (fmaxf, product, difference, square, division, logf, the scale by -0.5; the
 // library is built with --fmad=false), so kernel and plain version agree to
@@ -146,13 +149,15 @@ ar1_contig_kernel(const T* __restrict__ xt, const T* __restrict__ xp, long long 
 template <typename T, bool ROUND>
 int launch(const void* xt_, const void* xp_, const int32_t* idx, long long pool_stride,
            long long first, const float* phi_c, const float* s2_c, const float* phi_p,
-           const float* s2_p, float* out, int k, int m, cudaStream_t s) {
+           const float* s2_p, float* out, int k, int m, int warps_override, cudaStream_t s) {
   const T* xt = static_cast<const T*>(xt_);
   const T* xp = static_cast<const T*>(xp_);
   // one warp a block while the warps fit on the SMs once, up to kMaxWarps
   const long long warps = (long long)k * ((m + kLanes - 1) / kLanes);
-  const int w = (int)(warps <= kSMs ? 1 : (warps >= (long long)kSMs * kMaxWarps
-                                               ? kMaxWarps : (warps + kSMs - 1) / kSMs));
+  const int w = warps_override
+                    ? warps_override
+                    : (int)(warps <= kSMs ? 1 : (warps >= (long long)kSMs * kMaxWarps
+                                                     ? kMaxWarps : (warps + kSMs - 1) / kSMs));
   const dim3 grid((unsigned)((m + kLanes * w - 1) / (kLanes * w)), (unsigned)k);
   if (idx)
     ar1_gather_kernel<T, ROUND><<<grid, kLanes * w, 0, s>>>(xt, xp, idx, pool_stride, phi_c,
@@ -169,20 +174,24 @@ int launch(const void* xt_, const void* xp_, const int32_t* idx, long long pool_
 // k * pool_stride elements in. idx: (K, m) int32 sections of each chain's
 // pools, or null: elements first .. first + m - 1 of them. phi_*, s2_*: (K,)
 // fp32. out: (K, m) fp32. round_bf16 (fp32 pools only): round each value to
-// bf16 as it is loaded.
+// bf16 as it is loaded. warps (1, 2, 4, 8) overrides the warps a block; 0
+// keeps the default choice.
 extern "C" int ar1_pair_delta(const void* xt, const void* xp, int x_bf16, int round_bf16,
                               const int32_t* idx, long long pool_stride, long long first,
                               const float* phi_c, const float* s2_c, const float* phi_p,
-                              const float* s2_p, float* out, int k, int m, void* stream) {
+                              const float* s2_p, float* out, int k, int m, int warps,
+                              void* stream) {
   if (k <= 0 || m <= 0) return (int)cudaSuccess;
   if (k > kMaxChains || (x_bf16 && round_bf16)) return (int)cudaErrorInvalidValue;
+  if (warps != 0 && warps != 1 && warps != 2 && warps != 4 && warps != kMaxWarps)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return launch<__nv_bfloat16, false>(xt, xp, idx, pool_stride, first, phi_c, s2_c, phi_p,
-                                         s2_p, out, k, m, s);
+                                         s2_p, out, k, m, warps, s);
   if (round_bf16)
     return launch<float, true>(xt, xp, idx, pool_stride, first, phi_c, s2_c, phi_p, s2_p, out,
-                               k, m, s);
+                               k, m, warps, s);
   return launch<float, false>(xt, xp, idx, pool_stride, first, phi_c, s2_c, phi_p, s2_p, out,
-                              k, m, s);
+                              k, m, warps, s);
 }

@@ -48,14 +48,31 @@
 //     per warp (by_rows), so a full pass keeps more bytes in flight;
 //   * blockIdx.y is the chain; a block is kWarps warps; the grid covers the
 //     K m rows, so K = 32, m = 100 gives 800 warps over the 132 SMs.
+//
+// Launch parameter. `warps`, the warps of a block (1, 2, 4 or 8), may be
+// overridden per call. It only decides which block a warp's rows fall in: a
+// warp's rows, a lane's columns and the butterfly are the same whatever the
+// block, so every choice gives the default's bits.
+// repro_torch.kernels.autotune races it. This library is the default launch
+// (kW = kWarps warps a block, compiled in); logit_delta_warps.cu includes
+// this file with PAIR_DELTA_ANY_WARPS defined to build the same kernels with
+// the block's size read at run time (kW = 0) behind the entry point
+// logit_pair_delta_warps. Two sources, so nvcc builds the two in parallel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kWarps = 4;     // warps a block unless the call overrides it
+constexpr int kMaxWarps = 8;  // the most a call may ask for
+#ifdef PAIR_DELTA_ANY_WARPS
+constexpr int kW = 0;  // warps a block: blockDim.x / 32, the call's
+#define PAIR_DELTA_ENTRY logit_pair_delta_warps
+#else
+constexpr int kW = kWarps;
+#define PAIR_DELTA_ENTRY logit_pair_delta
+#endif
 constexpr long long kLongPass = 1 << 16;  // rows from which a contiguous pass is long
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -106,7 +123,7 @@ __host__ __device__ constexpr int ilog2(int n) { return n <= 1 ? 0 : 1 + ilog2(n
 // BF16: x holds bf16; VB: bytes a lane loads at a time; L: lanes per row;
 // R: rows per lane group.
 template <bool BF16, int VB, int L, int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * (kW ? kW : kMaxWarps))
 pair_delta_kernel(const char* __restrict__ x, const float* __restrict__ y,
                   const int32_t* __restrict__ idx, const float* __restrict__ w_cur,
                   const float* __restrict__ w_prop, float* __restrict__ out, int m, int d,
@@ -122,7 +139,8 @@ pair_delta_kernel(const char* __restrict__ x, const float* __restrict__ y,
   const int k = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int g = lane / L, q = lane % L;
-  const int row0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * (G * R);
+  const int warps = kW ? kW : (int)(blockDim.x >> 5);
+  const int row0 = (blockIdx.x * warps + (threadIdx.x >> 5)) * (G * R);
   if (row0 >= m) return;  // the whole warp lies past the end
   const size_t row_bytes = (size_t)d * ES;
   const size_t chain = (size_t)k * m;
@@ -232,14 +250,15 @@ struct Args {
   int k, m, d;
   long long first;
   int round_bf16;
+  int warps;  // warps a block
   cudaStream_t stream;
 };
 
 template <bool BF16, int VB, int L, int R>
 int launch(const Args& a) {
-  constexpr int rows_per_block = kWarps * (32 / L) * R;
+  const int rows_per_block = a.warps * (32 / L) * R;
   const dim3 grid((a.m + rows_per_block - 1) / rows_per_block, a.k);
-  pair_delta_kernel<BF16, VB, L, R><<<grid, kThreads, 0, a.stream>>>(
+  pair_delta_kernel<BF16, VB, L, R><<<grid, 32 * a.warps, 0, a.stream>>>(
       a.x, a.y, a.idx, a.w_cur, a.w_prop, a.out, a.m, a.d, a.first, a.round_bf16);
   return (int)cudaGetLastError();
 }
@@ -276,13 +295,24 @@ int by_lanes(const Args& a, int lanes) {
 // idx: (K, m) int32 rows of the pool, or null for the contiguous form;
 // w_cur, w_prop: (K, D) fp32; out: (K, m) fp32. x_bf16 selects the element
 // type of x; round_bf16 rounds w, w' and fp32 x to bf16 as they are loaded.
-extern "C" int logit_pair_delta(const void* x, int x_bf16, const float* y,
+// logit_pair_delta launches kWarps warps a block; logit_pair_delta_warps
+// takes them as a trailing argument `warps` (1, 2, 4 or 8).
+extern "C" int PAIR_DELTA_ENTRY(const void* x, int x_bf16, const float* y,
                                 const int32_t* idx, const float* w_cur,
                                 const float* w_prop, float* out, int k, int m,
-                                int d, long long first, int round_bf16, void* stream) {
+                                int d, long long first, int round_bf16, void* stream
+#ifdef PAIR_DELTA_ANY_WARPS
+                                , int warps
+#endif
+) {
+#ifndef PAIR_DELTA_ANY_WARPS
+  const int warps = kWarps;
+#endif
   if (k <= 0 || m <= 0) return (int)cudaSuccess;
+  if (warps != 1 && warps != 2 && warps != 4 && warps != kMaxWarps)
+    return (int)cudaErrorInvalidValue;
   const Args a{static_cast<const char*>(x), y, idx, w_cur, w_prop, out, k, m, d, first,
-               round_bf16, static_cast<cudaStream_t>(stream)};
+               round_bf16, warps, static_cast<cudaStream_t>(stream)};
   const size_t es = x_bf16 ? 2 : 4;
   const size_t row_bytes = (size_t)d * es;
   const uintptr_t base = reinterpret_cast<uintptr_t>(x);

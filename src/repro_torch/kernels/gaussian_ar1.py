@@ -38,21 +38,26 @@ __all__ = ["batched_gaussian_ar1_delta", "gather_ar1_delta",
 
 NAME = "gaussian_ar1_delta"
 _XTYPES = (torch.float32, torch.bfloat16)
+LAUNCH_CHOICES = (0, 1, 2, 4, 8)  # warps a block; 0: the default
 
 
 @functools.cache
 def _bind():
     fn = _build.load("gaussian_ar1_delta").ar1_pair_delta
     P, I, LL = _build.P, _build.I, _build.LL
-    fn.argtypes = [P, P, I, I, P, LL, LL, P, P, P, P, P, I, I, P]
+    fn.argtypes = [P, P, I, I, P, LL, LL, P, P, P, P, P, I, I, I, P]
     fn.restype = I
     return fn
 
 
 def _launch(xt, xp, idx, params, k: int, m: int, stride: int, first: int = 0,
-            round_bf16: bool = False) -> torch.Tensor:
+            round_bf16: bool = False, warps: int = 0) -> torch.Tensor:
     """Chain k's pools start ``k * stride`` elements into xt, xp; its
-    sections are ``idx[k]`` or, without idx, elements first .. first + m - 1."""
+    sections are ``idx[k]`` or, without idx, elements first .. first + m - 1.
+    ``warps`` (1, 2, 4 or 8) overrides the warps a block; 0 keeps the
+    source's choice, and every choice gives the same bits."""
+    if warps not in LAUNCH_CHOICES:
+        raise ValueError(f"warps must be one of {LAUNCH_CHOICES}; got {warps}")
     dev = xt.device
     for name, p in zip(("phi_cur", "s2_cur", "phi_prop", "s2_prop"), params):
         _build.require(p, name, dev, (torch.float32,), (k,))
@@ -64,16 +69,16 @@ def _launch(xt, xp, idx, params, k: int, m: int, stride: int, first: int = 0,
         return out  # no sections: nothing to launch
     p = _build.ptr
     err = _bind()(p(xt), p(xp), int(xt.dtype == torch.bfloat16), int(round_bf16), p(idx), stride,
-                  first, *(p(v) for v in params), p(out), k, m, _build.stream_of(xt))
+                  first, *(p(v) for v in params), p(out), k, m, int(warps), _build.stream_of(xt))
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return out
 
 
 def batched_gaussian_ar1_delta(xt, xp, phi_cur, s2_cur, phi_prop, s2_prop, *,
-                               round_bf16: bool = False) -> torch.Tensor:
+                               round_bf16: bool = False, warps: int = 0) -> torch.Tensor:
     """xt, xp (K, m) f32 or bf16 gathered sections, parameters (K,) f32 ->
-    (K, m) f32."""
+    (K, m) f32. ``warps`` overrides the launch (see :func:`_launch`)."""
     if not _on_cuda(xt, "batched_gaussian_ar1_delta"):
         return batched_gaussian_ar1_delta_ref(xt, xp, phi_cur, s2_cur, phi_prop, s2_prop)
     if xt.ndim != 2:
@@ -81,11 +86,11 @@ def batched_gaussian_ar1_delta(xt, xp, phi_cur, s2_cur, phi_prop, s2_prop, *,
     k, m = xt.shape
     _build.require(xt, "xt", xt.device, _XTYPES, (k, m))
     return _launch(xt, xp, None, (phi_cur, s2_cur, phi_prop, s2_prop), k, m, m,
-                   round_bf16=round_bf16)
+                   round_bf16=round_bf16, warps=warps)
 
 
 def gather_ar1_delta(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop, *,
-                     round_bf16: bool = False) -> torch.Tensor:
+                     round_bf16: bool = False, warps: int = 0) -> torch.Tensor:
     """The same delta on sections ``idx`` (K, m) int32 of the pools xt, xp:
     (N,) shared by every chain or (K, N) one per chain -> (K, m) f32.
     Indices must lie in [0, N): the samplers clamp them. ``idx`` may instead
@@ -98,7 +103,7 @@ def gather_ar1_delta(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop, *,
         _build.require(xt, "xt", dev, _XTYPES, (None,))
         check_range(idx, xt.shape[0])
         return _launch(xt, xp, None, params, 1, len(idx), 0, first=idx.start,
-                       round_bf16=round_bf16)
+                       round_bf16=round_bf16, warps=warps)
     if idx.ndim != 2:
         raise ValueError(f"idx must be (K, m), got {tuple(idx.shape)}")
     k, m = idx.shape
@@ -109,4 +114,4 @@ def gather_ar1_delta(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop, *,
     else:
         _build.require(xt, "xt", dev, _XTYPES, (k, None))
         stride = xt.shape[1]
-    return _launch(xt, xp, idx, params, k, m, stride, round_bf16=round_bf16)
+    return _launch(xt, xp, idx, params, k, m, stride, round_bf16=round_bf16, warps=warps)

@@ -22,6 +22,12 @@ AR(1) kernels round fp32 operands to bf16 as they load them, so a bf16 call
 is one launch and no pool or (K, V, D) table is copied (a bf16 pool halves
 the bytes read).
 
+Launch parameters (warps a block of the pair and AR(1) deltas) come from
+:mod:`repro_torch.kernels.autotune` on the kernel route of the five tuned
+families (the two CE families have a grid of one); explicit launch keyword
+arguments win over the tuner, and ``REPRO_AUTOTUNE=0`` pins the sources' own
+choices. Every choice gives the same bits.
+
 There is no fallback: a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
@@ -31,7 +37,7 @@ import warnings
 
 import torch
 
-from . import _build, ref
+from . import _build, autotune, ref
 from .batched_loglik import batched_logit_delta as _batched_kernel
 from .batched_loglik import gather_and_delta as _gather_kernel
 from .fused_ce import batched_fused_ce as _batched_ce_kernel
@@ -133,51 +139,74 @@ def _logit_args(x, w_cur, w_prop, mode, precision):
     return kernel, x, w_cur.contiguous(), w_prop.contiguous(), bf16 and kernel
 
 
+def _tuned(family: str, shape, tensor: torch.Tensor, launch: dict) -> dict:
+    """Launch parameters for the kernel route: explicit ones win, else the
+    tuner's for ``shape`` on ``tensor``'s device."""
+    if any(k in launch for k in autotune.DEFAULT_TILES[family]):
+        return launch
+    merged = autotune.tiles_for(family, tuple(int(d) for d in shape), device=tensor.device)
+    merged.update(launch)
+    return merged
+
+
+def _rows(idx, n: int) -> int:
+    """Rows a call scores: all ``n`` of the pool, or ``idx``'s."""
+    if idx is None:
+        return n
+    return len(idx) if isinstance(idx, range) else int(idx.shape[-1])
+
+
 def dispatch_summary() -> str:
     """One attribution line for logs: which path ``auto`` takes for tensors
-    on the card, at what precision, and what card there is."""
+    on the card, at what precision, with tuning on or off, and what card
+    there is."""
     mode = resolve_mode("auto")
     path = {"auto": "cuda-kernels(cuda tensors)/plain(cpu tensors)",
             "always": "cuda-kernels", "never": "plain"}[mode]
     card = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "none"
     return (
         f"kernels: dispatch={path} ({ENV_VAR}={os.environ.get(ENV_VAR, 'auto')}) "
-        f"precision={resolve_precision()} device={card}"
+        f"precision={resolve_precision()} "
+        f"autotune={'on' if autotune.enabled() else 'off'} device={card}"
     )
 
 
 def logit_delta(x, y, w_cur, w_prop, *, idx=None, mode: str = "auto",
-                precision: str = "auto"):
+                precision: str = "auto", **launch):
     """BayesLR pair delta for one chain: x (N, D), y (N,), w_* (D,) -> (N,),
     or only rows ``idx`` of the pool -> (m,): an int tensor (m,), or
     ``range(start, stop)`` for a contiguous run, which the kernel reads with
-    no index tensor (the exact transition's full pass)."""
+    no index tensor (the exact transition's full pass). ``launch``
+    (``warps``) goes to the kernel."""
     kernel, x, w_cur, w_prop, rnd = _logit_args(x, w_cur, w_prop, mode, precision)
     y = y.to(torch.float32)
     if not kernel:
         return ref.logit_delta_ref(*select_rows(x, y, idx), w_cur, w_prop)
-    return _logit_kernel(x, y, w_cur, w_prop, idx=idx, round_bf16=rnd)
+    launch = _tuned("logit_delta", (_rows(idx, x.shape[0]), x.shape[-1]), x, launch)
+    return _logit_kernel(x, y, w_cur, w_prop, idx=idx, round_bf16=rnd, **launch)
 
 
 def batched_logit_delta(xg, yg, w_cur, w_prop, *, mode: str = "auto",
-                        precision: str = "auto"):
+                        precision: str = "auto", **launch):
     """Ensemble-batched (K, m) BayesLR delta block on gathered rows."""
     kernel, xg, w_cur, w_prop, rnd = _logit_args(xg, w_cur, w_prop, mode, precision)
     yg = yg.to(torch.float32)
     if not kernel:
         return ref.batched_logit_delta_ref(xg, yg, w_cur, w_prop)
-    return _batched_kernel(xg, yg, w_cur, w_prop, round_bf16=rnd)
+    launch = _tuned("batched_loglik", xg.shape, xg, launch)
+    return _batched_kernel(xg, yg, w_cur, w_prop, round_bf16=rnd, **launch)
 
 
 def gather_and_delta(x, y, idx, w_cur, w_prop, *, mode: str = "auto",
-                     precision: str = "auto"):
+                     precision: str = "auto", **launch):
     """(K, m) BayesLR delta block on rows ``idx`` of the shared pool — one
     call per multi-chain sequential-test round."""
     kernel, x, w_cur, w_prop, rnd = _logit_args(x, w_cur, w_prop, mode, precision)
     y = y.to(torch.float32)
     if not kernel:
         return ref.gather_and_delta_ref(x, y, idx, w_cur, w_prop)
-    return _gather_kernel(x, y, idx, w_cur, w_prop, round_bf16=rnd)
+    launch = _tuned("batched_loglik", (*idx.shape, x.shape[-1]), x, launch)
+    return _gather_kernel(x, y, idx, w_cur, w_prop, round_bf16=rnd, **launch)
 
 
 def _ce_args(h, table, targets, mode, precision):
@@ -203,6 +232,7 @@ def fused_ce(h, table, targets, *, idx=None, mode: str = "auto", precision: str 
         if idx is not None:
             h, targets = h[idx.long()], targets[idx.long()]
         return ref.fused_ce_ref(h, table, targets)
+    tiles = _tuned("fused_ce", (_rows(idx, h.shape[0]), h.shape[-1], table.shape[0]), h, tiles)
     return _ce_kernel(h, table, targets, idx=None if idx is None else idx.to(torch.int32),
                       round_bf16=rnd, **tiles)
 
@@ -214,6 +244,7 @@ def batched_fused_ce(h, table, targets, *, mode: str = "auto", precision: str = 
     kernel, h, table, targets, rnd = _ce_args(h, table, targets, mode, precision)
     if not kernel:
         return ref.batched_fused_ce_ref(h, table, targets)
+    tiles = _tuned("batched_fused_ce", (*h.shape, table.shape[-2]), h, tiles)
     return _batched_ce_kernel(h, table, targets, round_bf16=rnd, **tiles)
 
 
@@ -225,6 +256,7 @@ def gather_fused_ce(h, targets, idx, table, *, mode: str = "auto", precision: st
     kernel, h, table, targets, rnd = _ce_args(h, table, targets, mode, precision)
     if not kernel:
         return ref.gather_fused_ce_ref(h, targets, idx, table)
+    tiles = _tuned("batched_fused_ce", (*idx.shape, h.shape[-1], table.shape[-2]), h, tiles)
     return _gather_ce_kernel(h, targets, idx.to(torch.int32), table, round_bf16=rnd, **tiles)
 
 
@@ -248,18 +280,19 @@ def _ar1_args(xt, xp, mode, precision, *vals):
 
 
 def batched_gaussian_ar1_delta(xt, xp, phi_cur, s2_cur, phi_prop, s2_prop, *,
-                               mode: str = "auto", precision: str = "auto"):
+                               mode: str = "auto", precision: str = "auto", **launch):
     """Ensemble-batched (K, m) AR(1) transition-factor delta block on
     gathered sections (the stochvol sigma^2/phi local sections)."""
     kernel, xt, xp, params, rnd = _ar1_args(xt, xp, mode, precision,
                                             phi_cur, s2_cur, phi_prop, s2_prop)
     if not kernel:
         return ref.batched_gaussian_ar1_delta_ref(xt, xp, *params)
-    return _ar1_batched_kernel(xt, xp, *params, round_bf16=rnd)
+    launch = _tuned("gaussian_ar1", xt.shape, xt, launch)
+    return _ar1_batched_kernel(xt, xp, *params, round_bf16=rnd, **launch)
 
 
 def gather_ar1_delta(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop, *,
-                     mode: str = "auto", precision: str = "auto"):
+                     mode: str = "auto", precision: str = "auto", **launch):
     """(K, m) AR(1) delta block on sections ``idx`` (K, m) of shared (N,) or
     per-chain (K, N) pools — one call per sequential-test round (K = 1 for a
     single chain) — or (1, m) on ``range(start, stop)`` of shared pools, the
@@ -269,7 +302,9 @@ def gather_ar1_delta(xt, xp, idx, phi_cur, s2_cur, phi_prop, s2_prop, *,
                                             phi_cur, s2_cur, phi_prop, s2_prop)
     if not kernel:
         return ref.gather_ar1_delta_ref(xt, xp, idx, *params)
-    return _ar1_gather_kernel(xt, xp, idx, *params, round_bf16=rnd)
+    shape = (1, len(idx)) if isinstance(idx, range) else idx.shape
+    launch = _tuned("gaussian_ar1", shape, xt, launch)
+    return _ar1_gather_kernel(xt, xp, idx, *params, round_bf16=rnd, **launch)
 
 
 def fy_draw(u, idx, pos, size, m: int, active=None, *, mode: str = "auto", m_eff=None):

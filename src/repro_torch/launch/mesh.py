@@ -1,6 +1,7 @@
 """Mesh construction for tests and examples: the port of
 ``repro.launch.mesh.make_mesh_for_devices``. (Its ``make_production_mesh``,
-256 or 512 TPU devices, serves only the LM's dry run and comes with it.)"""
+256 or 512 TPU devices, serves only the LM's dry run and comes with it, with
+the LM's sharded parameters: ROADMAP.md §1 item 2.)"""
 from __future__ import annotations
 
 import numpy as np

@@ -6,13 +6,15 @@ the counterpart of the reference's ``fold_in(key, step)``, so a resumed run
 needs no generator state and repeats the original trajectory. Preemption:
 SIGTERM or a flag file triggers a final checkpoint and a clean exit; any
 accepted transition is a consistent state. ``fail_at_step`` injects a
-failure for tests.
+failure for tests. :func:`wall_clock_step_stats` times a step function for
+benchmarks.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import signal
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -87,3 +89,27 @@ def run_loop(
         return {"params": params, "step": cfg.num_steps - 1, "infos": infos, "samples": samples}
     finally:
         signal.signal(signal.SIGTERM, old)
+
+
+def _sync_outputs(out: Any) -> None:
+    """Wait for the card to finish the work behind ``out``'s CUDA tensors (a
+    tensor or a tree of them); nothing for CPU outputs."""
+    devices = {t.device for t in tree_leaves(out) if isinstance(t, torch.Tensor)
+               and t.device.type == "cuda"}
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+
+
+def wall_clock_step_stats(step_fn, args, n: int = 5) -> dict:
+    """Utility for benchmarks: one warm call, then ``n`` timed calls, each
+    closed by ``torch.cuda.synchronize`` on its outputs' devices. Returns
+    ``{"mean_s", "min_s"}``."""
+    _sync_outputs(step_fn(*args))
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        _sync_outputs(out)
+        times.append(time.perf_counter() - t0)
+        del out
+    return {"mean_s": float(np.mean(times)), "min_s": float(np.min(times))}

@@ -8,6 +8,8 @@ machine with a card and no JAX:
 Without a card every test skips (the CUDA kernels have no CPU mode).
 """
 import hashlib
+import json
+import os
 import time
 import warnings
 
@@ -1577,3 +1579,231 @@ def test_whisper_decode_on_card_gives_finite_logits(cuda_device):
         nxt = logits.argmax(-1)[:, None].to(torch.int32)
     assert all(finite) and int(cache["len"]) == 12
     assert tuple(cache["enc_out"].shape) == (2, cfg.n_audio_frames, cfg.d_model)
+
+
+# ---------------------------------------------------------------------------
+# The launch-parameter tuner (repro_torch.kernels.autotune): the bit rule
+# ---------------------------------------------------------------------------
+
+
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _tuned_cases(family, prec, dev):
+    """(label, run(**launch)) pairs of ``family``'s kernel wrapper at the main
+    path's shapes and ragged ones, in ``prec`` (bf16: bf16 rows, and fp32
+    rows rounded in the kernel)."""
+    from repro_torch.kernels import batched_loglik, fused_ce, gaussian_ar1, logit_loglik
+
+    gen = torch.Generator(device=dev).manual_seed(sum(map(ord, family)))
+    bf16 = prec == "bf16"
+    cases = []
+    if family in ("logit_delta", "batched_loglik"):
+        for d in (3, 50):
+            for offset in (0, 1):
+                x, y = _pool(gen, dev, 12214, d, torch.bfloat16 if bf16 else torch.float32,
+                             offset)
+                for k, m in ((1, 1), (1, 37), (1, 100), (32, 100), (32, 400), (33, 37), (8, 100)):
+                    if (k == 1) != (family == "logit_delta"):
+                        continue
+                    w = torch.randn(k, d, generator=gen, device=dev)
+                    wp = w + 0.05 * torch.randn(k, d, generator=gen, device=dev)
+                    idx = torch.randint(0, 12214, (k, m), generator=gen, device=dev,
+                                        dtype=torch.int32)
+                    label = f"D={d} offset={offset} K={k} m={m}"
+                    if family == "logit_delta":
+                        cases.append((label, lambda x=x, y=y, w=w, wp=wp, i=idx, **kw:
+                                      logit_loglik.logit_delta(x, y, w[0], wp[0], idx=i[0], **kw)))
+                    else:
+                        xg, yg = x[idx.long()].contiguous(), y[idx.long()].contiguous()
+                        cases.append((label, lambda x=x, y=y, w=w, wp=wp, i=idx, **kw:
+                                      batched_loglik.gather_and_delta(x, y, i, w, wp, **kw)))
+                        cases.append((label + " pre-gathered", lambda xg=xg, yg=yg, w=w, wp=wp, **kw:
+                                      batched_loglik.batched_logit_delta(xg, yg, w, wp, **kw)))
+        if family == "logit_delta":  # the exact passes: contiguous runs, short and long
+            for n in (12214, 1_000_000):
+                x, y = _pool(gen, dev, n, 50, torch.bfloat16 if bf16 else torch.float32)
+                w = torch.randn(50, generator=gen, device=dev)
+                cases.append((f"range N={n}", lambda x=x, y=y, w=w, n=n, **kw:
+                              logit_loglik.logit_delta(x, y, w, w + 0.01, idx=range(3, n), **kw)))
+        if not bf16:
+            x, y = _pool(gen, dev, 12214, 50, torch.float32)
+            w = torch.randn(32, 50, generator=gen, device=dev)
+            idx = torch.randint(0, 12214, (32, 100), generator=gen, device=dev, dtype=torch.int32)
+            cases.append(("fp32 rows rounded in the kernel", lambda **kw:
+                          batched_loglik.gather_and_delta(x, y, idx, w, w + 0.05, round_bf16=True,
+                                                          **kw)))
+    elif family == "gaussian_ar1":
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        for k, m, n in ((1, 1, 1000), (1, 100, 1000), (32, 100, 1000), (32, 100, 100_000),
+                        (33, 37, 129), (32, 400, 1000)):
+            par = [torch.rand(k, generator=gen, device=dev) * 0.5 + 0.5,
+                   torch.rand(k, generator=gen, device=dev) + 0.01,
+                   torch.rand(k, generator=gen, device=dev) * 0.5 + 0.5,
+                   torch.rand(k, generator=gen, device=dev) + 0.01]
+            xt = torch.randn(k, n, generator=gen, device=dev).to(dtype)
+            xp = torch.randn(k, n, generator=gen, device=dev).to(dtype)
+            idx = torch.randint(0, n, (k, m), generator=gen, device=dev, dtype=torch.int32)
+            cases.append((f"K={k} m={m} of N={n}", lambda xt=xt, xp=xp, i=idx, par=par, **kw:
+                          gaussian_ar1.gather_ar1_delta(xt, xp, i, *par, **kw)))
+            cases.append((f"K={k} m={m} shared", lambda xt=xt, xp=xp, i=idx, par=par, **kw:
+                          gaussian_ar1.gather_ar1_delta(xt[0].contiguous(), xp[0].contiguous(),
+                                                        i, *par, **kw)))
+            cases.append((f"K={k} m={m} gathered", lambda xt=xt, xp=xp, i=idx, par=par, **kw:
+                          gaussian_ar1.batched_gaussian_ar1_delta(
+                              torch.gather(xt, 1, i.long()), torch.gather(xp, 1, i.long()),
+                              *par, **kw)))
+        for n in (1000, 100_000):  # G's exact passes
+            xt = torch.randn(n, generator=gen, device=dev).to(dtype)
+            par1 = [torch.rand(1, generator=gen, device=dev) + 0.5 for _ in range(4)]
+            cases.append((f"range N={n}", lambda xt=xt, par=par1, n=n, **kw:
+                          gaussian_ar1.gather_ar1_delta(xt, xt * 0.5, range(1, n), *par, **kw)))
+        if not bf16:
+            xt = torch.randn(32, 1000, generator=gen, device=dev)
+            idx = torch.randint(0, 1000, (32, 100), generator=gen, device=dev, dtype=torch.int32)
+            par = [torch.rand(32, generator=gen, device=dev) + 0.5 for _ in range(4)]
+            cases.append(("fp32 pools rounded in the kernel", lambda **kw:
+                          gaussian_ar1.gather_ar1_delta(xt, xt * 0.9, idx, *par, round_bf16=True,
+                                                        **kw)))
+    else:  # the CE families
+        hdt = torch.bfloat16
+        tdt = torch.bfloat16 if bf16 else torch.float32
+        for k, m, d, v in ((1, 100, 4096, 65024), (1, 37, 64, 1000), (1, 1, 128, 300),
+                           (8, 100, 4096, 65024), (3, 37, 64, 1000)):
+            if (k == 1) != (family == "fused_ce"):
+                continue
+            n = 8128 if d == 4096 else 500
+            h = torch.randn(n, d, generator=gen, device=dev).to(hdt)
+            table = (0.02 * torch.randn(v, d, generator=gen, device=dev)).to(tdt)
+            tg = torch.randint(0, v, (n,), generator=gen, device=dev, dtype=torch.int32)
+            idx = torch.randint(0, n, (k, m), generator=gen, device=dev, dtype=torch.int32)
+            label = f"K={k} m={m} D={d} V={v}"
+            if family == "fused_ce":
+                cases.append((label, lambda h=h, t=table, tg=tg, i=idx, **kw:
+                              fused_ce.fused_ce(h, t, tg, idx=i[0], **kw)))
+                cases.append((label + " fp32 h", lambda h=h, t=table, tg=tg, i=idx, **kw:
+                              fused_ce.fused_ce(h.float(), t, tg, idx=i[0], **kw)))
+                if not bf16:
+                    cases.append((label + " rounded", lambda h=h, t=table, tg=tg, i=idx, **kw:
+                                  fused_ce.fused_ce(h.float(), t, tg, idx=i[0], round_bf16=True,
+                                                    **kw)))
+            else:
+                cases.append((label, lambda h=h, t=table, tg=tg, i=idx, **kw:
+                              fused_ce.gather_fused_ce(h, tg, i, t, **kw)))
+                if d == 64:  # per-chain tables (J's form) at the small width
+                    tables = (0.02 * torch.randn(k, v, d, generator=gen, device=dev)).to(tdt)
+                    hb = torch.randn(k, m, d, generator=gen, device=dev).to(hdt)
+                    tb = torch.randint(0, v, (k, m), generator=gen, device=dev, dtype=torch.int32)
+                    cases.append((label + " per-chain", lambda hb=hb, t=tables, tb=tb, **kw:
+                                  fused_ce.batched_fused_ce(hb, t, tb, **kw)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+@pytest.mark.parametrize("family", ["logit_delta", "batched_loglik", "gaussian_ar1", "fused_ce",
+                                    "batched_fused_ce"])
+def test_tuned_candidates_bit_for_bit(family, prec, cuda_device):
+    """The bit rule on the card: every candidate of the family's grid gives
+    the default launch's bits, at the main path's shapes and ragged ones
+    (m = 1, 37, 100, 400; D = 3, 50; pools off the 16-byte boundary; a V
+    that is not a multiple of the 128-row tile; the contiguous passes)."""
+    from repro_torch.kernels import autotune
+
+    default = autotune.DEFAULT_TILES[family]
+    for label, run in _tuned_cases(family, prec, cuda_device):
+        want = run(**default)
+        for cand in autotune.CANDIDATES[family]:
+            assert _same_bits(run(**cand), want), (label, cand)
+
+
+@pytest.mark.cuda
+def test_tuned_dispatch_equals_default_dispatch(cuda_device, monkeypatch, tmp_path):
+    """``ops`` with the tuner forced on (a fresh cache: each bucket of the
+    three delta families raced on first use; the CE families' grids are one)
+    equals ``mode="always"`` with the defaults pinned, bit for bit, one
+    counted launch a call; the races' launches count apart."""
+    from repro_torch.kernels import autotune
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    x, y = _pool(gen, cuda_device, 12214, 50, torch.float32)
+    w = torch.randn(32, 50, generator=gen, device=cuda_device)
+    idx = torch.randint(0, 12214, (32, 100), generator=gen, device=cuda_device, dtype=torch.int32)
+    xt = torch.randn(32, 1000, generator=gen, device=cuda_device)
+    par = [torch.rand(32, generator=gen, device=cuda_device) + 0.5 for _ in range(4)]
+    h = torch.randn(2000, 256, generator=gen, device=cuda_device).to(torch.bfloat16)
+    table = 0.02 * torch.randn(3000, 256, generator=gen, device=cuda_device)
+    tg = torch.randint(0, 3000, (2000,), generator=gen, device=cuda_device, dtype=torch.int32)
+    calls = {
+        "batched_logit_delta": lambda: ops.gather_and_delta(x, y, idx, w, w + 0.05, mode="always"),
+        "logit_delta": lambda: ops.logit_delta(x, y, w[0], w[1], idx=idx[0], mode="always"),
+        "gaussian_ar1_delta": lambda: ops.gather_ar1_delta(xt, xt * 0.9, idx % 1000, *par,
+                                                           mode="always"),
+        "fused_ce": lambda: ops.fused_ce(h, table, tg, idx=idx[0] % 2000, mode="always"),
+        "batched_fused_ce": lambda: ops.gather_fused_ce(h, tg, idx[:4] % 2000, table,
+                                                        mode="always"),
+    }
+    monkeypatch.setenv(autotune.ENV_VAR, "0")
+    want = {name: call() for name, call in calls.items()}
+    monkeypatch.setenv(autotune.ENV_VAR, "1")
+    monkeypatch.setenv(autotune.DIR_ENV_VAR, str(tmp_path))
+    autotune.clear_cache(memory_only=True)
+    races, raced = autotune.race_stats["races"], sum(autotune.race_launches.values())
+    try:
+        for name, call in calls.items():
+            ops.reset_launches()
+            assert _same_bits(call(), want[name]), name
+            assert dict(ops.launches) == {name: 1}, (name, dict(ops.launches))
+    finally:
+        autotune.clear_cache(memory_only=True)
+    assert autotune.race_stats["races"] == races + 3
+    assert sum(autotune.race_launches.values()) > raced
+
+
+@pytest.mark.cuda
+def test_warm_writes_the_card_json(cuda_device, monkeypatch, tmp_path):
+    """``warm()`` races the representative buckets of the three families
+    with a grid to race and writes ``<card>.json``: every entry bit for bit,
+    a winner from the grid, the default's time beside it, the kernel
+    sources' hash."""
+    from repro_torch.kernels import autotune
+
+    monkeypatch.setenv(autotune.ENV_VAR, "1")
+    monkeypatch.setenv(autotune.DIR_ENV_VAR, str(tmp_path))
+    autotune.clear_cache(memory_only=True)
+    try:
+        out = autotune.warm()
+    finally:
+        autotune.clear_cache(memory_only=True)
+    card = autotune.card_name(cuda_device)
+    assert card.startswith(torch.cuda.get_device_name(0)) and " sm_" in card
+    files = os.listdir(tmp_path)
+    assert len(files) == 1 and files[0].endswith(".json")
+    entries = json.loads((tmp_path / files[0]).read_text())
+    assert set(entries) == set(out) and len(entries) == 3
+    for key, entry in entries.items():
+        family = key.split("|")[1]
+        assert entry["bitwise"] and entry["tiles"] in list(autotune.CANDIDATES[family])
+        assert entry["sources"] == autotune._sources()
+        assert entry["candidates"] == len(autotune.CANDIDATES[family])
+        assert 0 < entry["us"] <= entry["default_us"]
+
+
+@pytest.mark.cuda
+def test_wall_clock_step_stats_synchronizes(cuda_device):
+    """A step that queues ~20 ms of sleep on the card returns at once on the
+    host; the timer waits for it."""
+    from repro_torch.runtime import wall_clock_step_stats
+
+    def step():
+        out = torch.zeros(1, device=cuda_device)
+        torch.cuda._sleep(40_000_000)  # >= 20 ms at <= 2 GHz
+        return {"out": out.add_(1)}
+
+    t0 = time.perf_counter()
+    step()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    stats = wall_clock_step_stats(step, (), n=3)
+    assert host_s < 0.015 <= stats["min_s"] <= stats["mean_s"]
