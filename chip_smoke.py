@@ -1549,7 +1549,8 @@ def phase_h(report, root):
     run's length) and the resume check, which needs four, runs at full width
     with the depth cut to ``RESUME_LAYERS`` layers (1.35 GB each). Under
     ``root`` only the subsampled run's checkpoint stays (``root/sub``, for
-    phase T); the rest is removed before the phase returns."""
+    phases H-mp, T and T-mp); the rest is removed before the phase returns.
+    Returns the subsampled run's parameters, the config and its infos."""
     import dataclasses
 
     import numpy as np
@@ -1634,13 +1635,127 @@ def phase_h(report, root):
     for d in ("exact", "clean", "crash"):
         shutil.rmtree(f"{tmp}/{d}", ignore_errors=True)
     params = sub.pop("params")
-    return params, cfg
+    return params, cfg, sub["infos"]
 
 
 def _leaves(tree):
     from repro_torch._device import tree_leaves
 
     return tree_leaves(tree)
+
+
+MP_SLOTS, MP_MODEL = 4, 2  # H-mp and T-mp: a 2 x 2 ("data", "model") mesh of slots on cuda:0
+
+
+def _ms(events) -> float:
+    return sum(s.elapsed_time(e) for s, e in events)
+
+
+def phase_h_mp(report, root, h_params, h_infos):
+    """H's subsampled run again through ``launch.train`` with
+    ``--model-parallel 2`` on four slots of cuda:0 (``force_devices(4,
+    physical=1)``): a 2 x 2 ("data", "model") mesh, so the "embed" rule (data
+    axis) and the model-axis rules both split leaves. Pieces live on the
+    slots, compute on the card: every step's info and every final parameter
+    must equal H's bit for bit; then H's step-20 checkpoint is restored
+    onto the mesh's shardings and held to H's parameters. H's parameters
+    stay live (the comparison), so the peak is taken above what was
+    resident at the start. One card: copies between cards are bypassed."""
+    import numpy as np
+    import torch
+
+    from repro_torch._device import tree_map
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import ARCHS, ShapeSpec
+    from repro_torch.distributed import (force_devices, reset_transfers, timed_transfers,
+                                         transfer_counts)
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.launch.steps import spec_tree_to_shardings
+    from repro_torch.models import param_specs
+
+    cfg = ARCHS[LM_ARCH]
+    r = report["phases"]["H-mp"]
+    print(f"phase H-mp: H's {LM_STEPS} subsampled steps with --model-parallel {MP_MODEL} on "
+          f"{MP_SLOTS} slots of cuda:0 ({MP_SLOTS // MP_MODEL} x {MP_MODEL} data x model; copies "
+          "between cards bypassed: one card)")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    reset_transfers()
+    with force_devices(MP_SLOTS, physical=1), timed_transfers() as events:
+        out = counted(report, "H-mp", lambda: train.main([
+            "--steps", str(LM_STEPS), "--ckpt-every", str(LM_STEPS),
+            "--ckpt-dir", f"{root}/mp", "--model-parallel", str(MP_MODEL)]))
+        counts = transfer_counts()
+        mesh = make_mesh_for_devices(model_parallel=MP_MODEL, device="cuda")
+    shutil.rmtree(f"{root}/mp", ignore_errors=True)
+    leaves = _leaves(out["params"])
+    n_leaves = len(leaves)
+    param_bytes = sum(l.numel() * l.element_size() for l in leaves)
+    # the initial split is one scatter a leaf, before the first step
+    step_gather = counts["gather"]["bytes"] / LM_STEPS
+    step_scatter = (counts["scatter"]["bytes"] - param_bytes) / LM_STEPS
+    r.update(steps=len(out["infos"]), steps_per_s=out["steps_per_s"],
+             h_steps_per_s=report["phases"]["H"]["subsampled"]["steps_per_s"],
+             step_ms_median=1e3 * statistics.median(out["step_s"][1:]),
+             peak_gib=((out["peak_bytes"] or 0) - resident) / 2 ** 30,
+             h_peak_gib=report["phases"]["H"]["subsampled"]["peak_gib"],
+             resident_gib=resident / 2 ** 30, transfers=counts,
+             gather_gb_a_step=step_gather / 1e9, scatter_gb_a_step=step_scatter / 1e9,
+             gather_ms_a_step=_ms(events["gather"]) / LM_STEPS,
+             scatter_ms_a_step=_ms(events["scatter"][n_leaves:]) / LM_STEPS,
+             init_scatter_ms=_ms(events["scatter"][:n_leaves]))
+    print(f"  {card_line()}: {r['steps_per_s']:.3f} steps/s against H's {r['h_steps_per_s']:.3f} "
+          f"({r['steps_per_s'] / r['h_steps_per_s']:.3f}x), median step {r['step_ms_median']:.1f} "
+          f"ms; a step gathers {r['gather_gb_a_step']:.2f} GB in {r['gather_ms_a_step']:.1f} ms "
+          f"and scatters {r['scatter_gb_a_step']:.2f} GB in {r['scatter_ms_a_step']:.1f} ms "
+          f"(the initial split {r['init_scatter_ms']:.1f} ms); peak {r['peak_gib']:.2f} GiB above "
+          f"the {r['resident_gib']:.2f} GiB resident (H: {r['h_peak_gib']:.2f} GiB)")
+    same_infos = len(out["infos"]) == len(h_infos) == LM_STEPS and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(out["infos"], h_infos) for k in a)
+    same_params = all(torch.equal(a.gather(), b) for a, b in zip(leaves, _leaves(h_params)))
+    r.update(infos_bitwise=same_infos, params_bitwise=same_params)
+    check(same_infos and same_params,
+          "phase H-mp: every step's info and every final parameter (gathered leaf by leaf) "
+          "equal H's subsampled run bit for bit")
+    del out, leaves
+    torch.cuda.empty_cache()
+
+    # H's checkpoint read straight onto the mesh's pieces
+    specs = param_specs(cfg)
+    target = tree_map(lambda _: torch.empty(0, device="cuda"), specs)
+    shardings = spec_tree_to_shardings(specs, mesh)
+    t0 = time.perf_counter()
+    _, restored = ckpt.restore(f"{root}/sub", target=target, shardings=shardings)
+    torch.cuda.synchronize()
+    r["restore_s"] = time.perf_counter() - t0
+    same = all(torch.equal(a.gather(), b)
+               for a, b in zip(_leaves(restored), _leaves(h_params)))
+    r["restore_bitwise"] = same
+    print(f"  H's checkpoint restored onto the 2 x 2 shardings in {r['restore_s']:.1f}s (warm "
+          f"page cache), equal to H's parameters: {same}")
+    check(same, "phase H-mp: H's checkpoint restored onto the mesh's shardings equals H's "
+          "parameters bit for bit")
+    del restored
+    torch.cuda.empty_cache()
+
+    # written down, not bounded: the dry run's temp bytes at H's batch
+    spec = ShapeSpec("h_train", 64, 16, "train")
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(LM_ARCH, "h_train", False, "", spec=spec)
+    check(rec["status"] == "ok", f"phase H-mp: the dry run of {LM_ARCH} at H's batch runs "
+          f"({rec.get('error', '')})")
+    batch_bytes = 2 * 16 * 64 * 4  # tokens and mask, int32, whole on the card
+    beside = r["peak_gib"] * 2 ** 30 - param_bytes - batch_bytes
+    r["dryrun"] = {"temp_bytes": rec["memory"]["temp_bytes"],
+                   "output_bytes_a_slot": rec["memory"]["output_bytes"],
+                   "flops_home": rec["flops_home"], "seconds": time.perf_counter() - t0,
+                   "card_peak_less_inputs": beside,
+                   "card_peak_less_inputs_and_theta_p": beside - param_bytes}
+    print(f"  dry run of {LM_ARCH} at 16 x 64 (meta device, 256 slots): temp "
+          f"{rec['memory']['temp_bytes'] / 2**30:.2f} GiB; on the card the peak less the "
+          f"inputs {beside / 2**30:.2f} GiB, less theta' too {(beside - param_bytes) / 2**30:.2f} "
+          f"GiB ({r['dryrun']['seconds']:.1f}s)")
 
 
 def phase_i(report, params, cfg):
@@ -2242,13 +2357,46 @@ def phase_t(report, ckpt_dir):
     """The paper's Bayesian LM served: ``--workload lm --arch chatglm3-6b``
     at the front end's defaults (batch 8, prompt 64, 64 decode steps),
     decoding from the posterior sample phase H's subsampled chain left in
-    its checkpoint."""
+    its checkpoint. Returns what ``serve_lm`` left (T-mp holds its logits
+    and tokens)."""
     print(f"phase T: serve_lm, chatglm3-6b from H's subsampled checkpoint ({ckpt_dir}), batch 8, "
           "prompt 64, 64 decode steps")
     out = run_serve_lm(report, "T", ["--workload", "lm", "--arch", "chatglm3-6b",
                                      "--ckpt-dir", ckpt_dir])
     hold_decoding(report["phases"]["T"], "T", out)
-    return out["params"], out["cfg"]
+    return out
+
+
+def phase_t_mp(report, ckpt_dir, t_out):
+    """T again with ``--model-parallel 2`` on four slots of cuda:0: H's
+    checkpoint read straight onto a 2 x 2 mesh's pieces, each layer
+    gathered on the card as it runs. The same operations on the same
+    gathered weights, so the prefill's logits and every generated token
+    must equal T's bit for bit, at full depth. One card: copies between
+    cards are bypassed."""
+    import torch
+
+    from repro_torch.distributed import ShardedTensor, force_devices
+
+    print(f"phase T-mp: T with --model-parallel {MP_MODEL} on {MP_SLOTS} slots of cuda:0")
+    with force_devices(MP_SLOTS, physical=1):
+        out = run_serve_lm(report, "T-mp", ["--workload", "lm", "--arch", "chatglm3-6b",
+                                            "--ckpt-dir", ckpt_dir,
+                                            "--model-parallel", str(MP_MODEL)])
+    r = report["phases"]["T-mp"]
+    t = report["phases"]["T"]
+    sharded = isinstance(out["params"]["embed"]["table"], ShardedTensor)
+    same_logits = torch.equal(out["prefill_logits"], t_out["prefill_logits"])
+    same_tokens = torch.equal(out["tokens"], t_out["tokens"])
+    r.update(sharded=sharded, prefill_bitwise=same_logits, tokens_bitwise=same_tokens,
+             t_decode_tok_s=t["decode_tok_s"], t_decode_step_ms=t["decode_step_ms"],
+             t_prefill_tok_s=t["prefill_tok_s"])
+    print(f"  {card_line()}: T-mp decode {r['decode_tok_s']:.1f} tok/s, {r['decode_step_ms']:.2f} "
+          f"ms a step, prefill {r['prefill_tok_s']:.1f} tok/s; T {t['decode_tok_s']:.1f} tok/s, "
+          f"{t['decode_step_ms']:.2f} ms, prefill {t['prefill_tok_s']:.1f}")
+    check(sharded and same_logits and same_tokens,
+          "phase T-mp: from sharded parameters the prefill's logits and all "
+          f"{out['tokens'].shape[1]} generated tokens of every row equal T's bit for bit")
 
 
 def phase_t_long(report, params, cfg):
@@ -5371,7 +5519,7 @@ def main() -> int:
     }
     report = {"card": card, "kind": kind, "phases": {p: {} for p in
                                                       [*"BCDEFGHIJKLMN", "B'", "H-cache",
-                                                       "H-mala", "T", "T-long", "T-xlstm", "T-whisper",
+                                                       "H-mala", "H-mp", "T", "T-mp", "T-long", "T-xlstm", "T-whisper",
                                                        "T-vlm", "T-moe", "T-hybrid", "H-moe",
                                                        "P", "P1",
                                                        "P-AR1", "S", "S-compiled", "Q", "Q-bg",
@@ -5424,7 +5572,12 @@ def main() -> int:
     os.environ[autotune.ENV_VAR] = "auto"
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        params, cfg = phase_h(report, ckpt_root)
+        params, cfg, h_infos = phase_h(report, ckpt_root)
+        t_mp = time.perf_counter()
+        phase_h_mp(report, ckpt_root, params, h_infos)
+        report["mp_seconds"] = {"H-mp": time.perf_counter() - t_mp}
+        del h_infos
+        torch.cuda.empty_cache()
         phase_h_cache(report, params, cfg)
         torch.cuda.empty_cache()
         phase_h_mala(report, params, cfg)
@@ -5436,7 +5589,14 @@ def main() -> int:
         del target, theta
         torch.cuda.empty_cache()
         t_t = time.perf_counter()
-        params, cfg = phase_t(report, os.path.join(ckpt_root, "sub"))
+        t_out = phase_t(report, os.path.join(ckpt_root, "sub"))
+        params, cfg = t_out["params"], t_out["cfg"]
+        t_mp = time.perf_counter()
+        phase_t_mp(report, os.path.join(ckpt_root, "sub"), t_out)
+        report["mp_seconds"]["T-mp"] = time.perf_counter() - t_mp
+        print(f"  seconds taken by phases H-mp and T-mp: {report['mp_seconds']}")
+        del t_out
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     phase_t_long(report, params, cfg)
@@ -5487,6 +5647,7 @@ def main() -> int:
                                "t_test_round")),
                         ("H", ("t_test_round",)), ("H-cache", ("t_test_round",)),
                         ("H-mala", ("t_test_round",)), ("H-moe", ("t_test_round",)),
+                        ("H-mp", ("t_test_round",)),
                         ("H-adam", ("t_test_round",)),
                         ("I", ("fused_ce", "fy_draw", "t_test_round")),
                         ("J", ("batched_fused_ce", "fy_draw", "t_test_round")),

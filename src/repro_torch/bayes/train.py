@@ -26,6 +26,13 @@ stream sampler's position), so a round reads nothing else from the card.
 :func:`make_cached_train_step` keeps a :class:`LogLikCache` of l(theta) per
 pooled sequence (the paper's Sec. 3.5 lazy stale-node update at tensor
 scale): a round whose whole slice is valid skips the theta forward.
+
+The parameters may be sharded leaves on a mesh of slots
+(:class:`repro_torch.distributed.ShardedTensor`), and the batch too
+(``data.shard_batch``). The proposal and the prior then read and write the
+leaves chunk by chunk on their home device, in the unsharded chunks, and
+the forwards gather one layer at a time, so every step is the unsharded
+step bit for bit. MALA over sharded leaves raises (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, row_chunks, tree_leaves
+from ..distributed.sharding import ShardedTensor
 from ..core.samplers import StreamSliceState, stream_draw, stream_reset
 from ..core.sequential_test import sequential_test
 from ..core.subsampled_mh import draw_log_u
@@ -88,7 +96,17 @@ _CHUNK = 1 << 26
 
 
 def _perturb_leaf(gen: torch.Generator, leaf: torch.Tensor, sigma: float) -> torch.Tensor:
-    """leaf + sigma * N(0, I), in float32, cast back to the leaf's dtype."""
+    """leaf + sigma * N(0, I), in float32, cast back to the leaf's dtype. A
+    sharded leaf's noise is drawn on its home device in the unsharded chunks'
+    order and shapes, each chunk of rows gathered there, perturbed as the
+    unsharded chunk is and scattered into theta''s pieces: the same bits."""
+    if isinstance(leaf, ShardedTensor):
+        out = leaf.empty_like()
+        for a, b in leaf.row_bounds(_CHUNK):
+            row = leaf.rows(a, b)
+            n = torch.randn(row.shape, generator=gen, dtype=F32, device=row.device)
+            out.write_rows(a, b, torch.add(row, n, alpha=sigma).to(leaf.dtype))
+        return out
     out = torch.empty_like(leaf)
     for row, dst in zip(row_chunks(leaf, _CHUNK), row_chunks(out, _CHUNK)):
         n = torch.randn(row.shape, generator=gen, dtype=F32, device=row.device)
@@ -131,14 +149,24 @@ def _rebuild(tree: Params, flat: dict, prefix: str = "") -> Params:
     return flat[prefix]
 
 
+def _chunks(leaf):
+    """``row_chunks(leaf, _CHUNK)``; of a sharded leaf, the same chunks, each
+    gathered on its home device as it is reached."""
+    if isinstance(leaf, ShardedTensor):
+        return (leaf.rows(a, b) for a, b in leaf.row_bounds(_CHUNK))
+    return row_chunks(leaf, _CHUNK)
+
+
 def _sq_total(tree: Params) -> torch.Tensor:
     """The reference's float32 total of squares: over every leaf in its
     flattening order (sorted paths), each leaf's float32 sum of squares
-    (by chunks, summed in float32), the leaves' sums added in float32."""
+    (by chunks, summed in float32), the leaves' sums added in float32. A
+    sharded leaf's chunks are the unsharded ones, gathered on home: a sum
+    over its pieces would change the order of the additions."""
     total = None
     for _, leaf in _flat_paths(tree):
         s = torch.zeros((), dtype=F32, device=leaf.device)
-        for row in row_chunks(leaf, _CHUNK):
+        for row in _chunks(leaf):
             r = row.to(F32).reshape(-1)
             s = s + torch.dot(r, r)
         total = s if total is None else total + s
@@ -161,6 +189,13 @@ def _noise_chunks(gen: torch.Generator, leaf: torch.Tensor):
         yield torch.randn(row.shape, generator=gen, dtype=F32, device=row.device)
 
 
+def _refuse_sharded(params: Params, what: str) -> None:
+    if any(isinstance(l, ShardedTensor) for l in tree_leaves(params)):
+        raise NotImplementedError(
+            f"{what} over sharded parameters: the gradient through gathered layers under a "
+            "mesh is not ported yet (ROADMAP.md §1)")
+
+
 def mala_grads(cfg: ModelConfig, tc: TrainConfig, params: Params, batch: dict) -> dict:
     """The gradient of the reference's estimated log posterior,
     ``sum(l(first round_batch rows)) * N / rb - 0.5 sum(theta^2) / prior_var``,
@@ -171,6 +206,7 @@ def mala_grads(cfg: ModelConfig, tc: TrainConfig, params: Params, batch: dict) -
     times (-1 / prior_var) * 0.5 in float32, cast to the leaf's dtype and
     added to the first, in chunks of rows. Nothing of theta is copied: the
     forward reads the leaves through detached views that require grad."""
+    _refuse_sharded(params, "proposal='mala'")
     pool = batch["tokens"].shape[0]
     rb = min(tc.round_batch, pool)
     n_sections = tc.dataset_size or pool
@@ -198,6 +234,7 @@ def mala_move(params: Params, grads: dict, tc: TrainConfig, noise) -> Params:
     ``_tree_rw_propose`` on zeros rounds it) or ``{path: xi}``. ``grads``
     (from :func:`mala_grads`) is emptied as it goes, so theta, theta', the
     gradient and xi are never all held whole at once."""
+    _refuse_sharded(params, "the MALA move")
     half = 0.5 * tc.mala_step
     root = tc.mala_step ** 0.5
     new = {}
@@ -233,10 +270,12 @@ def propose(gen: torch.Generator, params: Params, tc: TrainConfig, batch: dict |
 
 def _rows_of(batch: dict, start: int, rb: int) -> dict:
     """``rb`` rows from ``start``, the start clamped so the slice fits (as
-    ``lax.dynamic_slice_in_dim`` does)."""
+    ``lax.dynamic_slice_in_dim`` does); a sharded batch's rows are gathered
+    on its home device."""
     pool = batch["tokens"].shape[0]
     start = max(0, min(start, pool - rb))
-    return {k: v[start:start + rb] for k, v in batch.items()}
+    return {k: v.rows(start, start + rb) if isinstance(v, ShardedTensor) else v[start:start + rb]
+            for k, v in batch.items()}
 
 
 def _test_setup(tc: TrainConfig, params: Params, theta_p: Params, log_u: torch.Tensor,

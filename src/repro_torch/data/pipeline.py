@@ -13,6 +13,8 @@ a sequence needs it, from a generator keyed by (seed, r): the same
 distribution (every logit N(0, 1) / concentration, fixed for the stream),
 never the whole matrix. The bits differ from JAX's.
 
+``shard_batch`` splits a batch over a mesh of slots by its rows.
+
 Batches double as the subsampled-MH pool: the stream order is random by
 construction, so contiguous slices per round are draws without replacement.
 """
@@ -88,3 +90,13 @@ class MarkovStream:
             cols.append(prev)
         tokens = torch.stack(cols, dim=1).to(torch.int32)
         return {"tokens": tokens, "mask": torch.ones_like(tokens)}
+
+
+def shard_batch(batch: dict, mesh, logical=("batch", None)) -> dict:
+    """A batch split over ``mesh`` by its rows (``logical`` names the dims,
+    cut to each leaf's rank): each leaf a ``ShardedTensor`` whose home is
+    the leaf's device, read back by rows there (``bayes.train._rows_of``)."""
+    from ..distributed.sharding import ShardedTensor, named_sharding
+
+    return {k: ShardedTensor.from_tensor(v, named_sharding(mesh, v.shape, logical[:v.ndim]))
+            for k, v in batch.items()}

@@ -5,23 +5,37 @@ from .sharding import (
     Mesh,
     NamedSharding,
     PartitionSpec,
+    ShardedTensor,
     assemble,
     count_bytes,
+    gather_params,
     lc,
     logical_axis_rules,
     named_sharding,
+    reset_transfers,
     resolve_spec,
+    shard_params,
     shard_tensor,
+    shard_tree,
+    timed_transfers,
+    transfer_counts,
     tree_shardings,
+    whole,
 )
 from .slots import force_devices, forced_devices, visible_slots
 
 __all__ = [
     "DEFAULT_RULES",
+    "ShardedTensor",
     "count_bytes",
+    "gather_params",
     "lc",
     "logical_axis_rules",
     "named_sharding",
     "resolve_spec",
+    "shard_params",
+    "shard_tree",
+    "transfer_counts",
     "tree_shardings",
+    "whole",
 ]

@@ -18,10 +18,16 @@ Along a mesh axis that a tensor's spec does not use, the pieces repeat, and
 only the slot at index 0 of that axis holds one
 (:meth:`NamedSharding.owners`): it does that piece's work.
 
-``lc(x, names)`` is a no-op without an active mesh or on one slot. Under an
-active mesh of more slots it raises: in the reference it constrains an
-activation's layout inside jitted model code, and an eager tensor has no
-layout to constrain. The LM's model-parallel slice brings its counterpart.
+The LM's parameters live on the mesh as :class:`ShardedTensor` leaves: each
+owner slot holds its piece of the leaf under the reference's rules, and no
+whole copy lives anywhere. Compute stays on the leaf's *home* device: the
+model gathers a leaf, or one row of a stacked leaf, just before it reads it
+and drops it after (:func:`shard_params`, :func:`gather_params`). The
+activations are whole on home, so ``lc(x, names)``, which in the reference
+constrains an activation's layout inside jitted model code, is a no-op
+here under any mesh. A sharded step is therefore the unsharded step bit for
+bit. :func:`transfer_counts` reads the gathers' and scatters' counts and
+bytes (the dry run's stand-in for the reference's collectives).
 """
 from __future__ import annotations
 
@@ -176,15 +182,10 @@ def resolve_spec(shape: Sequence[int], logical: Sequence[str | None], mesh: Mesh
 
 
 def lc(x: torch.Tensor, logical: Sequence[str | None]) -> torch.Tensor:
-    """Logical sharding constraint: a no-op without an active mesh or on one
-    slot; raises under an active mesh of more slots."""
-    mesh = _CTX.mesh
-    if mesh is None or mesh.size <= 1:
-        return x
-    raise NotImplementedError(
-        f"lc(x, {tuple(logical)}) under a mesh of {mesh.size} slots: sharding constraints "
-        "on the LM's tensors come with its model-parallel slice "
-        "(launch/train.py --model-parallel)")
+    """Logical sharding constraint: a no-op. Activations are whole on the home
+    device under any mesh (the module docstring); the reference's constraint
+    of their layout inside a jitted step has no eager counterpart."""
+    return x
 
 
 class Block(NamedTuple):
@@ -355,3 +356,290 @@ def rows_of(tree: Any, rows: slice, device) -> Any:
     from .._device import tree_map
 
     return tree_map(lambda l: place(l[rows].contiguous(), device), tree)
+
+
+# ---------------------------------------------------------------------------
+# Sharded leaves: pieces on the slots, compute on the home device
+# ---------------------------------------------------------------------------
+
+# A gathered leaf, or rows of one, keeps the address modulo this many bytes
+# that the unsharded leaf's view has, so a GEMM library or a vectorized CPU
+# loop takes the same code path on it (64 is the CPU allocator's alignment;
+# the CUDA allocator's is 512).
+GATHER_ALIGN = 64
+
+_TRANSFERS = {"gather": [0, 0], "scatter": [0, 0]}  # kind -> [count, bytes]
+_EVENTS: dict | None = None  # kind -> [(start, end)] CUDA events while timed
+
+
+def reset_transfers() -> None:
+    """Zero the gather and scatter counters (and any timed events)."""
+    for rec in _TRANSFERS.values():
+        rec[0] = rec[1] = 0
+    if _EVENTS is not None:
+        for ev in _EVENTS.values():
+            ev.clear()
+
+
+def transfer_counts() -> dict:
+    """``{"gather": {"count", "bytes"}, "scatter": {...}}`` since the last
+    reset: a gather copies pieces into a tensor on the home device, a
+    scatter copies a home tensor into pieces. Inside :func:`timed_transfers`
+    each kind also has ``ms``, the CUDA time of its copies (this waits for
+    them)."""
+    out = {k: {"count": c, "bytes": b} for k, (c, b) in _TRANSFERS.items()}
+    if _EVENTS is not None:
+        for k, ev in _EVENTS.items():
+            if ev:
+                ev[-1][1].synchronize()
+            out[k]["ms"] = sum(s.elapsed_time(e) for s, e in ev)
+    return out
+
+
+@contextlib.contextmanager
+def timed_transfers():
+    """Bracket every gather and scatter on a CUDA home device with CUDA
+    events until the block ends (:func:`transfer_counts` sums them). Yields
+    ``{"gather": [(start, end), ...], "scatter": [...]}``, in launch order."""
+    global _EVENTS
+    prev, _EVENTS = _EVENTS, {"gather": [], "scatter": []}
+    try:
+        yield _EVENTS
+    finally:
+        _EVENTS = prev
+
+
+def _transfer_count(kind: str, nbytes: int) -> None:
+    rec = _TRANSFERS[kind]
+    rec[0] += 1
+    rec[1] += int(nbytes)
+
+
+@contextlib.contextmanager
+def _transfer(kind: str, nbytes: int, device: torch.device):
+    _transfer_count(kind, nbytes)
+    if _EVENTS is None or device.type != "cuda":
+        yield
+        return
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    _EVENTS[kind].append((start, end))
+
+
+def _aligned_empty(shape, dtype: torch.dtype, device: torch.device, off: int) -> torch.Tensor:
+    """An empty contiguous tensor whose address is ``off`` modulo
+    :data:`GATHER_ALIGN` (a fresh allocation is 0 there)."""
+    size = dtype.itemsize
+    if off == 0 or off % size or device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
+    lead = off // size
+    buf = torch.empty(int(np.prod(shape, dtype=np.int64)) + lead, dtype=dtype, device=device)
+    return buf[lead:].view(tuple(shape))
+
+
+def _address(t: torch.Tensor) -> int:
+    return 0 if t.device.type == "meta" else t.data_ptr() % GATHER_ALIGN
+
+
+def _piece_shape(index: tuple[slice, ...]) -> tuple[int, ...]:
+    return tuple(s.stop - s.start for s in index)
+
+
+class ShardedTensor:
+    """A leaf kept as its owner slots' pieces under ``sharding``
+    (:meth:`NamedSharding.owners`), read on its ``home`` device: whole by
+    :meth:`gather`, a row of a stacked leaf by ``leaf[i]``, rows by
+    :meth:`rows`. ``shape``, ``dtype``, ``ndim`` and ``device`` (the home
+    device) are the unsharded leaf's; ``align`` is that leaf's address
+    modulo :data:`GATHER_ALIGN`, which every gathered tensor keeps as the
+    unsharded view at the same place would have it."""
+
+    __slots__ = ("pieces", "sharding", "blocks", "shape", "dtype", "home", "align")
+
+    def __init__(self, pieces: Sequence[torch.Tensor], sharding: NamedSharding, shape,
+                 dtype: torch.dtype, home, align: int = 0, blocks: Sequence[Block] | None = None):
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.home = canonical(home)
+        self.align = int(align)
+        self.blocks = list(blocks) if blocks is not None else [
+            blk._replace(device=canonical(blk.device)) for blk in sharding.owners(self.shape)]
+        self.pieces = list(pieces)
+        if len(self.pieces) != len(self.blocks):
+            raise ValueError(f"{len(self.pieces)} pieces for {len(self.blocks)} owner slots")
+
+    @classmethod
+    def from_tensor(cls, x: torch.Tensor, sharding: NamedSharding, home=None) -> "ShardedTensor":
+        """``x`` split into its owners' pieces (copies: nothing of ``x`` is
+        kept), home ``home`` (default: ``x``'s device)."""
+        out = cls.empty(sharding, x.shape, x.dtype, x.device if home is None else home,
+                        align=_address(x))
+        with _transfer("scatter", out.nbytes_held, out.home):
+            for blk, piece in out._copies():
+                piece.copy_(x[blk.index])
+        return out
+
+    @classmethod
+    def empty(cls, sharding: NamedSharding, shape, dtype: torch.dtype, home,
+              align: int = 0) -> "ShardedTensor":
+        """A leaf with uninitialized pieces on their owner slots."""
+        blocks = [blk._replace(device=canonical(blk.device))
+                  for blk in sharding.owners(torch.Size(shape))]
+        pieces = [torch.empty(_piece_shape(blk.index), dtype=dtype, device=blk.device)
+                  for blk in blocks]
+        return cls(pieces, sharding, shape, dtype, home, align, blocks)
+
+    def empty_like(self) -> "ShardedTensor":
+        """A leaf of the same shape, dtype, sharding and home with
+        uninitialized pieces (a fresh whole leaf's address: ``align`` 0)."""
+        pieces = [torch.empty_like(p) for p in self.pieces]
+        return ShardedTensor(pieces, self.sharding, self.shape, self.dtype, self.home, 0,
+                             self.blocks)
+
+    @property
+    def device(self) -> torch.device:
+        return self.home
+
+    def _copies(self):
+        """(block, piece) pairs to copy through: none on the meta device,
+        whose tensors hold no data (the dry run counts the transfers and
+        allocates their results, and skips thousands of empty copies)."""
+        return () if self.home.type == "meta" else zip(self.blocks, self.pieces)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def numel(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    def element_size(self) -> int:
+        return self.dtype.itemsize
+
+    @property
+    def nbytes_held(self) -> int:
+        """Bytes of every piece together (the owners' copies)."""
+        return sum(int(np.prod(_piece_shape(b.index), dtype=np.int64)) for b in self.blocks) \
+            * self.dtype.itemsize
+
+    def gather(self) -> torch.Tensor:
+        """The whole leaf on the home device."""
+        out = _aligned_empty(self.shape, self.dtype, self.home, self.align)
+        with _transfer("gather", self.numel() * self.dtype.itemsize, self.home):
+            for blk, piece in self._copies():
+                out[blk.index].copy_(piece)
+        return out
+
+    def _row_bytes(self) -> int:
+        return int(np.prod(self.shape[1:], dtype=np.int64)) * self.dtype.itemsize
+
+    def _row_parts(self, start: int, stop: int):
+        """(piece, its rows, the destination's index) of every owner piece
+        holding rows of [start, stop) along dim 0."""
+        for blk, piece in zip(self.blocks, self.pieces):
+            s0, s1 = blk.index[0].start, blk.index[0].stop
+            lo, hi = max(start, s0), min(stop, s1)
+            if lo < hi:
+                yield piece, slice(lo - s0, hi - s0), (slice(lo - start, hi - start),) \
+                    + blk.index[1:]
+
+    def rows(self, start: int, stop: int) -> torch.Tensor:
+        """Rows [start, stop) along dim 0, gathered on the home device from
+        the row slices of the pieces alone."""
+        if self.ndim == 0:
+            return self.gather()
+        shape = (stop - start,) + tuple(self.shape[1:])
+        out = _aligned_empty(shape, self.dtype, self.home,
+                             (self.align + start * self._row_bytes()) % GATHER_ALIGN)
+        if self.home.type == "meta":
+            _transfer_count("gather", (stop - start) * self._row_bytes())
+            return out
+        with _transfer("gather", (stop - start) * self._row_bytes(), self.home):
+            for piece, rows, dst in self._row_parts(start, stop):
+                out[dst].copy_(piece[rows])
+        return out
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        """Row ``i`` of a stacked leaf (its ``"layers"`` axis), on home."""
+        if not isinstance(i, int):
+            raise TypeError(f"a sharded leaf is read by an int row, not {type(i).__name__}")
+        i = i + self.shape[0] if i < 0 else i
+        return self.rows(i, i + 1)[0]
+
+    def write_rows(self, start: int, stop: int, value: torch.Tensor) -> None:
+        """Copy ``value``, rows [start, stop) of the whole leaf on any device,
+        into the pieces that hold them."""
+        if self.ndim == 0:
+            with _transfer("scatter", self.nbytes_held, self.home):
+                for _, piece in self._copies():
+                    piece.copy_(value)
+            return
+        parts = list(self._row_parts(start, stop))
+        nbytes = sum(int(np.prod(_piece_shape(dst), dtype=np.int64))
+                     for _, _, dst in parts) * self.dtype.itemsize
+        if self.home.type == "meta":
+            _transfer_count("scatter", nbytes)
+            return
+        with _transfer("scatter", nbytes, self.home):
+            for piece, rows, src in parts:
+                piece[rows].copy_(value[src])
+
+    def row_bounds(self, max_elems: int) -> list[tuple[int, int]]:
+        """The (start, stop) row ranges of ``_device.row_chunks(leaf,
+        max_elems)`` on the unsharded leaf."""
+        n = self.shape[0] if self.ndim else 1
+        if self.numel() <= max_elems or self.ndim < 2:
+            return [(0, n)]
+        per = max(1, max_elems // max(1, self.numel() // n))
+        return [(a, min(a + per, n)) for a in range(0, n, per)]
+
+    def to_host(self) -> "ShardedTensor":
+        """A copy whose pieces (and home) are on the CPU, same layout."""
+        blocks = [b._replace(device=torch.device("cpu")) for b in self.blocks]
+        return ShardedTensor([p.detach().cpu() for p in self.pieces], self.sharding, self.shape,
+                             self.dtype, "cpu", self.align, blocks)
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, dtype={self.dtype}, "
+                f"spec={self.sharding.spec}, home={self.home}, pieces={len(self.pieces)})")
+
+
+def whole(x: Any) -> Any:
+    """A sharded leaf gathered on its home device; anything else as is."""
+    return x.gather() if isinstance(x, ShardedTensor) else x
+
+
+def shard_tree(tree: Any, shardings: Any, home=None) -> Any:
+    """Each tensor leaf of ``tree`` whose leaf in ``shardings`` (the same
+    nesting) is a :class:`NamedSharding` split into a :class:`ShardedTensor`;
+    a None sharding, or a non-tensor leaf, kept as is."""
+    from .._device import tree_map
+
+    def put(leaf, sh):
+        if sh is None or not isinstance(leaf, torch.Tensor):
+            return leaf
+        return ShardedTensor.from_tensor(leaf, sh, home)
+
+    return tree_map(put, tree, shardings)
+
+
+def shard_params(params: Any, mesh: Mesh, rules: dict | None = None, home=None, *,
+                 specs: Any) -> Any:
+    """A parameter tree split over ``mesh``: each leaf by the reference's
+    rules (``rules`` over :data:`DEFAULT_RULES`) from the logical axes of its
+    ``ParamSpec`` in ``specs`` (the same nesting), home ``home`` (default:
+    the leaf's device)."""
+    from .._device import tree_map
+
+    shardings = tree_map(lambda s: named_sharding(mesh, s.shape, s.logical, rules), specs)
+    return shard_tree(params, shardings, home)
+
+
+def gather_params(tree: Any) -> Any:
+    """Every sharded leaf of ``tree`` gathered whole on its home device."""
+    from .._device import tree_map
+
+    return tree_map(whole, tree)

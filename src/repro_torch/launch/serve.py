@@ -83,6 +83,15 @@ generator seeded 2 (the reference draws them from key 2; the bits differ):
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch whisper-base \
         --reduced --device cpu
+
+``--model-parallel N`` decodes from parameters sharded over the reference's
+``make_mesh_for_devices(model_parallel=N)`` (``--devices n`` makes n slots
+visible, cycling over the cards): the checkpoint is restored straight onto
+the mesh's pieces, each layer is gathered on the card as it runs, and every
+logit and token is the unsharded run's, bit for bit:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --arch chatglm3-6b \
+        --ckpt-dir /tmp/chain --model-parallel 2 --devices 4
 """
 from __future__ import annotations
 
@@ -150,8 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="writer ensemble sharding: 'auto' (1-d chain mesh when the slots "
                          "allow), '2d' (chains x data), 'off'")
     fl.add_argument("--devices", type=int, default=None,
-                    help="make N mesh slots visible while the fleet runs, cycling over the "
-                         "cards (or the CPU): the counterpart of forced host devices")
+                    help="make N mesh slots visible while the fleet (or --workload lm) runs, "
+                         "cycling over the cards (or the CPU): the counterpart of forced "
+                         "host devices")
     fl.add_argument("--max-depth", type=int, default=256,
                     help="admission: queue depth before shedding starts")
     fl.add_argument("--max-miss-rate", type=float, default=0.5,
@@ -1264,31 +1274,49 @@ def _serve_soak(args, out: dict) -> int:
 def serve_lm(args, out: dict | None = None) -> int:
     """Batched decoding from one posterior sample: the parameters of
     ``--ckpt-dir`` (or random ones from seed 0) of ``--arch``, decoded by
-    :func:`decode_lm`. ``out``, when given, receives what ``decode_lm``
-    leaves there."""
+    :func:`decode_lm`, on the mesh of ``--model-parallel`` (sharded when it
+    has more than one slot; ``--devices`` forces the slots). ``out``, when
+    given, receives what ``decode_lm`` leaves there."""
+    from ..distributed import force_devices
+
+    with force_devices(args.devices) if args.devices else contextlib.nullcontext():
+        return _serve_lm(args, out)
+
+
+def _serve_lm(args, out: dict | None) -> int:
     from .._device import resolve_device, tree_map
     from ..checkpoint import manager as ckpt
     from ..configs import ARCHS, reduce_config
+    from ..distributed.sharding import logical_axis_rules
     from ..models import init_params, param_specs
+    from .mesh import make_mesh_for_devices
+    from .steps import spec_tree_to_shardings
+    from .train import init_sharded_params
 
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel > 1 comes with the distributed slice")
     device = resolve_device(args.device)
+    mesh = make_mesh_for_devices(model_parallel=args.model_parallel, device=device)
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduce_config(cfg)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    sharded = mesh.size > 1
     if args.ckpt_dir:
         # the checkpoint's leaves replace every initial one: a target that
-        # names them and their device, with nothing drawn
-        target = tree_map(lambda _: torch.empty(0, device=device), param_specs(cfg))
-        _, params = ckpt.restore(args.ckpt_dir, target=target)
+        # names them and their device, with nothing drawn; on a mesh each
+        # leaf's pieces are read from the file straight onto their slots
+        specs = param_specs(cfg)
+        target = tree_map(lambda _: torch.empty(0, device=device), specs)
+        shardings = spec_tree_to_shardings(specs, mesh) if sharded else None
+        _, params = ckpt.restore(args.ckpt_dir, target=target, shardings=shardings)
         print(f"restored posterior sample from {args.ckpt_dir}")
+    elif sharded:
+        params = init_sharded_params(0, cfg, mesh, device=device)
     else:
         params = init_params(0, cfg, device=device)
-    return decode_lm(params, cfg, batch=args.batch, prompt_len=args.prompt_len,
-                     gen_len=args.gen_len, out=out)
+    with logical_axis_rules(mesh):
+        return decode_lm(params, cfg, batch=args.batch, prompt_len=args.prompt_len,
+                         gen_len=args.gen_len, out=out)
 
 
 def decode_lm(params: dict, cfg, *, batch: int, prompt_len: int, gen_len: int,
@@ -1301,7 +1329,9 @@ def decode_lm(params: dict, cfg, *, batch: int, prompt_len: int, gen_len: int,
     logits (Gumbel-max, as ``jax.random.categorical`` draws) by a generator
     seeded 3. Prints the two rates. ``out``, when given, receives the
     parameters, the config, the prompts, the extra inputs, the prefill's
-    cache and logits, the times, tokens/s and the peak device memory."""
+    cache and logits, every generated token (``tokens``, (batch, gen_len)),
+    the times, tokens/s and the peak device memory. Sharded parameters
+    decode on their home device."""
     from .._device import make_generator, tree_leaves
     from ..models import decode_step, prefill
 
@@ -1327,17 +1357,20 @@ def decode_lm(params: dict, cfg, *, batch: int, prompt_len: int, gen_len: int,
                cache0=cache, prefill_logits=logits)
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     gen = make_generator(3, device)
+    toks = []
     t0 = time.perf_counter()
     for _ in range(gen_len):
         cache, logits = decode_step(params, cache, tok, cfg)
         u = torch.rand(logits.shape, generator=gen, device=device).clamp_min(1e-20)
         tok = torch.argmax(logits - torch.log(-torch.log(u)), -1)[:, None].to(torch.int32)
+        toks.append(tok)
     sync()
     t_dec = time.perf_counter() - t0
     out.update(prefill_s=t_pre, decode_s=t_dec,
                prefill_tok_s=batch * prompt_len / t_pre,
                decode_tok_s=batch * gen_len / t_dec,
                decode_step_ms=1e3 * t_dec / max(gen_len, 1), last_tokens=tok,
+               tokens=torch.cat(toks, dim=1) if toks else tok[:, :0],
                peak_bytes=torch.cuda.max_memory_allocated(device) if cuda else None)
     print(f"prefill {batch}x{prompt_len}: {t_pre:.2f}s "
           f"({batch * prompt_len / t_pre:.0f} tok/s)")

@@ -15,13 +15,22 @@ whisper-base is refused at its first step with a ValueError that names the
 missing frame embeddings: the token stream carries none, and the
 reference's launcher fails there too.
 
-``--device`` defaults to the card and raises without one. The reference's
-``--model-parallel`` mesh comes with the distributed slice (only 1 is
-accepted).
+``--device`` defaults to the card and raises without one.
+
+``--model-parallel N`` runs the chain on the reference's mesh,
+``make_mesh_for_devices(model_parallel=N)`` under ``logical_axis_rules``:
+(slots / N) x N ``("data", "model")`` over the visible slots (within
+``repro_torch.distributed.force_devices(n)``, n slots that cycle over the
+cards; ``--devices n`` forces them from the command line). On a mesh of
+more than one slot each leaf is drawn whole on the
+card from its ``leaf_seed``, split into its owners' pieces by the
+reference's rules and freed; compute stays on the card, so every step, the
+summary line and the checkpoint are the unsharded run's, bit for bit.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -31,8 +40,31 @@ from .._device import resolve_device
 from ..bayes import TrainConfig, make_exact_step, make_train_step
 from ..configs import ARCHS, reduce_config
 from ..data import DataConfig, MarkovStream
+from ..distributed import force_devices
+from ..distributed.sharding import Mesh, ShardedTensor, logical_axis_rules, named_sharding
 from ..models import init_params
+from ..models.layers import init_leaf
+from ..models.transformer import ModelConfig, _flatten, _rebuild, leaf_seed, param_specs
 from ..runtime import LoopConfig, run_loop
+from .mesh import make_mesh_for_devices
+
+
+def init_sharded_params(seed: int, cfg: ModelConfig, mesh: Mesh, rules: dict | None = None, *,
+                        device=None) -> dict:
+    """``init_params(seed, cfg, device=device)`` split over ``mesh``: each
+    leaf drawn whole on the device from its ``leaf_seed`` (sorted path
+    order), split into its owners' pieces by the rules and freed, so at most
+    one whole leaf lives at a time. Home: the device."""
+    dev = resolve_device(device)
+    specs = param_specs(cfg)
+    vals = {}
+    for i, (path, spec) in enumerate(sorted(_flatten(specs).items())):
+        gen = torch.Generator(device=dev).manual_seed(leaf_seed(seed, i))
+        leaf = init_leaf(gen, spec, dev)
+        vals[path] = ShardedTensor.from_tensor(
+            leaf, named_sharding(mesh, spec.shape, spec.logical, rules))
+        del leaf
+    return _rebuild(specs, vals)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -50,6 +82,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--preempt-flag", default=None)
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="make N mesh slots visible while the chain runs, cycling over the "
+                         "cards (or the CPU): the counterpart of forced host devices")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the plain versions)")
     return ap.parse_args(argv)
@@ -59,9 +94,13 @@ def main(argv=None) -> dict:
     """Run the chain; returns {params, infos, step, wall_s, step_s,
     steps_per_s, peak_bytes} beside the summary line it prints."""
     args = parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel > 1 comes with the distributed slice")
+    with force_devices(args.devices) if args.devices else contextlib.nullcontext():
+        return _main(args)
+
+
+def _main(args: argparse.Namespace) -> dict:
     device = resolve_device(args.device)
+    mesh = make_mesh_for_devices(model_parallel=args.model_parallel, device=device)
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduce_config(cfg)
@@ -85,11 +124,14 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
-    # the initial parameters are handed over, not kept: at chatglm3-6b's size
-    # they are 12 GB that the loop drops once a proposal is accepted
-    out = run_loop(timed_step, init_params(0, cfg, device=device), stream.batch,
-                   LoopConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
-                              ckpt_every=args.ckpt_every, preempt_flag=args.preempt_flag))
+    init = (init_params if mesh.size == 1
+            else lambda seed, cfg, device: init_sharded_params(seed, cfg, mesh, device=device))
+    with logical_axis_rules(mesh):
+        # the initial parameters are handed over, not kept: at chatglm3-6b's
+        # size they are 12 GB that the loop drops once a proposal is accepted
+        out = run_loop(timed_step, init(0, cfg, device=device), stream.batch,
+                       LoopConfig(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
+                                  ckpt_every=args.ckpt_every, preempt_flag=args.preempt_flag))
     sync()
     out["wall_s"] = time.perf_counter() - t0
     out["step_s"] = step_s

@@ -7,7 +7,10 @@ same tree with :class:`~repro_torch.models.layers.ParamSpec` leaves, and
 :func:`abstract_params` the tree as meta-device tensors, so a caller can
 count and size a model without allocating it. The stacked layer axis of the
 reference (``lax.scan`` over layers) is kept in the tree and walked by a
-Python loop.
+Python loop. A leaf may be sharded over a mesh of slots
+(:class:`repro_torch.distributed.ShardedTensor`): the stack then gathers one
+layer's rows at a time, and each top-level leaf just before it is read, on
+the leaf's home device, where all compute runs.
 
 Entry points: ``param_specs(cfg)``, ``abstract_params(cfg)``,
 ``init_params(seed, cfg, device=)``, ``forward_hidden(params, tokens, cfg,
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, tree_map
+from ..distributed.sharding import whole
 from .layers import (ParamSpec, attention, embed, gelu_mlp, init_leaf, moe_mlp, rms_norm,
                      swiglu_mlp, unembed_loglik)
 from .ssm import MambaState, MLSTMState, SLSTMState, mamba_block, mlstm_block, slstm_block
@@ -340,7 +344,9 @@ def layer_schedules(cfg: ModelConfig, n: int | None = None) -> tuple[list[int], 
 
 
 def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a tree of stacked leaves (views, nothing copied)."""
+    """Layer ``i`` of a tree of stacked leaves: views, nothing copied; of a
+    sharded leaf, row ``i`` gathered on its home device (dropped with the
+    layer's tree)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
@@ -469,7 +475,7 @@ def _whisper_encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> t
     end is stubbed, as in the reference). Non-causal attention without rope,
     learned positions, the GELU MLP; the encoder's final norm applied."""
     ep = params["enc"]
-    h = frames + ep["pos"][None, :frames.shape[1]].to(frames.dtype)
+    h = frames + whole(ep["pos"])[None, :frames.shape[1]].to(frames.dtype)
     pos = torch.arange(frames.shape[1], device=frames.device)
     for i in range(cfg.enc_layers):
         p = _layer(ep["layers"], i)
@@ -478,7 +484,7 @@ def _whisper_encode(params: Params, frames: torch.Tensor, cfg: ModelConfig) -> t
                          use_rope=False, **_attn_kwargs(cfg))
         h = h + a
         h = h + gelu_mlp(rms_norm(h, p["ln2"], cfg.norm_eps), p["mlp"])
-    return rms_norm(h, ep["final_norm"], cfg.norm_eps)
+    return rms_norm(h, whole(ep["final_norm"]), cfg.norm_eps)
 
 
 def _cross_attention(x: torch.Tensor, enc_out: torch.Tensor, p: Params,
@@ -502,7 +508,7 @@ def _whisper_decode_stack(params: Params, h: torch.Tensor, enc_out: torch.Tensor
     max_seq - 1)``), causal self-attention without rope over the ring,
     cross-attention over ``enc_out``, the GELU MLP."""
     lp = params["layers"]
-    pos_emb = params["dec_pos"][torch.clamp(positions, max=cfg.max_seq - 1)]
+    pos_emb = whole(params["dec_pos"])[torch.clamp(positions, max=cfg.max_seq - 1)]
     h = h + pos_emb[None].to(h.dtype)
     slot_pos = _advance_slot_pos(caches, positions) if caches is not None else None
     new_k, new_v = [], []
@@ -554,11 +560,11 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     """Token ids (B, S) -> final hidden states (B, S, D), final norm applied.
     The audio family encodes ``extra["frames"]`` first (ValueError without)."""
     _check_family(cfg)
-    h = embed(tokens, params["embed"]["table"])
+    h = embed(tokens, whole(params["embed"]["table"]))
     positions = torch.arange(tokens.shape[1], device=h.device)
     enc_out = _whisper_encode(params, _frames(cfg, extra), cfg) if cfg.family == "audio" else None
     h, _ = _stack(params, h, cfg, positions, None, enc_out)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return rms_norm(h, whole(params["final_norm"]), cfg.norm_eps)
 
 
 def forward_loglik(params: Params, batch: dict, cfg: ModelConfig,
@@ -574,7 +580,7 @@ def forward_loglik(params: Params, batch: dict, cfg: ModelConfig,
     targets = tokens[:, 1:]
     mask = batch.get("mask")
     mask = torch.ones_like(targets) if mask is None else mask[:, 1:]
-    return unembed_loglik(h, params["embed"]["table"], targets, mask, chunk=ce_chunk)
+    return unembed_loglik(h, whole(params["embed"]["table"]), targets, mask, chunk=ce_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -681,13 +687,13 @@ def decode_step(params: Params, cache: dict, tokens: torch.Tensor, cfg: ModelCon
     """One decoding step: tokens (B, 1) -> (new_cache, logits (B, V) float32).
     The audio family's cross-attention reads the cache's ``enc_out``."""
     _check_family(cfg)
-    h = embed(tokens, params["embed"]["table"])
+    h = embed(tokens, whole(params["embed"]["table"]))
     positions = None
     if cfg.family != "ssm":
         positions = cache["len"] + torch.arange(tokens.shape[1], device=h.device)
     h, cache = _stack(params, h, cfg, positions, cache, cache.get("enc_out"))
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,vd->bsv", h, params["embed"]["table"])
+    h = rms_norm(h, whole(params["final_norm"]), cfg.norm_eps)
+    logits = torch.einsum("bsd,vd->bsv", h, whole(params["embed"]["table"]))
     return cache, logits[:, -1].to(torch.float32)
 
 
@@ -699,10 +705,10 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int
     the cache as ``enc_out``."""
     _check_family(cfg)
     b, s = tokens.shape
-    h = embed(tokens, params["embed"]["table"])
+    h = embed(tokens, whole(params["embed"]["table"]))
     enc_out = _whisper_encode(params, _frames(cfg, extra), cfg) if cfg.family == "audio" else None
     cache = init_cache(cfg, b, max_len, enc_out=enc_out, device=h.device)
     h, cache = _stack(params, h, cfg, torch.arange(s, device=h.device), cache, enc_out)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bd,vd->bv", h[:, -1], params["embed"]["table"])
+    h = rms_norm(h, whole(params["final_norm"]), cfg.norm_eps)
+    logits = torch.einsum("bd,vd->bv", h[:, -1], whole(params["embed"]["table"]))
     return cache, logits.to(torch.float32)

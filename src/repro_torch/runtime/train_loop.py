@@ -7,7 +7,10 @@ needs no generator state and repeats the original trajectory. Preemption:
 SIGTERM or a flag file triggers a final checkpoint and a clean exit; any
 accepted transition is a consistent state. ``fail_at_step`` injects a
 failure for tests. :func:`wall_clock_step_stats` times a step function for
-benchmarks.
+benchmarks. Sharded parameters (``repro_torch.distributed.ShardedTensor``
+leaves) are saved piece by piece and restored onto the pieces' slots by the
+restore target's own shardings; the step's generator lives on their home
+device.
 """
 from __future__ import annotations
 

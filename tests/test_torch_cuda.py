@@ -1807,3 +1807,93 @@ def test_wall_clock_step_stats_synchronizes(cuda_device):
     torch.cuda.synchronize()
     stats = wall_clock_step_stats(step, (), n=3)
     assert host_s < 0.015 <= stats["min_s"] <= stats["mean_s"]
+
+
+# ---------------------------------------------------------------------------
+# The LM's sharded parameters on four slots of the card
+# ---------------------------------------------------------------------------
+
+
+def _card_mesh(model):
+    from repro_torch.distributed import force_devices
+    from repro_torch.launch.mesh import make_mesh_for_devices
+
+    with force_devices(4, physical=1):
+        return make_mesh_for_devices(4, model_parallel=model)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [2, 4])
+def test_sharded_lm_step_on_card_slots(cuda_device, model):
+    """The plain and cached train steps on parameters sharded over four
+    slots of the card ((2, 2) and (1, 4)), the round op on every round:
+    every info field, the cache and every parameter equal the unsharded
+    steps' bit for bit, with proposals accepted and rejected."""
+    from repro_torch.bayes import (LogLikCache, TrainConfig, make_cached_train_step,
+                                   make_train_step)
+    from repro_torch.distributed import gather_params, logical_axis_rules, shard_params
+    from repro_torch.models import param_specs
+
+    cfg, params, batch = _lm_case(cuda_device)
+    tc = TrainConfig(round_batch=2, epsilon=0.2, sigma=1e-3)
+    mesh = _card_mesh(model)
+
+    def chain(step, theta, cached):
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        cache = LogLikCache.empty(8, device=cuda_device)
+        infos = []
+        for _ in range(8):
+            if cached:
+                theta, cache, info = step(gen, theta, batch, cache)
+            else:
+                theta, info = step(gen, theta, batch)
+            infos.append(info)
+        return theta, infos, cache
+
+    for maker, cached in ((make_train_step, False), (make_cached_train_step, True)):
+        step = maker(cfg, tc)
+        want, want_infos, want_cache = chain(step, params, cached)
+        ops.reset_launches()
+        with logical_axis_rules(mesh):
+            got, infos, cache = chain(step, shard_params(params, mesh, specs=param_specs(cfg)),
+                                      cached)
+        torch.cuda.synchronize()
+        assert ops.launches["t_test_round"] > 0
+        assert 0 < sum(int(i.accepted) for i in want_infos) < 8
+        for a, b in zip(infos, want_infos):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+        assert torch.equal(cache.ll, want_cache.ll) and torch.equal(cache.valid, want_cache.valid)
+        for a, b in zip(_leaves(gather_params(got)), _leaves(want)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_lm_decode_on_card_slots(cuda_device):
+    """Prefill and 8 decode steps from parameters sharded over a (2, 2)
+    mesh of card slots: every logit and cache leaf equal the unsharded
+    run's bit for bit, at reduced width (bf16 GEMMs on gathered layers that
+    keep the unsharded views' address modulo 64 bytes)."""
+    from repro_torch.distributed import logical_axis_rules, shard_params
+    from repro_torch.models import decode_step, param_specs, prefill
+
+    cfg, params, batch = _lm_case(cuda_device)
+    prompts = batch["tokens"][:4, :12]
+    mesh = _card_mesh(2)
+
+    def run(p):
+        cache, logits = prefill(p, prompts, cfg, 24)
+        out = [logits]
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        for _ in range(8):
+            cache, logits = decode_step(p, cache, tok, cfg)
+            out.append(logits)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        return cache, out
+
+    want_cache, want = run(params)
+    with logical_axis_rules(mesh):
+        cache, got = run(shard_params(params, mesh, specs=param_specs(cfg)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(cache), _leaves(want_cache)))

@@ -421,6 +421,29 @@ def test_lm_flag_guards_as_reference(argv):
         assert e.value.code == 2, (main, argv)
 
 
-def test_lm_model_parallel_raises():
-    with pytest.raises(NotImplementedError, match="model-parallel"):
-        serve.main(["--workload", "lm", "--reduced", "--device", "cpu", "--model-parallel", "2"])
+def test_lm_model_parallel_raises(tmp_path):
+    """``--model-parallel 2`` raises where one slot cannot split in two; with
+    ``--devices 4`` (a 2 x 2 mesh of CPU slots) it decodes, from random
+    parameters and from a ``launch.train`` checkpoint restored onto the
+    mesh's pieces, every prefill logit and generated token the unsharded
+    run's bit for bit."""
+    from repro_torch.distributed import ShardedTensor
+    from repro_torch.launch import train
+
+    base = ["--workload", "lm", "--reduced", "--device", "cpu", "--arch", "chatglm3-6b",
+            "--batch", "2", "--prompt-len", "6", "--gen-len", "4"]
+    with pytest.raises(ValueError, match="model=2"):
+        serve.main(base + ["--model-parallel", "2"])
+    train.main(["--reduced", "--device", "cpu", "--steps", "2", "--batch", "4", "--seq", "8",
+                "--ckpt-dir", str(tmp_path)])
+    for extra in ([], ["--ckpt-dir", str(tmp_path)]):
+        outs = []
+        for mp in ([], ["--model-parallel", "2", "--devices", "4"]):
+            out = {}
+            args = serve.build_parser().parse_args(base + extra + mp)
+            assert serve.serve_lm(args, out) == 0
+            outs.append(out)
+        one, two = outs
+        assert isinstance(two["params"]["embed"]["table"], ShardedTensor)
+        assert torch.equal(one["prefill_logits"], two["prefill_logits"])
+        assert one["tokens"].shape == (2, 4) and torch.equal(one["tokens"], two["tokens"])

@@ -140,8 +140,8 @@ def test_lc_and_the_slot_policy():
     with logical_axis_rules(_cpu_mesh({"data": 1})):
         assert sharding.lc(x, ("batch", None)) is x  # one slot
     with logical_axis_rules(_cpu_mesh({"data": 2, "model": 2})):
-        with pytest.raises(NotImplementedError, match="model-parallel"):
-            sharding.lc(x, ("batch", None))
+        # activations are whole on the home device under any mesh
+        assert sharding.lc(x, ("batch", None)) is x
         assert sharding.active_mesh()[0].shape == {"data": 2, "model": 2}
     assert sharding.active_mesh() is None
     assert visible_slots("cpu") == [torch.device("cpu")] and forced_devices() is None

@@ -378,8 +378,9 @@ def test_propose_paths_freezes_other_leaves():
 def test_deferred_train_paths_raise():
     """What still raises on the LM's train path: an unknown proposal, MALA
     without the batch its gradient needs, a cache of another pool's size,
-    and the launcher's ``--model-parallel`` above 1 (the sharded LM comes
-    with a later slice). ``proposal="mala"`` and the cached step build."""
+    and MALA over parameters sharded on a mesh (the gradient through
+    gathered layers is later work). ``proposal="mala"`` and the cached step
+    build."""
     cfg = reduce_config(ARCHS["chatglm3-6b"])
     with pytest.raises(ValueError, match="unknown proposal"):
         make_train_step(cfg, TrainConfig(proposal="hmc"))
@@ -391,10 +392,16 @@ def test_deferred_train_paths_raise():
     batch = TokenStream(DataConfig(cfg.vocab, 8, 4, 1), device="cpu").batch(0)
     with pytest.raises(ValueError, match="pool"):
         step(torch.Generator().manual_seed(0), params, batch, LogLikCache.empty(5, device="cpu"))
-    from repro_torch.launch import train
+    from repro_torch.distributed import force_devices, shard_params
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models import param_specs
 
-    with pytest.raises(NotImplementedError, match="model-parallel"):
-        train.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
+    with force_devices(4):
+        mesh = make_mesh_for_devices(model_parallel=2, device="cpu")
+        sharded = shard_params(params, mesh, specs=param_specs(cfg))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            propose(torch.Generator().manual_seed(0), sharded, TrainConfig(proposal="mala"),
+                    batch, cfg)
 
 
 # ---------------------------------------------------------------------------
