@@ -23,6 +23,11 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
   K  C's configuration with ``stepping="masked"`` for C's first 250 steps:
      C's samples and infos bit for bit, in fewer supersteps than C's
      lock-step rounds over those steps;
+  C-pc  C's first 50 steps on per-chain (32, N, D) pools (B's pool copied
+     once per chain): each chain's rows gathered on the card, then the pair
+     delta's gathered form; its deltas against C's shared-pool route on 224
+     fixed proposals, and its samples and infos bit for bit C's when the
+     deltas are;
   L  the adaptive form: masked stepping with ``ScheduleConfig(epsilon_max=0.2)``
      and the Fisher–Yates sampler (the bounded draw, per-chain m_eff), K=32,
      1000 steps, the knobs held to their bounds; then 20 steps through the
@@ -64,7 +69,12 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      equal, the final parameters bit for bit, the forwards a round counted;
   H-mala  ``proposal="mala"`` (step 1e-8) on the same model and pool, 5 steps:
      the gradient pass's ms, acceptance, steps/s, peak memory, finite
-     parameters;
+     parameters, and bit digests of the first 3 steps' gradients and theta';
+  H-mala-mp  H-mala's first 3 steps on H's parameters split over H-mp's 2 x 2 mesh
+     (``--model-parallel 2`` on four slots of cuda:0): autograd through the
+     gathered layers, the gradient written into the leaves' pieces; every
+     info, gradient and theta' bit for bit H-mala's, the gradient pass's ms,
+     steps/s, the gathered and scattered GB a step, the peak;
   I  the ``ce`` family on one chain: the fp32 unembedding table of H's model
      under subsampled MH over N = 64 x 127 next-token sections (final hidden
      states of MarkovStream sequences), 50 transitions, then the fused route
@@ -136,7 +146,7 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      which equals ``combine_snapshots`` of the writers' snapshots, and a
      combined batch is held to float64 numpy), the conjugate harness of
      the reference's tests on the card at P = 1, 2, 4 (R-truth), then the
-     fleet's background refresh beside 8 requests every 5 ms for 10 of its
+     fleet's background refresh beside 8 requests every 5 ms for 3 of its
      commits, with replicas in this process (R-bg) and each in a spawned
      process (R-proc), against its rate alone with the replicas up and
      after they closed; R's and R-sub's kernel calls are held against
@@ -148,7 +158,7 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      sections over N, the run rendered by ``repro_torch.obs.dash``), beside
      the same serve with no obs flag (plain, obs, obs, plain), and the
      refresh with no stats server, with one idle and with one polled;
-     ``--fleet --soak --autoscale --alerts`` for 30 s (O-soak: a replica
+     ``--fleet --soak --autoscale --alerts`` for 15 s (O-soak: a replica
      killed and restarted mid-load, an overload burst scaled up, a quiesce
      scaled down, every replica bit for bit its writer; each join timed);
      ``--fleet --soak --replica-transport proc --soak-seconds 8`` (O-kill-proc:
@@ -167,9 +177,16 @@ into ``build/repro_torch_kernels/`` at first use. Phases:
      ``--fleet --mesh 2d --devices 4 --replicas 2`` against ``--mesh off``
      (X-fleet: replicas bit for bit their writer, the two writers bit for
      bit, ``parity=ok(bitexact)``).
+  H-adam  ``examples/lm_train_torch.run`` at its ``100m`` preset, and one Adam
+     step on chatglm3-6b cut to 2 layers; H-adam-mp that step on the 2 x 2
+     mesh, its parameters and moments bit for bit;
+  EX the five examples (``examples/*_torch.py``) through their ``run`` at
+     the reference examples' full sizes (serve_lm at its defaults), every
+     printed number finite, the mixture's accuracy criterion met.
 
 Phase A also holds the bounded Fisher–Yates draw (ragged per-chain m_eff,
-m_max = 100 and 400) against its plain version. Launch counts are set to 0
+m_max = 100 and 400) against its plain version, and the pair delta on
+per-chain (32, 1 000, 50) pools through the ``logit`` family's route. Launch counts are set to 0
 before each of B-X and read after it; every
 kernel must have launched on the path that runs it. Any failed check exits
 nonzero. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -405,6 +422,28 @@ def phase_a_logit(report):
                           lambda xp=xp, y=y, idx=idx, w=w, wp=wp: logit_library(xp, y, w, wp, idx=idx),
                           k * m * (d * bx + 4 + 4 + 4) + 2 * k * d * 4, k * m * (4 * d + 30),
                           (k, m, prec) == (32, 100, "fp32"), None))
+    # per-chain (K, N, D) pools: the logit family's route, each chain's rows
+    # gathered on the card, then the gathered form; held against the plain
+    # version on the same gathered rows
+    from repro_torch.core.target_builder import get_family
+    from repro_torch.kernels import ref
+
+    kpc, npc, mpc, dpc = 32, 1000, 100, 50
+    xpc = torch.randn(kpc, npc, dpc, generator=gen, device=dev) / np.sqrt(dpc)
+    ypc = torch.where(torch.rand(kpc, npc, generator=gen, device=dev) < 0.5, 1.0, -1.0)
+    w, wp = weights(kpc, dpc)
+    idx = torch.randint(0, npc, (kpc, mpc), generator=gen, device=dev, dtype=torch.int32)
+    kk = torch.arange(kpc, device=dev)[:, None]
+    fam = get_family("logit")
+    cases.append(("batched_logit_delta",
+                  f"per-chain pools K={kpc} m={mpc} of N={npc} D={dpc} fp32 "
+                  f"({xpc.nbytes / 1e6:.1f} MB)", "fp32",
+                  lambda: fam.ensemble_delta((xpc, ypc), w, wp, idx),
+                  lambda: ref.batched_logit_delta_ref(xpc[kk, idx.long()], ypc[kk, idx.long()],
+                                                      w, wp),
+                  lambda: logit_library(xpc[kk, idx.long()], ypc[kk, idx.long()], w, wp),
+                  kpc * mpc * (dpc * 4 + 4 + 4 + 4) + 2 * kpc * dpc * 4, kpc * mpc * (4 * dpc + 30),
+                  False, None))
     for name, label, prec, run, plain, lib, byts, flops, main_shape, cold in cases:
         got, want = run(), plain()
         torch.cuda.synchronize()
@@ -1651,16 +1690,44 @@ def _ms(events) -> float:
     return sum(s.elapsed_time(e) for s, e in events)
 
 
+def same_checkpoint_files(a: str, b: str) -> tuple[bool, int]:
+    """Whether checkpoint directories ``a`` and ``b`` hold the same files
+    byte for byte (read through memory maps, 256 MiB at a time); and the
+    bytes compared."""
+    import numpy as np
+
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return False, 0
+    total = 0
+    for name in names:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        size = os.path.getsize(pa)
+        if size != os.path.getsize(pb):
+            return False, total
+        if size:
+            ma, mb = np.memmap(pa, np.uint8, "r"), np.memmap(pb, np.uint8, "r")
+            for i in range(0, size, 1 << 28):
+                if not np.array_equal(ma[i:i + (1 << 28)], mb[i:i + (1 << 28)]):
+                    return False, total
+            del ma, mb
+        total += size
+    return True, total
+
+
 def phase_h_mp(report, root, h_params, h_infos):
     """H's subsampled run again through ``launch.train`` with
     ``--model-parallel 2`` on four slots of cuda:0 (``force_devices(4,
     physical=1)``): a 2 x 2 ("data", "model") mesh, so the "embed" rule (data
     axis) and the model-axis rules both split leaves. Pieces live on the
     slots, compute on the card: every step's info and every final parameter
-    must equal H's bit for bit; then H's step-20 checkpoint is restored
-    onto the mesh's shardings and held to H's parameters. H's parameters
-    stay live (the comparison), so the peak is taken above what was
-    resident at the start. One card: copies between cards are bypassed."""
+    must equal H's bit for bit, and the launcher's step-20 checkpoint,
+    written piece by piece from the slots, must hold H's files byte for
+    byte; then H's step-20 checkpoint is restored onto the mesh's shardings
+    and held to H's parameters. H's parameters stay live (the comparison),
+    so the peak is taken above what was resident at the start. One card:
+    copies between cards are bypassed. Last, the dry run's temp bytes at
+    H's batch are written beside the card's peak."""
     import numpy as np
     import torch
 
@@ -1688,6 +1755,17 @@ def phase_h_mp(report, root, h_params, h_infos):
             "--ckpt-dir", f"{root}/mp", "--model-parallel", str(MP_MODEL)]))
         counts = transfer_counts()
         mesh = make_mesh_for_devices(model_parallel=MP_MODEL, device="cuda")
+    # the launcher's checkpoint, saved from the pieces, against H's files
+    t0 = time.perf_counter()
+    step_dir = lambda d: os.path.join(d, f"step_{ckpt.latest_step(d):010d}")  # noqa: E731
+    same_files, compared = same_checkpoint_files(step_dir(f"{root}/mp"), step_dir(f"{root}/sub"))
+    r.update(ckpt_files_bytewise=same_files, ckpt_bytes_compared=compared,
+             ckpt_compare_s=time.perf_counter() - t0)
+    print(f"  its step-{LM_STEPS - 1} checkpoint, written piece by piece, against H's: "
+          f"{compared / 1e9:.2f} GB byte for byte: {same_files} ({r['ckpt_compare_s']:.1f}s, "
+          "warm page cache)")
+    check(same_files, "phase H-mp: the launcher's checkpoint saved from the mesh's pieces holds "
+          "H's checkpoint files byte for byte")
     shutil.rmtree(f"{root}/mp", ignore_errors=True)
     leaves = _leaves(out["params"])
     n_leaves = len(leaves)
@@ -1877,6 +1955,7 @@ def phase_j(report, target, theta):
 
 HC_POOL, HC_SEQ, HC_STEPS = 64, 64, 20  # a resident pool of 64 sequences, steps of each run
 HM_STEPS, HM_STEP = 5, 1e-8  # H-mala: noise std sqrt(1e-8) = H's RW sigma 1e-4
+HM_MP_STEPS = 3  # H-mala-mp: H-mala's first 3 steps (the script's time limit)
 
 
 def lm_pool(cfg):
@@ -1984,13 +2063,123 @@ def phase_h_cache(report, params, cfg):
           "phase H-cache: the cache skips theta forwards (plain: one a round)")
 
 
-def phase_h_mala(report, params, cfg):
-    """``proposal="mala"`` at full size: the gradient of the estimated log
-    posterior through the whole model a step, 5 steps on H-cache's pool;
-    acceptance, the gradient pass's ms, steps/s, peak memory."""
+_INT_VIEW = {"torch.bfloat16": "int16", "torch.float16": "int16", "torch.float32": "int32"}
+
+
+def bits_digest(t) -> tuple[int, int]:
+    """Two sums mod 2^64 over a tensor's bits read as integers (int16 for
+    bf16, int32 for float32): the plain sum and one weighted by a function
+    of each element's flat position, on the card in chunks of rows; a
+    sharded leaf's chunks are gathered on its home device and not counted
+    as transfers. Equal bits give equal pairs, a zero's sign included; two
+    12 GB parameter trees are compared without holding both."""
+    import torch
+
+    from repro_torch._device import row_chunks
+    from repro_torch.distributed import ShardedTensor, uncounted_transfers
+
+    ints = getattr(torch, _INT_VIEW[str(t.dtype)])
+    if isinstance(t, ShardedTensor):
+        chunks = (t.rows(a, b) for a, b in t.row_bounds(1 << 26))
+    else:
+        chunks = iter(row_chunks(t, 1 << 26))
+    s1 = s2 = off = 0
+    with uncounted_transfers():
+        for c in chunks:
+            x = c.contiguous().view(ints).reshape(-1).to(torch.int64)
+            w = (torch.arange(off, off + x.numel(), device=x.device) * 40503 + 12345) % 2147483647
+            s1 = (s1 + int(x.sum())) % 2 ** 64
+            s2 = (s2 + int((x * (w + 1)).sum())) % 2 ** 64
+            off += x.numel()
+    return s1, s2
+
+
+def tree_digests(tree) -> dict:
+    """``{path: bits_digest(leaf)}`` over a dict of leaves or a parameter
+    tree (sorted paths, as ``bayes.train`` flattens it)."""
+    from repro_torch.bayes.train import _flat_paths
+
+    return {path: bits_digest(leaf) for path, leaf in _flat_paths(tree)}
+
+
+def same_info_bits(a, b) -> bool:
+    """Two train-step infos field by field, floats as their integer views
+    (H-mala's mu_hat is not finite, and NaN equals nothing)."""
+    import torch
+
+    for x, y in zip(a, b):
+        if x.dtype != y.dtype:
+            return False
+        if x.is_floating_point():
+            x, y = x.view(getattr(torch, _INT_VIEW[str(x.dtype)])), \
+                y.view(getattr(torch, _INT_VIEW[str(y.dtype)]))
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def mala_probes(digest_steps: int):
+    """Wrap ``bayes.train``'s ``mala_grads`` and ``mala_move`` for one chain:
+    each step's gradient pass timed (ms), the largest |component| of the
+    gradient, and for the first ``digest_steps`` steps the bit digests of
+    every gradient and theta' leaf, with the digests' own seconds apart
+    (``digest_s``), so a step's time can be read without them."""
     import torch
 
     import repro_torch.bayes.train as bt
+
+    rec = {"grad_ms": [], "grad_max": [], "grad_digests": [], "theta_p_digests": [],
+           "digest_s": []}
+    real_g, real_m = bt.mala_grads, bt.mala_move
+
+    def grads(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_g(*a, **k)
+        torch.cuda.synchronize()
+        rec["grad_ms"].append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        rec["grad_types"] = sorted({type(g).__name__ for g in out.values()})
+        if len(rec["grad_digests"]) < digest_steps:
+            rec["grad_digests"].append(tree_digests(out))
+        rec["grad_max"].append(max(float(abs_max(g)) for g in out.values()))
+        rec["digest_s"].append(time.perf_counter() - t0)
+        return out
+
+    def move(*a, **k):
+        out = real_m(*a, **k)
+        t0 = time.perf_counter()
+        if len(rec["theta_p_digests"]) < digest_steps:
+            rec["theta_p_digests"].append(tree_digests(out))
+        rec["digest_s"][-1] += time.perf_counter() - t0
+        return out
+
+    bt.mala_grads, bt.mala_move = grads, move
+    try:
+        yield rec
+    finally:
+        bt.mala_grads, bt.mala_move = real_g, real_m
+
+
+def abs_max(t) -> float:
+    """max |t| of a leaf, sharded or not (chunks gathered, not counted)."""
+    from repro_torch.distributed import ShardedTensor, uncounted_transfers
+
+    if not isinstance(t, ShardedTensor):
+        return float(t.float().abs().max())
+    with uncounted_transfers():
+        return max(float(t.rows(a, b).float().abs().max()) for a, b in t.row_bounds(1 << 26))
+
+
+def phase_h_mala(report, params, cfg):
+    """``proposal="mala"`` at full size: the gradient of the estimated log
+    posterior through the whole model a step, 5 steps on H-cache's pool;
+    acceptance, the gradient pass's ms, steps/s, peak memory. The first
+    ``HM_MP_STEPS`` steps' gradient and theta' leaves are digested
+    (:func:`bits_digest`, its time kept out of the step's) for H-mala-mp."""
+    import torch
+
     from repro_torch.bayes import TrainConfig, make_train_step
 
     batch = lm_pool(cfg)
@@ -1998,26 +2187,18 @@ def phase_h_mala(report, params, cfg):
     print(f"phase H-mala: {cfg.name} at full size, H-cache's pool, MALA step {HM_STEP:g} (noise "
           f"std {HM_STEP ** 0.5:g}, H's sigma), the gradient over the first 4 rows: "
           f"{HM_STEPS} steps")
-    grad_ms, grad_max, real = [], [], bt.mala_grads
 
-    def timed_grads(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(*a, **k)
-        torch.cuda.synchronize()
-        grad_ms.append(1e3 * (time.perf_counter() - t0))
-        grad_max.append(max(float(g.float().abs().max()) for g in out.values()))
-        return out
+    initial = tree_digests(params)
 
     def run():
         torch.cuda.reset_peak_memory_stats()
-        bt.mala_grads = timed_grads
-        try:
-            return lm_chain(make_train_step(cfg, tc), params, batch, HM_STEPS, 12)
-        finally:
-            bt.mala_grads = real
+        with mala_probes(HM_MP_STEPS) as rec:
+            out = lm_chain(make_train_step(cfg, tc), params, batch, HM_STEPS, 12)
+        return out + (rec,)
 
-    final, infos, secs, forwards = counted(report, "H-mala", run)
+    final, infos, secs, forwards, rec = counted(report, "H-mala", run)
+    secs = [s - d for s, d in zip(secs, rec["digest_s"])]
+    grad_ms, grad_max = rec["grad_ms"], rec["grad_max"]
     r = report["phases"]["H-mala"]
     finite_mu = [math.isfinite(float(i.mu_hat)) for i in infos]
     r.update(accept=sum(bool(i.accepted) for i in infos) / len(infos),
@@ -2031,9 +2212,89 @@ def phase_h_mala(report, params, cfg):
           f"of {grad_ms}), steps/s {r['steps_per_s']:.3f}, peak {r['peak_gib']:.2f} GiB "
           f"(parameters {r['params_gib']:.2f} GiB), rounds {r['rounds']}; the gradient's largest "
           f"|component| {grad_max} (drift step/2 |g| up to {max(r['drift_max']):.3g} against the "
-          f"noise std {HM_STEP ** 0.5:g}); mu_hat finite on {sum(finite_mu)} of {len(infos)} steps")
+          f"noise std {HM_STEP ** 0.5:g}); mu_hat finite on {sum(finite_mu)} of {len(infos)} steps"
+          f"; bit digests {sum(rec['digest_s']):.1f}s, apart from the steps")
     check(all(bool(torch.isfinite(l.float()).all()) for l in _leaves(final)),
           "phase H-mala: the parameters stay finite")
+    return {"infos": infos, "grad_digests": rec["grad_digests"],
+            "theta_p_digests": rec["theta_p_digests"], "initial_digests": initial,
+            "grad_ms": grad_ms, "steps_per_s": r["steps_per_s"]}
+
+
+def phase_h_mala_mp(report, params, cfg, mala):
+    """H-mala's chain again for its first ``HM_MP_STEPS`` steps on H's
+    parameters split over the 2 x 2 mesh of H-mp (``--model-parallel 2`` on
+    four slots of cuda:0), H-mala's pool split by rows (``shard_batch``):
+    autograd through the gathered layers writes each gradient into the
+    leaves' pieces, the prior's part and the Langevin move run over the
+    unsharded row chunks. Every step's info, every gradient and theta' leaf
+    (bit digests) and the parameters after the last step must be H-mala's
+    bit for bit. Recorded: the gradient pass's ms, steps/s, gathered and
+    scattered GB a step, the peak above what was resident."""
+    import torch
+
+    from repro_torch.bayes import TrainConfig, make_train_step
+    from repro_torch.data import shard_batch
+    from repro_torch.distributed import (force_devices, reset_transfers, shard_params,
+                                         timed_transfers, transfer_counts)
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models import param_specs
+
+    r = report["phases"]["H-mala-mp"]
+    tc = TrainConfig(round_batch=4, epsilon=0.05, proposal="mala", mala_step=HM_STEP)
+    print(f"phase H-mala-mp: H-mala's first {HM_MP_STEPS} steps with --model-parallel {MP_MODEL} on "
+          f"{MP_SLOTS} slots of cuda:0 ({MP_SLOTS // MP_MODEL} x {MP_MODEL} data x model; copies "
+          "between cards bypassed: one card)")
+    with force_devices(MP_SLOTS, physical=1):
+        mesh = make_mesh_for_devices(model_parallel=MP_MODEL, device="cuda")
+        sp = shard_params(params, mesh, specs=param_specs(cfg))
+        batch = shard_batch(lm_pool(cfg), mesh)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_transfers()
+
+        def run():
+            with timed_transfers() as events, mala_probes(HM_MP_STEPS) as rec:
+                out = lm_chain(make_train_step(cfg, tc), sp, batch, HM_MP_STEPS, 12)
+                counts = transfer_counts()
+            return out + (rec, counts, events)
+
+        final, infos, secs, _, rec, counts, events = counted(report, "H-mala-mp", run)
+    peak = torch.cuda.max_memory_allocated()
+    secs = [s - d for s, d in zip(secs, rec["digest_s"])]
+    n = len(infos)
+    r.update(steps=n, steps_per_s=(n - 1) / sum(secs[1:]), step_s=secs,
+             h_mala_steps_per_s=mala["steps_per_s"], grad_ms=rec["grad_ms"],
+             grad_ms_median=statistics.median(rec["grad_ms"]),
+             h_mala_grad_ms_median=statistics.median(mala["grad_ms"]),
+             gather_gb_a_step=counts["gather"]["bytes"] / n / 1e9,
+             scatter_gb_a_step=counts["scatter"]["bytes"] / n / 1e9,
+             gather_ms_a_step=_ms(events["gather"]) / n, scatter_ms_a_step=_ms(events["scatter"]) / n,
+             transfers=counts, resident_gib=resident / 2 ** 30,
+             peak_gib=(peak - resident) / 2 ** 30, digest_s=sum(rec["digest_s"]),
+             model_gib=sum(l.numel() * l.element_size() for l in _leaves(params)) / 2 ** 30)
+    print(f"  {card_line()}: {r['steps_per_s']:.3f} steps/s against H-mala's "
+          f"{r['h_mala_steps_per_s']:.3f}, gradient pass {r['grad_ms_median']:.1f} ms (H-mala "
+          f"{r['h_mala_grad_ms_median']:.1f}); a step gathers {r['gather_gb_a_step']:.2f} GB in "
+          f"{r['gather_ms_a_step']:.1f} ms and scatters {r['scatter_gb_a_step']:.2f} GB in "
+          f"{r['scatter_ms_a_step']:.1f} ms; peak {r['peak_gib']:.2f} GiB above the "
+          f"{r['resident_gib']:.2f} GiB resident (the sharded gradient's pieces among it), "
+          f"against the whole model's {r['model_gib']:.2f} GiB; bit digests "
+          f"{r['digest_s']:.1f}s apart")
+    accepted = [i for i in range(n) if bool(mala["infos"][i].accepted)]
+    want_final = mala["theta_p_digests"][accepted[-1]] if accepted else mala["initial_digests"]
+    same = {"infos": n == HM_MP_STEPS and all(
+                same_info_bits(a, b) for a, b in zip(infos, mala["infos"])),
+            "grads": rec["grad_digests"] == mala["grad_digests"][:n],
+            "theta_p": rec["theta_p_digests"] == mala["theta_p_digests"][:n],
+            "final": tree_digests(final) == want_final}
+    r.update(bitwise=same, grad_types=rec["grad_types"])
+    print(f"  bit for bit H-mala's: {same}; gradients returned as {r['grad_types']}")
+    check(all(same.values()), "phase H-mala-mp: every step's info, gradient and theta' and the "
+          f"final parameters equal H-mala's bit for bit ({same})")
+    check(r["grad_types"] == ["ShardedTensor"],
+          "phase H-mala-mp: the gradients come back sharded, in the leaves' layouts")
 
 
 # ---------------------------------------------------------------------------
@@ -2601,15 +2862,15 @@ def moe_shares(log, layers_a_forward):
     return sum(d) / max(sum(n), 1), max(per, default=0.0), len(per)
 
 
-def phase_h_moe(report, root):
+def phase_h_moe(report):
     """The LM launcher's step on phi3.5-moe-42b-a6.6b at full width, cut to
     ``HMOE_LAYERS`` layers (the launcher has no depth flag, so its steps run
-    through ``run_loop`` here, as phase H's resume check does): H's settings
-    (batch 16, seq 64, round batch 4, eps 0.05, sigma 1e-4), ``HMOE_EXACT``
-    exact steps, then ``HMOE_SUB`` subsampled steps twice from one seed,
-    whose infos and final parameters must be equal bit for bit (the MoE
-    combine adds in a fixed order). Each run ends with a checkpoint under
-    ``root``, removed at once."""
+    in the script's loop, as ``run_loop`` runs them, with ``step_generator``
+    and ``stream.batch``, but without its checkpoint: phase H writes and
+    restores the launcher's): H's settings (batch 16, seq 64, round batch 4,
+    eps 0.05, sigma 1e-4), ``HMOE_EXACT`` exact steps, then ``HMOE_SUB``
+    subsampled steps twice from one seed, whose infos and final parameters
+    must be equal bit for bit (the MoE combine adds in a fixed order)."""
     import dataclasses
 
     import numpy as np
@@ -2620,7 +2881,7 @@ def phase_h_moe(report, root):
     from repro_torch.data import DataConfig, MarkovStream
     from repro_torch.models import init_params
     from repro_torch.models.layers import record_moe_drops
-    from repro_torch.runtime import LoopConfig, run_loop
+    from repro_torch.runtime.train_loop import step_generator
 
     full = ARCHS[HMOE_ARCH]
     cfg = dataclasses.replace(full, n_layers=HMOE_LAYERS)
@@ -2645,15 +2906,15 @@ def phase_h_moe(report, root):
 
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        params, infos = init_params(0, cfg), []
         with record_moe_drops() as log:
-            out = run_loop(timed, init_params(0, cfg), stream.batch,
-                           LoopConfig(num_steps=steps, ckpt_dir=f"{root}/{name}",
-                                      ckpt_every=steps))
+            for i in range(steps):
+                params, info = timed(step_generator(0, i, params["embed"]["table"].device),
+                                     params, stream.batch(i))
+                infos.append({k: v.cpu().numpy() for k, v in info._asdict().items()})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        shutil.rmtree(f"{root}/{name}", ignore_errors=True)
         share, worst, forwards = moe_shares(log, HMOE_LAYERS)
-        infos = out["infos"]
         steady = step_s[1:] or step_s
         r[name] = {"steps": len(infos), "steps_per_s": len(steady) / sum(steady),
                    "step_ms_median": 1e3 * statistics.median(steady), "wall_s": wall,
@@ -2663,7 +2924,7 @@ def phase_h_moe(report, root):
                    "mean_sections": float(np.mean([i["n_evaluated"] for i in infos])),
                    "forwards": forwards, "drop_share": share, "drop_share_max": worst}
         print(f"  {name}: {r[name]}")
-        return out
+        return {"params": params, "infos": infos}
 
     def run():
         chain(make_exact_step, HMOE_EXACT, "exact").pop("params")
@@ -2691,29 +2952,23 @@ FAMILY_PHASES = ("T-whisper", "T-vlm", "T-moe", "T-hybrid", "H-moe")
 
 def family_phases(report, wanted=FAMILY_PHASES) -> dict:
     """The family phases named in ``wanted``, in ``FAMILY_PHASES``' order,
-    the card emptied after each; returns their seconds (and the total). H-moe
-    writes its checkpoints under a temporary root removed before it returns."""
+    the card emptied after each; returns their seconds (and the total)."""
     import torch
 
     hybrid_layers = FAMILY_CUTS["jamba-v0.1-52b"][0]
-    runs = {"T-whisper": lambda root: phase_t_whisper(report),
-            "T-vlm": lambda root: phase_t_vlm(report),
-            "T-moe": lambda root: phase_t_cut(report, "T-moe", "mixtral-8x22b", T_CHECK_LAYERS),
-            "T-hybrid": lambda root: phase_t_cut(report, "T-hybrid", "jamba-v0.1-52b",
-                                                 hybrid_layers),
-            "H-moe": lambda root: phase_h_moe(report, root)}
+    runs = {"T-whisper": lambda: phase_t_whisper(report),
+            "T-vlm": lambda: phase_t_vlm(report),
+            "T-moe": lambda: phase_t_cut(report, "T-moe", "mixtral-8x22b", T_CHECK_LAYERS),
+            "T-hybrid": lambda: phase_t_cut(report, "T-hybrid", "jamba-v0.1-52b", hybrid_layers),
+            "H-moe": lambda: phase_h_moe(report)}
     seconds = report.setdefault("family_seconds", {})
-    root = tempfile.mkdtemp(prefix="chip_smoke_families_")
-    try:
-        for phase in FAMILY_PHASES:
-            if phase in wanted:
-                t0 = time.perf_counter()
-                runs[phase](root)
-                torch.cuda.empty_cache()
-                seconds[phase] = time.perf_counter() - t0
-                print(f"  {phase}: {seconds[phase]:.1f} s")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    for phase in FAMILY_PHASES:
+        if phase in wanted:
+            t0 = time.perf_counter()
+            runs[phase]()
+            torch.cuda.empty_cache()
+            seconds[phase] = time.perf_counter() - t0
+            print(f"  {phase}: {seconds[phase]:.1f} s")
     seconds["total"] = sum(v for k, v in seconds.items() if k != "total")
     return seconds
 
@@ -3034,7 +3289,7 @@ def phase_s(report, data, theta_b, compiled):
 # ---------------------------------------------------------------------------
 
 Q_QUERIES = 400  # the front end's non-smoke default, for every workload
-Q_BG_COMMITS, Q_BG_MAX_S = 3, 15.0  # background commits timed beside queries, cap
+Q_BG_COMMITS, Q_BG_MAX_S = 1, 15.0  # background commits timed beside queries (cut from 3), cap
 Q_BG_TICK_S = 0.005  # beside them, 8 requests are submitted every tick (1 600/s offered)
 Q_SLOW_TICK_S = 0.02  # profile_q_bg's lighter load (400/s offered)
 Q_RESUME_STEPS = (64, 32, 16)  # refresh blocks held against one offline run of their sum
@@ -3431,10 +3686,11 @@ def phase_q(report):
 # ---------------------------------------------------------------------------
 
 R_QUERIES = 400  # as Q: the front end's non-smoke default
-# the paced window of R-bg and R-proc ends at 10 commits of the writer (9
-# refresh intervals), or at 20 s; the refresh alone is timed over 5
+# the paced window of R-bg and R-proc ends at 3 commits of the writer (2
+# refresh intervals), or at 20 s; the refresh alone is timed over 3
 # refreshes before the window, after it, and after the replicas closed
-R_BG_COMMITS, R_BG_MAX_S, R_ALONE_REFRESHES = 10, 20.0, 5
+# (cut from 10 commits and 5 refreshes to keep the script's time limit)
+R_BG_COMMITS, R_BG_MAX_S, R_ALONE_REFRESHES = 3, 20.0, 3
 # the conjugate harness of the reference's tests (tests/conftest.py:79):
 # n, D, K, burn, kept, and the partition counts
 R_TRUTH_N, R_TRUTH_D, R_TRUTH_K, R_TRUTH_BURN, R_TRUTH_KEEP = 768, 2, 4, 250, 350
@@ -3812,6 +4068,7 @@ def phase_r(report):
 
 O_QUERIES = 400  # as Q
 O_PROC_SOAK_S = 8.0  # O-kill-proc's soak, the reference's tests/test_chaos.py setting
+O_SOAK_S = 15.0  # O-soak's soak (the front end's default is 30 s; cut for the time limit)
 # the refresh alone with no stats server, with one up and idle, and with one
 # polled every O_POLL_S by a client thread: O_STATS_ROUNDS rounds of the three,
 # O_STATS_REFRESHES refreshes a block
@@ -4017,7 +4274,7 @@ def phase_o_obs(report):
 
 def phase_o_soak(report):
     """O-soak: ``--fleet --soak --autoscale --alerts --stats-addr --obs-dir
-    --replicas 2`` at Q's settings with the default 30 s soak, in-process
+    --replicas 2`` at Q's settings with an ``O_SOAK_S`` soak, in-process
     replicas: ``SOAK_OK`` with a kill, a recovery, a full resync, bit-exact
     parity, at least one scale-up, one scale-down and one alert fired. The
     seconds from each ``add_replica`` to the new lane's first answer are
@@ -4050,7 +4307,8 @@ def phase_o_soak(report):
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as tmp, \
                 tee_stdout() as tee, capture_served_calls() as calls:
-            args = serve_args("bayeslr", "--fleet", "--soak", "--autoscale", "--alerts",
+            args = serve_args("bayeslr", "--fleet", "--soak", "--soak-seconds", str(O_SOAK_S),
+                              "--autoscale", "--alerts",
                               "--stats-addr", "127.0.0.1:0", "--obs-dir", tmp,
                               "--replicas", "2")
             rc = counted(report, "O-soak", lambda: serve.serve_soak(args, out))
@@ -4454,12 +4712,12 @@ def phase_x_fleet(report):
 # families' grids are one: nothing to race.
 U_SHAPES = {
     "logit_delta": [(100, 50), (100, 2), (100, 3), (12214, 50), (10_000, 2), (100_000, 2),
-                    (1_000_000, 2)],
+                    (1_000_000, 2), (1000, 50), (50_000, 50)],
     "batched_loglik": [(32, 100, 50), (32, 400, 50), (8, 100, 3), (8, 100, 50), (16, 50, 50),
                        (32, 25, 50), (8, 512, 32), (8, 64, 4), (4, 256, 32), (256, 128, 64),
-                       (1, 128, 4)],
+                       (1, 128, 4), (16, 2000, 8), (4, 100, 3)],
     "gaussian_ar1": [(1, 100), (32, 100), (1, 1000), (1, 10_000), (1, 100_000), (8, 128),
-                     (1, 64), (256, 128)],
+                     (1, 64), (256, 128), (4, 100)],
 }
 U_KERNEL = {"logit_delta": "logit_delta", "batched_loglik": "batched_logit_delta",
             "gaussian_ar1": "gaussian_ar1_delta", "fused_ce": "fused_ce",
@@ -4527,7 +4785,8 @@ def phase_u(report):
 
 
 ADAM_PRESET = "100m"  # examples/lm_train_torch.py's largest preset
-ADAM_STEPS, ADAM_MH_STEPS, ADAM_BATCH, ADAM_SEQ = 300, 60, 16, 64
+# 20 MH steps a pass (cut from 60 for the script's time limit)
+ADAM_STEPS, ADAM_MH_STEPS, ADAM_BATCH, ADAM_SEQ = 300, 20, 16, 64
 ADAM_WIDE_LAYERS = 2  # chatglm3-6b at full width, depth cut for phase H-adam (b)
 
 
@@ -4586,7 +4845,7 @@ def phase_h_adam(report):
                 "tokens_per_s": tokens / stats["mean_s"],
                 "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                 "adam_state_gib": sum(t.numel() * 4 for t in _leaves(opt.mu)) * 2 / 2 ** 30,
-                "finite": finite}
+                "finite": finite}, out
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_adam_")
 
@@ -4595,7 +4854,7 @@ def phase_h_adam(report):
         out = ex.run(cfg, steps=ADAM_STEPS, mh_steps=ADAM_MH_STEPS, batch=ADAM_BATCH,
                      seq=ADAM_SEQ, ckpt_dir=ckpt_dir, log=print)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        out["adam"] = adam_stats(cfg, out["params"], out["stream"])
+        out["adam"] = adam_stats(cfg, out["params"], out["stream"])[0]
         return out
 
     try:
@@ -4635,13 +4894,14 @@ def phase_h_adam(report):
 
     params = init_params(0, wide)
     stream = MarkovStream(DataConfig(wide.vocab, ADAM_SEQ, ADAM_BATCH, seed=0))
-    b = adam_stats(wide, params, stream)
+    b, b_out = adam_stats(wide, params, stream)
     b.update(layers=ADAM_WIDE_LAYERS, params=wide.param_count())
     r["b"] = b
     print(f"  (b): {b['mean_ms']:.2f} ms mean, {b['min_ms']:.2f} min, "
           f"{b['tokens_per_s']:.0f} tokens/s, Adam state {b['adam_state_gib']:.2f} GiB, peak "
           f"{b['peak_gib']:.2f} GiB")
-    del params
+    phase_h_adam_mp(report, wide, params, stream.batch(0), b_out, ex.LR)
+    del params, b_out
     torch.cuda.empty_cache()
     check(a["last_loss"] <= a["first_loss"] - 0.1,
           f"phase H-adam (a): the loss falls by at least 0.1 ({a['first_loss']:.4f} -> "
@@ -4655,6 +4915,190 @@ def phase_h_adam(report):
           "phase H-adam (a): the round op launched in the subsampled passes")
     check(a["exact"]["sections_per_transition"] == ADAM_BATCH,
           "phase H-adam (a): exact MH evaluates the whole pool")
+
+
+ADAM_MP_STEPS = 3  # H-adam-mp: sharded Adam steps timed after the one held to H-adam (b)
+
+
+def phase_h_adam_mp(report, cfg, params, batch, want, lr):
+    """H-adam (b)'s one Adam step (the loss's gradient by autograd, then the
+    update, from fresh moments) on its parameters split over H-mp's 2 x 2
+    mesh: autograd through the gathered layers writes the gradient into
+    the leaves' pieces, Adam updates each leaf over the unsharded row
+    chunks. The new parameters and both moments (sharded) must equal (b)'s
+    bit for bit, leaf by leaf as integer views; then ``ADAM_MP_STEPS`` such
+    steps are timed, with the gathered and scattered bytes of one."""
+    import torch
+
+    from repro_torch.bayes.train import _flat_paths
+    from repro_torch.distributed import (force_devices, reset_transfers, shard_params,
+                                         timed_transfers, transfer_counts)
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models import param_specs
+    from repro_torch.optim import adam_init, adam_step, lm_loss_fn
+    from repro_torch.optim.optimizers import value_and_grad
+
+    r = report["phases"]["H-adam-mp"]
+    print(f"phase H-adam-mp: H-adam (b)'s Adam step with --model-parallel {MP_MODEL} on "
+          f"{MP_SLOTS} slots of cuda:0 ({MP_SLOTS // MP_MODEL} x {MP_MODEL} data x model)")
+    vg = value_and_grad(lm_loss_fn(cfg))
+
+    def step(p, o):
+        _, grads = vg(p, batch)
+        return adam_step(grads, o, p, lr=lr)
+
+    with force_devices(MP_SLOTS, physical=1):
+        mesh = make_mesh_for_devices(model_parallel=MP_MODEL, device="cuda")
+        sp = shard_params(params, mesh, specs=param_specs(cfg))
+        opt = adam_init(sp)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_transfers()
+
+        def run():
+            with timed_transfers() as events:
+                t0 = time.perf_counter()
+                out = step(sp, opt)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                counts = transfer_counts()
+                gms, sms = _ms(events["gather"]), _ms(events["scatter"])
+            secs = []
+            for _ in range(ADAM_MP_STEPS):
+                t0 = time.perf_counter()
+                step(sp, opt)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            return out, first, counts, gms, sms, secs
+
+        out, first, counts, gms, sms, secs = counted(report, "H-adam-mp", run)
+    peak = torch.cuda.max_memory_allocated()
+    differ = []
+    for part, got_t, want_t in (("params", out[0], want[0]), ("mu", out[1].mu, want[1].mu),
+                                ("nu", out[1].nu, want[1].nu)):
+        for (path, g), (_, w) in zip(_flat_paths(got_t), _flat_paths(want_t)):
+            ints = getattr(torch, _INT_VIEW[str(w.dtype)])
+            if not torch.equal(g.gather().view(ints), w.view(ints)):
+                differ.append(f"{part}/{path}")
+    sharded = all(type(t).__name__ == "ShardedTensor" for t in _leaves((out[0], out[1].mu)))
+    b = report["phases"]["H-adam"].get("b", {})
+    r.update(first_step_ms=1e3 * first, step_ms_mean=1e3 * statistics.mean(secs),
+             step_ms=[1e3 * x for x in secs], h_adam_b_mean_ms=b.get("mean_ms"),
+             gather_gb_a_step=counts["gather"]["bytes"] / 1e9,
+             scatter_gb_a_step=counts["scatter"]["bytes"] / 1e9, gather_ms_a_step=gms,
+             scatter_ms_a_step=sms, resident_gib=resident / 2 ** 30,
+             peak_gib=(peak - resident) / 2 ** 30, differ=differ, sharded=sharded,
+             count_equal=bool(torch.equal(out[1].count, want[1].count)))
+    print(f"  {card_line()}: an Adam step {r['step_ms_mean']:.1f} ms mean over {ADAM_MP_STEPS} "
+          f"(H-adam (b): {r['h_adam_b_mean_ms']:.2f}); a step gathers {r['gather_gb_a_step']:.2f} "
+          f"GB in {gms:.1f} ms and scatters {r['scatter_gb_a_step']:.2f} GB in {sms:.1f} ms; peak "
+          f"{r['peak_gib']:.2f} GiB above the {r['resident_gib']:.2f} GiB resident; differing "
+          f"leaves {differ}")
+    check(sharded and not differ and r["count_equal"],
+          "phase H-adam-mp: the sharded step's parameters and both moments (sharded) equal "
+          "H-adam (b)'s bit for bit")
+    del out, sp, opt
+    torch.cuda.empty_cache()
+
+
+# The five examples as entry points (phase EX): each example's ``run`` at the
+# reference example's full size (serve_lm at its defaults), and the kernels
+# its path must launch. The multichain example keeps the reference's
+# default ``stream`` sampler, which draws no Fisher-Yates rounds.
+EX_NEEDS = {"EX-quickstart": ("logit_delta", "t_test_round", "fy_draw"),
+            "EX-multichain": ("batched_logit_delta", "t_test_round"),
+            "EX-dpmixture": ("gibbs_z_sweep", "fy_draw", "t_test_round", "batched_logit_delta"),
+            "EX-sv": ("pgibbs_sweep", "gaussian_ar1_delta", "fy_draw", "t_test_round"),
+            "EX-serve_lm": ()}
+
+
+def _numbers(tree):
+    """Every number in a nested dict / list / array of an example's output."""
+    import numpy as np
+    import torch
+
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _numbers(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _numbers(v)]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().double().cpu().reshape(-1).tolist()
+    if isinstance(tree, np.ndarray):
+        return tree.astype(np.float64).reshape(-1).tolist()
+    if isinstance(tree, (bool, str)) or tree is None:
+        return []
+    return [float(tree)]
+
+
+def _plain(tree):
+    """An example's output with arrays and tensors as lists, for the JSON
+    report."""
+    import numpy as np
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().tolist()
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return tree.tolist()
+    return tree
+
+
+def phase_ex(report):
+    """The five examples (``examples/*_torch.py``) through their ``run`` on
+    the card: quickstart (N = 50 000, D = 50, 400 exact and 400 subsampled
+    transitions at m = 1 000, the safeguard report), multichain (N = 20 000,
+    D = 8, K = 16, 1 200 masked adaptive steps), dpmixture (N = 4 000, 4
+    replicas, 30 cycles), stochastic volatility (S = 200, T = 5, 4 chains,
+    400 cycles, P = 25) and serve_lm at its defaults. Every number they
+    print must be finite; dpmixture meets the reference's accuracy
+    criterion (``tests/test_experiments.py:147-167``) on every replica, as
+    the reference's own example does at this size on the CPU."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_torch", os.path.join(HERE, "examples", f"{name}_torch.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    seconds = {}
+    for phase, name in (("EX-quickstart", "quickstart"), ("EX-multichain", "multichain"),
+                        ("EX-dpmixture", "dpmixture"), ("EX-sv", "stochastic_volatility"),
+                        ("EX-serve_lm", "serve_lm")):
+        mod = load(name)
+        print(f"phase {phase}: examples/{name}_torch.py"
+              + (" at its defaults" if name == "serve_lm" else " at the reference's full size"))
+        t0 = time.perf_counter()
+        if name == "serve_lm":
+            out = counted(report, phase, lambda: mod.run(mod.parser().parse_args([])))
+        else:
+            out = counted(report, phase, lambda: mod.run(smoke=False))
+        torch.cuda.synchronize()
+        seconds[phase] = time.perf_counter() - t0
+        nums = _numbers({k: v for k, v in out.items() if k != "tokens"})
+        r = report["phases"][phase]
+        r.update(_plain({k: v for k, v in out.items() if k != "tokens"}))
+        r["seconds"] = seconds[phase]
+        check(all(math.isfinite(x) for x in nums),
+              f"phase {phase}: every number the example prints is finite ({len(nums)} numbers)")
+        if name == "dpmixture":
+            acc, acc0 = np.asarray(out["accuracy"]), out["accuracy_before"]
+            r["accuracy_criterion"] = bool(np.all(acc > max(acc0 + 0.05, 0.58)))
+            check(r["accuracy_criterion"],
+                  f"phase {phase}: every replica's test accuracy rises by 0.05 and ends above "
+                  f"0.58 ({acc0:.3f} -> {np.round(acc, 3)}), as the reference's example does")
+    report["ex_seconds"] = seconds
+    print("  seconds taken by phase EX: "
+          + "; ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
 
 def hold_to_proof(report):
@@ -5028,8 +5472,10 @@ def counted(report, phase, fn):
 
     ops.reset_launches()
     raced = len(autotune.race_stats["keys"])
+    t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
+    report["phases"][phase]["wall_s"] = time.perf_counter() - t0
     counts = dict(ops.launches)
     report["phases"][phase]["launches"] = counts
     for name, n in counts.items():
@@ -5138,13 +5584,14 @@ def phase_c(report, data):
 
 
 def bayeslr_ensemble(seed, data, num_chains, num_steps, *, sigma=0.05, overdisperse=0.5,
-                     batch_size=100, epsilon=0.05, sampler="stream", **ens_kw):
+                     batch_size=100, epsilon=0.05, sampler="stream", target=None, **ens_kw):
     """What ``bayeslr.run_posterior_ensemble`` does, step for step (the same
     draws from the same generator, so the same samples), through the
     entry points it calls, returning also the final state and the infos it
     only summarises: (samples (K, T, D) numpy, diagnostics, state, infos).
     ``ens_kw`` goes to ``ChainEnsemble`` (stepping, schedule,
-    fused_kernels)."""
+    fused_kernels); ``target`` replaces ``bayeslr.make_target`` of the
+    data's training rows."""
     import torch
 
     from repro_torch._device import make_generator
@@ -5154,7 +5601,8 @@ def bayeslr_ensemble(seed, data, num_chains, num_steps, *, sigma=0.05, overdispe
 
     dev = torch.device("cuda")
     gen = make_generator(seed, dev)
-    target = bayeslr.make_target(data.x_train.to(dev), data.y_train.to(dev))
+    if target is None:
+        target = bayeslr.make_target(data.x_train.to(dev), data.y_train.to(dev))
     cfg = SubsampledMHConfig(batch_size=batch_size, epsilon=epsilon, sampler=sampler)
     ens = ChainEnsemble(target, RandomWalk(sigma), num_chains, config=cfg, device=dev, **ens_kw)
     theta0 = overdisperse * torch.randn(num_chains, data.x_train.shape[1], generator=gen,
@@ -5183,6 +5631,80 @@ def chain_summary(samples, diag, infos, n, wall, k, steps):
 
 
 K_STEPS = 250  # phase K's depth: C's first 250 steps
+CPC_STEPS = 50  # phase C-pc's depth: C's first 50 steps
+
+
+def phase_c_pc(report, data, c_out):
+    """Phase C's first ``CPC_STEPS`` steps with B's pool copied once per chain
+    into a contiguous (32, N, D) tensor: the ``logit`` family's per-chain
+    route (each chain's rows gathered on the card, then the pair-delta
+    kernel's gathered form) where C takes the shared pool's in-kernel
+    gather. First 200 fixed proposals from C's samples score one round each
+    through both targets; if every delta is the same bits, every sample
+    and info field must equal C's first steps bit for bit; if not, the
+    difference is recorded and the deltas are held within 2e-6 of the two
+    log-sigmoid terms they subtract."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import SubsampledMHInfo, build_target
+    from repro_torch.experiments import bayeslr
+
+    k, steps = 32, CPC_STEPS
+    n, d = data.x_train.shape
+    c_samples, c_infos = c_out[0][:, :steps], SubsampledMHInfo(*(f[:, :steps] for f in c_out[1]))
+    x = data.x_train.expand(k, n, d).contiguous()
+    y = data.y_train.expand(k, n).contiguous()
+    print(f"phase C-pc: phase C's first {steps} steps on per-chain pools, B's pool copied once per "
+          f"chain: x {tuple(x.shape)} ({x.nbytes / 1e6:.1f} MB)")
+    prior = lambda w: (-0.5 / bayeslr.PRIOR_VAR) * (w ** 2).sum(-1)
+    shared = bayeslr.make_target(data.x_train, data.y_train)
+    per_chain = build_target("logit", (x, y), n, prior_logpdf=prior)
+
+    rng = np.random.default_rng(11)
+    flat = c_out[0].reshape(-1, d)
+    theta = torch.tensor(flat[rng.integers(0, len(flat), (200 // k + 1) * k)], device="cuda")
+    theta_p = theta + 0.05 * torch.tensor(rng.standard_normal(theta.shape), dtype=torch.float32,
+                                          device="cuda")
+    worst, same = 0.0, True
+    for b in range(0, len(theta), k):
+        a, ap = theta[b:b + k], theta_p[b:b + k]
+        idx = torch.tensor(rng.integers(0, n, (k, 100)), dtype=torch.int32, device="cuda")
+        got = per_chain.log_local_ensemble(a, ap, idx)
+        want = shared.log_local_ensemble(a, ap, idx)
+        same = same and torch.equal(got.view(torch.int32), want.view(torch.int32))
+        xg, yg = data.x_train[idx.long()], data.y_train[idx.long()]
+        terms = sum(F.softplus(-yg * (xg * v[:, None, :]).sum(-1)).abs() for v in (a, ap))
+        worst = max(worst, float(((got - want).abs() / terms).max()))
+    r = report["phases"]["C-pc"]
+    r.update(deltas_bitwise=same, delta_rel_to_terms_max=worst, pool_mb=x.nbytes / 1e6)
+    print(f"  {len(theta)} fixed proposals, a round each: per-chain route bit for bit the shared "
+          f"pool's: {same}; largest difference {worst:.3e} of the two terms")
+    check(worst <= 2e-6, "phase C-pc: the per-chain route's deltas within 2e-6 of the terms of "
+          "the shared pool's")
+
+    def run():
+        t0 = time.perf_counter()
+        samples, diag, _, infos = bayeslr_ensemble(3, data, k, steps, target=per_chain)
+        torch.cuda.synchronize()
+        return samples, diag, time.perf_counter() - t0, infos
+
+    samples, diag, wall, infos = counted(report, "C-pc", run)
+    r.update(chain_summary(samples, diag, infos, n, wall, k, steps))
+    r["samples_bitwise"] = bool(np.array_equal(samples, c_samples))
+    r["infos_bitwise"] = all(a.dtype == b.dtype and torch.equal(a, b)
+                             for a, b in zip(infos, c_infos))
+    print(f"  transitions/s={r['transitions_per_s']:.1f} (C: "
+          f"{report['phases']['C']['transitions_per_s']:.1f}); samples bit for bit C's first "
+          f"{steps}: {r['samples_bitwise']}, infos: {r['infos_bitwise']}")
+    if same:
+        check(r["samples_bitwise"] and r["infos_bitwise"],
+              f"phase C-pc: samples and every info field equal phase C's first {steps} bit for bit")
+    else:
+        print("  finding: the gathered and in-kernel-gather forms give other bits on the card; "
+              "the samples are compared, not held")
+    del x, y, per_chain
 
 
 def phase_k(report, data, c_out):
@@ -5526,7 +6048,8 @@ def main() -> int:
                                                        "Q-sv", "Q-jdpm", "Q-ppl", "Q-resume", "R", "R-sub",
                                                        "R-truth", "R-bg", "R-proc", "O-plain",
                                                        "O", "O-soak", "O-kill-proc", *X_RUNS,
-                                                       "X-fleet", "U", "H-adam"]},
+                                                       "X-fleet", "U", "H-adam", "C-pc",
+                                                       "H-mala-mp", "H-adam-mp", *EX_NEEDS]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -5540,9 +6063,11 @@ def main() -> int:
 
     from repro_torch.experiments import bayeslr, jointdpm
 
+    t_a = time.perf_counter()
     phase_a_logit(report)
     phase_a(report)
     phase_a_sv(report)
+    report["a_seconds"] = {"logit, round op, draw, AR(1), sweep": time.perf_counter() - t_a}
     jdpm_data = jointdpm.synth(60, JDPM_N, JDPM_N_TEST)
     t_jdpm = time.perf_counter()
     phase_a_jdpm(report, jdpm_data)
@@ -5553,6 +6078,7 @@ def main() -> int:
     phase_b_mala(report, data, theta_b)
     c_out = phase_c(report, data)
     k_out = phase_k(report, data, c_out)  # phase X holds its masked mesh run to K's
+    phase_c_pc(report, data, c_out)
     c_samples, c_infos = c_out[0], c_out[1]  # phases P and X start as C does
     del c_out
     phase_l(report, data)
@@ -5568,7 +6094,9 @@ def main() -> int:
     print(f"  seconds taken by the joint DP mixture's phases: {report['jdpm_seconds']}")
     del jdpm_data, jdpm_state0
     os.environ[autotune.ENV_VAR] = "0"  # phase A times the defaults, as before phase U
+    t_a = time.perf_counter()
     phase_a_ce(report)
+    report["a_seconds"]["CE"] = time.perf_counter() - t_a
     os.environ[autotune.ENV_VAR] = "auto"
     ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -5580,7 +6108,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_h_cache(report, params, cfg)
         torch.cuda.empty_cache()
-        phase_h_mala(report, params, cfg)
+        mala = phase_h_mala(report, params, cfg)
+        torch.cuda.empty_cache()
+        t_mp = time.perf_counter()
+        phase_h_mala_mp(report, params, cfg, mala)
+        report["mp_seconds"]["H-mala-mp"] = time.perf_counter() - t_mp
+        del mala
         torch.cuda.empty_cache()
         target, theta = phase_i(report, params, cfg)
         del params  # phase H's model: J needs the room
@@ -5627,10 +6160,17 @@ def main() -> int:
     t_adam = time.perf_counter()
     phase_h_adam(report)
     report["h_adam_seconds"] = time.perf_counter() - t_adam
-    print(f"  seconds taken by phase H-adam: {report['h_adam_seconds']:.1f}")
+    print(f"  seconds taken by phases H-adam and H-adam-mp: {report['h_adam_seconds']:.1f}")
+    torch.cuda.empty_cache()
+    phase_ex(report)
     report["raced_after_u"] = autotune.race_stats["keys"][report["phases"]["U"]["raced_keys"]:]
     print(f"buckets raced after phase U, inside later phases' windows: "
           f"{len(report['raced_after_u'])} {report['raced_after_u']}")
+    walls = sorted(((p, r["wall_s"]) for p, r in report["phases"].items() if "wall_s" in r),
+                   key=lambda pw: -pw[1])
+    print("  seconds of each phase's counted window, longest first: "
+          + "; ".join(f"{p} {w:.1f}" for p, w in walls) + "; phase A "
+          + "; ".join(f"{k} {v:.1f}" for k, v in report["a_seconds"].items()))
     hold_to_proof(report)
     for name, e in report["kernels"].items():
         check(e["launches"] > 0, f"{name} launched on the main path ({e['launches']} times)")
@@ -5647,8 +6187,9 @@ def main() -> int:
                                "t_test_round")),
                         ("H", ("t_test_round",)), ("H-cache", ("t_test_round",)),
                         ("H-mala", ("t_test_round",)), ("H-moe", ("t_test_round",)),
-                        ("H-mp", ("t_test_round",)),
+                        ("H-mp", ("t_test_round",)), ("H-mala-mp", ("t_test_round",)),
                         ("H-adam", ("t_test_round",)),
+                        ("C-pc", ("batched_logit_delta", "t_test_round")),
                         ("I", ("fused_ce", "fy_draw", "t_test_round")),
                         ("J", ("batched_fused_ce", "fy_draw", "t_test_round")),
                         ("P", ("batched_logit_delta", "t_test_round")),
@@ -5657,7 +6198,7 @@ def main() -> int:
                         ("S", ("logit_delta", "fy_draw", "t_test_round")),
                         ("S-compiled", ("fy_draw", "t_test_round")),
                         *Q_NEEDS.items(), *R_NEEDS.items(), *O_NEEDS.items(),
-                        *X_NEEDS.items()):
+                        *X_NEEDS.items(), *EX_NEEDS.items()):
         got = report["phases"][phase]["launches"]
         check(all(got.get(n, 0) > 0 for n in need), f"phase {phase} went through {need}")
     for phase in ("P1", "S-compiled"):  # one chain of a compiled program: the graph route

@@ -32,7 +32,9 @@ The parameters may be sharded leaves on a mesh of slots
 (``data.shard_batch``). The proposal and the prior then read and write the
 leaves chunk by chunk on their home device, in the unsharded chunks, and
 the forwards gather one layer at a time, so every step is the unsharded
-step bit for bit. MALA over sharded leaves raises (ROADMAP.md §1).
+step bit for bit. MALA's gradient over sharded leaves comes back sharded:
+autograd sees each gather (:class:`repro_torch.distributed.GradTape`), and
+each read's row gradient is written into its owners' pieces.
 """
 from __future__ import annotations
 
@@ -42,8 +44,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from .._device import resolve_device, row_chunks, tree_leaves
-from ..distributed.sharding import ShardedTensor
+from .._device import resolve_device, tree_leaves
+from ..distributed.sharding import GradTape, ShardedTensor, iter_rows, map_rows
 from ..core.samplers import StreamSliceState, stream_draw, stream_reset
 from ..core.sequential_test import sequential_test
 from ..core.subsampled_mh import draw_log_u
@@ -85,33 +87,18 @@ def _check(tc: TrainConfig) -> None:
         raise ValueError(f"unknown proposal {tc.proposal!r}")
 
 
-# Leaves above this many elements get their noise, their prior terms and
-# their Langevin moves in chunks of leading-axis rows of at most this size
-# (one 56 M-element layer of chatglm3-6b's stacked MLP leaf, 16384 rows of
-# its embedding table): a float32 temporary of the whole MLP leaf would be
-# 6.3 GB, while every chunk costs a few launches of host time (~107 chunks
-# for the whole model here; 4 M-element chunks left the card idle two
-# thirds of a step).
-_CHUNK = 1 << 26
-
-
 def _perturb_leaf(gen: torch.Generator, leaf: torch.Tensor, sigma: float) -> torch.Tensor:
-    """leaf + sigma * N(0, I), in float32, cast back to the leaf's dtype. A
-    sharded leaf's noise is drawn on its home device in the unsharded chunks'
-    order and shapes, each chunk of rows gathered there, perturbed as the
-    unsharded chunk is and scattered into theta''s pieces: the same bits."""
-    if isinstance(leaf, ShardedTensor):
-        out = leaf.empty_like()
-        for a, b in leaf.row_bounds(_CHUNK):
-            row = leaf.rows(a, b)
-            n = torch.randn(row.shape, generator=gen, dtype=F32, device=row.device)
-            out.write_rows(a, b, torch.add(row, n, alpha=sigma).to(leaf.dtype))
-        return out
-    out = torch.empty_like(leaf)
-    for row, dst in zip(row_chunks(leaf, _CHUNK), row_chunks(out, _CHUNK)):
+    """leaf + sigma * N(0, I), in float32, cast back to the leaf's dtype,
+    chunk by chunk of rows (:func:`~repro_torch.distributed.sharding.map_rows`).
+    A sharded leaf's noise is drawn on its home device in the unsharded
+    chunks' order and shapes, each chunk of rows gathered there, perturbed
+    as the unsharded chunk is and scattered into theta''s pieces: the same
+    bits."""
+    def perturb(row):
         n = torch.randn(row.shape, generator=gen, dtype=F32, device=row.device)
-        dst.copy_(torch.add(row, n, alpha=sigma))
-    return out
+        return torch.add(row, n, alpha=sigma)
+
+    return map_rows(perturb, [leaf], dtypes=leaf.dtype)
 
 
 def _flat_paths(tree: Params, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -149,14 +136,6 @@ def _rebuild(tree: Params, flat: dict, prefix: str = "") -> Params:
     return flat[prefix]
 
 
-def _chunks(leaf):
-    """``row_chunks(leaf, _CHUNK)``; of a sharded leaf, the same chunks, each
-    gathered on its home device as it is reached."""
-    if isinstance(leaf, ShardedTensor):
-        return (leaf.rows(a, b) for a, b in leaf.row_bounds(_CHUNK))
-    return row_chunks(leaf, _CHUNK)
-
-
 def _sq_total(tree: Params) -> torch.Tensor:
     """The reference's float32 total of squares: over every leaf in its
     flattening order (sorted paths), each leaf's float32 sum of squares
@@ -166,7 +145,7 @@ def _sq_total(tree: Params) -> torch.Tensor:
     total = None
     for _, leaf in _flat_paths(tree):
         s = torch.zeros((), dtype=F32, device=leaf.device)
-        for row in _chunks(leaf):
+        for row in iter_rows(leaf):
             r = row.to(F32).reshape(-1)
             s = s + torch.dot(r, r)
         total = s if total is None else total + s
@@ -182,20 +161,6 @@ def _prior_delta(theta: Params, theta_p: Params, prior_var: float) -> torch.Tens
     return (-0.5 / prior_var) * (_sq_total(theta_p) - _sq_total(theta))
 
 
-def _noise_chunks(gen: torch.Generator, leaf: torch.Tensor):
-    """N(0, I) in float32, chunk by chunk of ``leaf``'s rows, in the order
-    and shapes :func:`_perturb_leaf` draws them."""
-    for row in row_chunks(leaf, _CHUNK):
-        yield torch.randn(row.shape, generator=gen, dtype=F32, device=row.device)
-
-
-def _refuse_sharded(params: Params, what: str) -> None:
-    if any(isinstance(l, ShardedTensor) for l in tree_leaves(params)):
-        raise NotImplementedError(
-            f"{what} over sharded parameters: the gradient through gathered layers under a "
-            "mesh is not ported yet (ROADMAP.md §1)")
-
-
 def mala_grads(cfg: ModelConfig, tc: TrainConfig, params: Params, batch: dict) -> dict:
     """The gradient of the reference's estimated log posterior,
     ``sum(l(first round_batch rows)) * N / rb - 0.5 sum(theta^2) / prior_var``,
@@ -205,24 +170,34 @@ def mala_grads(cfg: ModelConfig, tc: TrainConfig, params: Params, batch: dict) -
     the prior's part is the cotangent ``jax.grad`` forms for it, (2 theta)
     times (-1 / prior_var) * 0.5 in float32, cast to the leaf's dtype and
     added to the first, in chunks of rows. Nothing of theta is copied: the
-    forward reads the leaves through detached views that require grad."""
-    _refuse_sharded(params, "proposal='mala'")
+    forward reads the leaves through detached views that require grad. A
+    sharded leaf's gradient is a :class:`ShardedTensor` of its layout: the
+    backward gathers a layer's rows again rather than keep them from the
+    forward (:class:`GradTape`), and the prior's part is added over the
+    unsharded row chunks, each gathered on home, computed as the unsharded
+    chunk is and scattered back."""
     pool = batch["tokens"].shape[0]
     rb = min(tc.round_batch, pool)
     n_sections = tc.dataset_size or pool
     flat = _flat_paths(params)
-    leaves = {name: leaf.detach().requires_grad_(True) for name, leaf in flat}
-    with torch.enable_grad():
+    tape = GradTape()
+    leaves = {name: tape.watch(leaf) for name, leaf in flat}
+    with torch.enable_grad(), tape:
         ll = forward_loglik(_rebuild(params, leaves), _rows_of(batch, 0, rb), cfg,
                             ce_chunk=tc.ce_chunk)
-        grads = torch.autograd.grad(ll.sum() * (n_sections / rb), list(leaves.values()))
-    del ll, leaves
+        grads = tape.grad(ll.sum() * (n_sections / rb))
+    del ll, leaves, tape
     coef = torch.tensor(-1.0 / tc.prior_var, dtype=F32) * 0.5
+
+    def add_prior(row, g_row):
+        return g_row.add_((2 * row.to(F32)).mul_(coef.to(row.device)).to(g_row.dtype))
+
     out = {}
     for (name, leaf), g in zip(flat, grads):
-        for row, g_row in zip(row_chunks(leaf, _CHUNK), row_chunks(g, _CHUNK)):
-            g_row.add_((2 * row.to(F32)).mul_(coef.to(row.device)).to(g.dtype))
-        out[name] = g
+        # a sharded leaf's gradient is its sink: read by its settled rows,
+        # written into its layout's pieces; a plain one is updated in place
+        dst = g.grad if isinstance(leaf, ShardedTensor) else g
+        out[name] = map_rows(add_prior, [leaf, g], out=dst)
     return out
 
 
@@ -233,22 +208,24 @@ def mala_move(params: Params, grads: dict, tc: TrainConfig, noise) -> Params:
     draws its noise, rounded to the leaf's dtype, as the reference's
     ``_tree_rw_propose`` on zeros rounds it) or ``{path: xi}``. ``grads``
     (from :func:`mala_grads`) is emptied as it goes, so theta, theta', the
-    gradient and xi are never all held whole at once."""
-    _refuse_sharded(params, "the MALA move")
+    gradient and xi are never all held whole at once. A sharded leaf's
+    theta' is sharded as it is, each chunk gathered, moved and scattered."""
     half = 0.5 * tc.mala_step
     root = tc.mala_step ** 0.5
     new = {}
     for name, leaf in _flat_paths(params):
         g = grads.pop(name)
-        out = torch.empty_like(leaf)
-        xis = (_noise_chunks(noise, leaf) if isinstance(noise, torch.Generator)
-               else row_chunks(noise[name], _CHUNK))
-        for row, g_row, xi, dst in zip(row_chunks(leaf, _CHUNK), row_chunks(g, _CHUNK), xis,
-                                       row_chunks(out, _CHUNK)):
-            xi = xi.to(leaf.dtype).to(F32)
-            dst.copy_(row.to(F32) + half * g_row.to(F32) + root * xi)
+
+        def move(row, g_row, xi, dtype=leaf.dtype):
+            return row.to(F32) + half * g_row.to(F32) + root * xi.to(dtype).to(F32)
+
+        if isinstance(noise, torch.Generator):
+            new[name] = map_rows(lambda row, g_row: move(row, g_row, torch.randn(
+                row.shape, generator=noise, dtype=F32, device=row.device)), [leaf, g],
+                dtypes=leaf.dtype)
+        else:
+            new[name] = map_rows(move, [leaf, g, noise[name]], dtypes=leaf.dtype)
         del g
-        new[name] = out
     return _rebuild(params, new)
 
 

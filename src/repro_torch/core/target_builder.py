@@ -29,9 +29,10 @@ dispatch, so no plain version runs on the card.
 A target built from concrete section tensors and a ``prior_logpdf``
 carries its recipe, a :class:`TargetSpec`: :mod:`repro_torch.partition`
 rebuilds it on a data slice under a tempered prior, and
-:func:`append_observations` on a grown pool (streaming append). Per-chain
-(K, N, D) logit pools raise ``NotImplementedError``: no path of the
-reference reaches them.
+:func:`append_observations` on a grown pool (streaming append). The
+``logit`` family also takes per-chain pools, x (K, N, D) and y (K, N), with
+(K, m) indices: each chain's rows are gathered on the device (the
+reference's ``_gather``) and scored by ``ops.batched_logit_delta``.
 
 Under an ensemble's mesh (:func:`repro_torch.distributed.logical_axis_rules`,
 which ``ChainEnsemble.run`` activates for a sharded run) the ensemble round
@@ -173,27 +174,55 @@ def registered_families() -> tuple[str, ...]:
     return tuple(sorted(_FAMILIES))
 
 
-def _logit_pool(data):
-    x, y = data
-    if x.ndim != 2:
-        raise NotImplementedError("per-chain (K, N, D) logit pools come with a later slice")
-    return x, y
+def _chain_gather(x, y, idx):
+    """Each chain's rows ``idx`` (K, m) of per-chain pools x (K, N, D), y
+    (K, N), gathered on their device: (K, m, D), (K, m). A (m,) index or a
+    ``range`` reads the same rows of every chain."""
+    if isinstance(idx, range):
+        idx = torch.arange(idx.start, idx.stop, device=x.device)
+    idx = idx.long()
+    if idx.ndim == 1:
+        idx = idx.expand(x.shape[0], -1)
+    k = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[k, idx], y[k, idx]
+
+
+def _per_chain_w(w, k: int):
+    return w.expand(k, -1) if w.ndim == 1 else w
 
 
 def _logit_loglik(data, w, idx):
-    x, y = _logit_pool(data)
+    x, y = data
+    if x.ndim == 3:
+        xg, yg = _chain_gather(x, y, idx)
+        if w.ndim == 1:
+            return ref.logit_loglik(w, xg, yg)
+        z = (xg.to(torch.float32) @ w.to(torch.float32)[..., None])[..., 0]  # w (K, D)
+        return -ref._softplus(-yg.to(torch.float32) * z)
     idx = idx.long()
     return ref.logit_loglik(w, x[idx], y[idx])
 
 
 def _logit_delta(data, w, w_p, idx, mode: str = "auto"):
-    x, y = _logit_pool(data)
+    x, y = data
+    if x.ndim == 3:  # per-chain pools: (K, m), as the reference's gathered form
+        xg, yg = _chain_gather(x, y, idx)
+        k = x.shape[0]
+        return ops.batched_logit_delta(xg, yg, _per_chain_w(w, k), _per_chain_w(w_p, k),
+                                       mode=mode)
     return ops.logit_delta(x, y, w, w_p, idx=idx, mode=mode)
 
 
 def _logit_ensemble_delta(data, w, w_p, idx, mode: str = "auto"):
-    x, y = _logit_pool(data)
+    x, y = data
+    if x.ndim == 3:
+        return ops.batched_logit_delta(*_chain_gather(x, y, idx), w, w_p, mode=mode)
     return ops.gather_and_delta(x, y, idx, w, w_p, mode=mode)
+
+
+def _logit_chain_rows(pools, rows):
+    x, y = pools
+    return (x[rows], y[rows]) if x.ndim == 3 else pools
 
 
 def _ar1_loglik(data, params, idx):
@@ -243,7 +272,7 @@ def _ar1_chain_rows(pools, rows):
 
 
 register_family(KernelFamily("logit", _logit_loglik, _logit_delta, _logit_ensemble_delta,
-                             takes_range=True))
+                             takes_range=True, chain_rows=_logit_chain_rows))
 register_family(KernelFamily("gaussian_ar1", _ar1_loglik, _ar1_delta, _ar1_ensemble_delta,
                              takes_range=True, chain_rows=_ar1_chain_rows))
 register_family(KernelFamily("ce", _ce_loglik, _ce_delta, _ce_ensemble_delta))

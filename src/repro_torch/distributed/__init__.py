@@ -2,6 +2,7 @@
 ``repro.distributed``)."""
 from .sharding import (
     DEFAULT_RULES,
+    GradTape,
     Mesh,
     NamedSharding,
     PartitionSpec,
@@ -20,12 +21,14 @@ from .sharding import (
     timed_transfers,
     transfer_counts,
     tree_shardings,
+    uncounted_transfers,
     whole,
 )
 from .slots import force_devices, forced_devices, visible_slots
 
 __all__ = [
     "DEFAULT_RULES",
+    "GradTape",
     "ShardedTensor",
     "count_bytes",
     "gather_params",

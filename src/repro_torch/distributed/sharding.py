@@ -26,14 +26,19 @@ and drops it after (:func:`shard_params`, :func:`gather_params`). The
 activations are whole on home, so ``lc(x, names)``, which in the reference
 constrains an activation's layout inside jitted model code, is a no-op
 here under any mesh. A sharded step is therefore the unsharded step bit for
-bit. :func:`transfer_counts` reads the gathers' and scatters' counts and
-bytes (the dry run's stand-in for the reference's collectives).
+bit. Gradients follow the same rule: :class:`GradTape` lets autograd see
+each gather, and a read's gradient is written into a gradient leaf of the
+same layout (:class:`GradSink`), so no whole gradient is held on home and
+the bits are the unsharded backward's. :func:`transfer_counts` reads the
+gathers' and scatters' counts and bytes (the dry run's stand-in for the
+reference's collectives).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import threading
+import weakref
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -368,6 +373,14 @@ def rows_of(tree: Any, rows: slice, device) -> Any:
 # the CUDA allocator's is 512).
 GATHER_ALIGN = 64
 
+# Leaves above this many elements are read and updated in chunks of
+# leading-axis rows of at most this size (:func:`map_rows`; one 56 M-element
+# layer of chatglm3-6b's stacked MLP leaf, 16384 rows of its embedding
+# table): a float32 temporary of the whole MLP leaf would be 6.3 GB, while
+# every chunk costs a few launches of host time (~107 chunks for the whole
+# model; 4 M-element chunks left the card idle two thirds of a LM step).
+ROW_CHUNK = 1 << 26
+
 _TRANSFERS = {"gather": [0, 0], "scatter": [0, 0]}  # kind -> [count, bytes]
 _EVENTS: dict | None = None  # kind -> [(start, end)] CUDA events while timed
 
@@ -407,6 +420,21 @@ def timed_transfers():
         yield _EVENTS
     finally:
         _EVENTS = prev
+
+
+@contextlib.contextmanager
+def uncounted_transfers():
+    """Gathers and scatters inside the block are neither counted nor timed
+    (a check that reads sharded leaves beside a measured run)."""
+    global _EVENTS
+    saved = {k: list(v) for k, v in _TRANSFERS.items()}
+    prev, _EVENTS = _EVENTS, None
+    try:
+        yield
+    finally:
+        _EVENTS = prev
+        for k, v in saved.items():
+            _TRANSFERS[k][:] = v
 
 
 def _transfer_count(kind: str, nbytes: int) -> None:
@@ -492,12 +520,20 @@ class ShardedTensor:
                   for blk in blocks]
         return cls(pieces, sharding, shape, dtype, home, align, blocks)
 
-    def empty_like(self) -> "ShardedTensor":
-        """A leaf of the same shape, dtype, sharding and home with
-        uninitialized pieces (a fresh whole leaf's address: ``align`` 0)."""
-        pieces = [torch.empty_like(p) for p in self.pieces]
-        return ShardedTensor(pieces, self.sharding, self.shape, self.dtype, self.home, 0,
-                             self.blocks)
+    def empty_like(self, dtype: torch.dtype | None = None) -> "ShardedTensor":
+        """A leaf of the same shape, sharding and home, in ``dtype`` (default:
+        this leaf's), with uninitialized pieces (a fresh whole leaf's
+        address: ``align`` 0)."""
+        dtype = dtype or self.dtype
+        pieces = [torch.empty_like(p, dtype=dtype) for p in self.pieces]
+        return ShardedTensor(pieces, self.sharding, self.shape, dtype, self.home, 0, self.blocks)
+
+    def zeros_like(self, dtype: torch.dtype | None = None) -> "ShardedTensor":
+        """A leaf of zeros of the same shape, sharding and home, in ``dtype``
+        (default: this leaf's)."""
+        dtype = dtype or self.dtype
+        pieces = [torch.zeros(p.shape, dtype=dtype, device=p.device) for p in self.pieces]
+        return ShardedTensor(pieces, self.sharding, self.shape, dtype, self.home, 0, self.blocks)
 
     @property
     def device(self) -> torch.device:
@@ -590,11 +626,7 @@ class ShardedTensor:
     def row_bounds(self, max_elems: int) -> list[tuple[int, int]]:
         """The (start, stop) row ranges of ``_device.row_chunks(leaf,
         max_elems)`` on the unsharded leaf."""
-        n = self.shape[0] if self.ndim else 1
-        if self.numel() <= max_elems or self.ndim < 2:
-            return [(0, n)]
-        per = max(1, max_elems // max(1, self.numel() // n))
-        return [(a, min(a + per, n)) for a in range(0, n, per)]
+        return row_bounds(self.shape, max_elems)
 
     def to_host(self) -> "ShardedTensor":
         """A copy whose pieces (and home) are on the CPU, same layout."""
@@ -605,6 +637,278 @@ class ShardedTensor:
     def __repr__(self) -> str:
         return (f"ShardedTensor(shape={tuple(self.shape)}, dtype={self.dtype}, "
                 f"spec={self.sharding.spec}, home={self.home}, pieces={len(self.pieces)})")
+
+
+# ---------------------------------------------------------------------------
+# Gradients of sharded leaves: a gather that autograd sees
+# ---------------------------------------------------------------------------
+
+
+class GradSink:
+    """The gradient of one sharded leaf, built in pieces with the leaf's own
+    layout as the backward reaches each read of the leaf: no whole gradient
+    of the leaf is held on the home device.
+
+    The unsharded backward adds every read's contribution into one buffer of
+    the leaf's size, in the order the reads' gradients arrive, where a read
+    of rows contributes zeros everywhere else. A sink adds the contributions
+    in the same order over the rows they touch. The zeros matter only to a
+    zero's sign: ``x + 0`` makes -0 into +0, so a row that some read did
+    not touch is settled by :meth:`rows` (a stacked leaf read one layer at a
+    time: every row of a leaf of two or more layers)."""
+
+    __slots__ = ("grad", "touched", "count")
+
+    def __init__(self, leaf: "ShardedTensor"):
+        self.grad = leaf.zeros_like()
+        self.touched = np.zeros(leaf.shape[0] if leaf.ndim else 1, dtype=np.int64)
+        self.count = 0
+
+    def add(self, start: int, stop: int, g: torch.Tensor) -> None:
+        """A read's gradient ``g`` of rows [start, stop) (the whole leaf for
+        a gather), in the leaf's dtype on its home device."""
+        if self.touched[start:stop].any():
+            g = self.grad.rows(start, stop) + g
+        self.grad.write_rows(start, stop, g)
+        self.touched[start:stop] += 1
+        self.count += 1
+
+    def rows(self, start: int, stop: int) -> torch.Tensor:
+        """Rows [start, stop) of the finished gradient, gathered on home."""
+        out = self.grad.rows(start, stop)
+        loose = np.flatnonzero(self.touched[start:stop] < self.count)
+        if loose.size == stop - start:
+            out.masked_fill_(out == 0, 0)
+        else:
+            for i in loose:
+                out[i].masked_fill_(out[i] == 0, 0)
+        return out
+
+    def finish(self, max_elems: int = ROW_CHUNK) -> "ShardedTensor":
+        """The finished gradient: the untouched rows settled in place, chunk
+        by chunk of at most ``max_elems`` elements."""
+        if (self.touched < self.count).any():
+            for a, b in self.grad.row_bounds(max_elems):
+                if (self.touched[a:b] < self.count).any():
+                    self.grad.write_rows(a, b, self.rows(a, b))
+        return self.grad
+
+
+class _Gather(torch.autograd.Function):
+    """Rows [start, stop) of a sharded leaf (all of it when ``start`` is
+    None) gathered on home; the backward hands their gradient to the sink.
+    ``anchor`` is a 0-d tensor that requires grad, so autograd records the
+    read; it gets no gradient. The output is registered with the leaf's
+    tape, which keeps it out of autograd's saved tensors."""
+
+    @staticmethod
+    def forward(ctx, anchor, leaf, sink, start, stop):
+        ctx.sink, ctx.bounds = sink, (start, stop)
+        out = (ShardedTensor.gather(leaf) if start is None
+               else ShardedTensor.rows(leaf, start, stop))
+        if out.device.type != "meta":
+            leaf.saved[out.untyped_storage().data_ptr()] = _Gathered(out, leaf.source, start,
+                                                                      stop)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        start, stop = ctx.bounds
+        if start is None:
+            start, stop = 0, len(ctx.sink.touched)
+        ctx.sink.add(start, stop, g)
+        return None, None, None, None, None
+
+
+class _TrackedLeaf(ShardedTensor):
+    """A sharded leaf whose reads under grad mode go through :class:`_Gather`
+    into a :class:`GradSink`; the same pieces, gathered as the leaf is.
+    ``source`` is the watched leaf and ``saved`` its tape's registry of
+    gathered outputs: neither refers back to this leaf or to the tape, so
+    a step's tape and gradients are freed by reference counts alone (a
+    cycle would keep a 12 GB gradient until the cyclic collector ran)."""
+
+    __slots__ = ("sink", "anchor", "source", "saved")
+
+    def gather(self) -> torch.Tensor:
+        if not torch.is_grad_enabled():
+            return super().gather()
+        return _Gather.apply(self.anchor, self, self.sink, None, None)
+
+    def rows(self, start: int, stop: int) -> torch.Tensor:
+        if self.ndim == 0:
+            return self.gather()
+        if not torch.is_grad_enabled():
+            return super().rows(start, stop)
+        return _Gather.apply(self.anchor, self, self.sink, start, stop)
+
+
+class _Gathered:
+    """A gather's output as the backward finds it again: the (unwatched)
+    leaf, its rows, a weak reference to the forward's tensor and one to the
+    tensor gathered again in the backward (shared by every saved view)."""
+
+    __slots__ = ("out", "leaf", "start", "stop", "again")
+
+    def __init__(self, out, leaf, start, stop):
+        self.out, self.leaf, self.start, self.stop = weakref.ref(out), leaf, start, stop
+        self.again = None
+
+    def regather(self) -> torch.Tensor:
+        again = self.again() if self.again is not None else None
+        if again is None:
+            again = (ShardedTensor.gather(self.leaf) if self.start is None
+                     else ShardedTensor.rows(self.leaf, self.start, self.stop))
+            self.again = weakref.ref(again)
+        return again
+
+
+class GradTape:
+    """Autograd over leaves of which some are sharded. :meth:`watch` gives
+    the leaf to read in the forward: a plain leaf detached and requiring
+    grad (as unsharded code reads it), a sharded one as a leaf on the same
+    pieces whose reads feed a :class:`GradSink`. :meth:`grad` then runs one
+    backward and returns, per watched leaf, its gradient tensor (None for a
+    plain leaf the forward did not read) or its sink.
+
+    Run the forward inside ``with tape:``. Autograd then keeps no gathered
+    rows for the backward: a saved tensor that is a gather's output, or a
+    view of one, is kept as its leaf and rows and gathered again when the
+    backward reads it (FSDP's reshard after forward). The bits are the
+    same, at the same address modulo :data:`GATHER_ALIGN`, so a sharded
+    forward holds no whole copy of the model on home."""
+
+    def __init__(self):
+        self.anchor: torch.Tensor | None = None
+        self.watched: list = []
+        self._outputs: dict[int, _Gathered] = {}  # storage address -> a gather's output
+        self._hooks = None
+
+    def watch(self, leaf):
+        if not isinstance(leaf, ShardedTensor):
+            out = leaf.detach().requires_grad_(True)
+            self.watched.append(out)
+            return out
+        if self.anchor is None:
+            self.anchor = torch.zeros((), device=leaf.home, requires_grad=True)
+        out = _TrackedLeaf(leaf.pieces, leaf.sharding, leaf.shape, leaf.dtype, leaf.home,
+                           leaf.align, leaf.blocks)
+        out.sink, out.anchor, out.source, out.saved = GradSink(leaf), self.anchor, leaf, \
+            self._outputs
+        self.watched.append(out)
+        return out
+
+    def __enter__(self) -> "GradTape":
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack)
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._hooks.__exit__(*exc)
+        self._hooks = None
+
+    def _pack(self, t: torch.Tensor):
+        if not self._outputs or t.device.type == "meta" or t.layout != torch.strided:
+            return t
+        rec = self._outputs.get(t.untyped_storage().data_ptr())
+        base = rec.out() if rec is not None else None
+        if base is None or base.dtype != t.dtype:
+            return t
+        return rec, tuple(t.shape), t.stride(), t.storage_offset() - base.storage_offset()
+
+    @staticmethod
+    def _unpack(packed) -> torch.Tensor:
+        if isinstance(packed, torch.Tensor):
+            return packed
+        rec, shape, stride, offset = packed
+        again = rec.regather()
+        return again.as_strided(shape, stride, again.storage_offset() + offset)
+
+    def grad(self, value: torch.Tensor, allow_unused: bool = False) -> list:
+        plain = [w for w in self.watched if not isinstance(w, ShardedTensor)]
+        if self.anchor is None:
+            got = iter(torch.autograd.grad(value, plain, allow_unused=allow_unused))
+        else:
+            got = iter(torch.autograd.grad(value, plain + [self.anchor], allow_unused=True))
+        self._outputs.clear()
+        return [w.sink if isinstance(w, ShardedTensor) else next(got) for w in self.watched]
+
+
+# ---------------------------------------------------------------------------
+# Row chunks: one loop for plain and sharded leaves
+# ---------------------------------------------------------------------------
+
+
+def row_bounds(shape, max_elems: int) -> list[tuple[int, int]]:
+    """The (start, stop) rows of ``_device.row_chunks`` on a tensor of
+    ``shape``: one chunk at or under ``max_elems`` elements or under two
+    dims, else runs of whole rows of at most ``max_elems`` elements."""
+    n = shape[0] if len(shape) else 1
+    numel = int(np.prod(shape, dtype=np.int64))
+    if numel <= max_elems or len(shape) < 2:
+        return [(0, n)]
+    per = max(1, max_elems // max(1, numel // n))
+    return [(a, min(a + per, n)) for a in range(0, n, per)]
+
+
+def _read(x, start: int, stop: int, whole: bool) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x if whole else x[start:stop]
+    return x.rows(start, stop)  # a ShardedTensor or a GradSink: gathered on home
+
+
+def _write(dst, start: int, stop: int, whole: bool, t: torch.Tensor) -> None:
+    if isinstance(dst, ShardedTensor):
+        dst.write_rows(start, stop, t)
+        return
+    view = dst if whole else dst[start:stop]
+    if t.data_ptr() != view.data_ptr() or t.shape != view.shape:  # else updated in place
+        view.copy_(t)
+
+
+def iter_rows(leaf, max_elems: int = ROW_CHUNK):
+    """The chunks of ``_device.row_chunks(leaf, max_elems)`` in order: views
+    of a plain leaf; of a sharded one, each chunk's rows gathered on its
+    home device as it is reached."""
+    span = row_bounds(leaf.shape, max_elems)
+    return (_read(leaf, a, b, len(span) == 1) for a, b in span)
+
+
+def map_rows(fn: Callable, leaves: Sequence, out=None, dtypes=None,
+             max_elems: int = ROW_CHUNK):
+    """``fn`` over the row chunks of ``leaves`` (those of
+    ``_device.row_chunks(leaves[0], max_elems)``), in order, each leaf read
+    as :func:`iter_rows` reads it (a :class:`GradSink` by its settled rows).
+    ``fn`` gives one tensor or a tuple, the outputs' chunks. They are
+    written into ``out`` (a leaf or a tuple of them) when given (a plain
+    chunk that ``fn`` updated in place is not copied onto itself), else into
+    new leaves of the first leaf's shape, sharded alike when it is sharded,
+    in ``dtypes`` (a dtype or a tuple; default: the chunks' own). A plain
+    first leaf of one chunk gets ``fn``'s tensors themselves (cast). Returns
+    the outputs as ``fn`` gives them. Every chunk is computed as the
+    unsharded leaf's chunk is, so a sharded leaf's outputs are the plain
+    leaf's bit for bit."""
+    first = leaves[0]
+    span = row_bounds(first.shape, max_elems)
+    whole = len(span) == 1
+    one = out is not None and not isinstance(out, tuple)
+    outs = None if out is None else (out,) if one else tuple(out)
+    for a, b in span:
+        got = fn(*(_read(x, a, b, whole) for x in leaves))
+        if out is None:
+            one = not isinstance(got, tuple)
+        got = (got,) if one else got
+        if outs is None:
+            dts = dtypes if isinstance(dtypes, tuple) else (dtypes,) * len(got)
+            if whole and not isinstance(first, ShardedTensor):
+                res = tuple(t if d is None else t.to(d) for t, d in zip(got, dts))
+                return res[0] if one else res
+            outs = tuple(first.empty_like(d or t.dtype) if isinstance(first, ShardedTensor)
+                         else torch.empty(first.shape, dtype=d or t.dtype, device=first.device)
+                         for t, d in zip(got, dts))
+        for o, t in zip(outs, got):
+            _write(o, a, b, whole, t)
+    return outs[0] if one else outs
 
 
 def whole(x: Any) -> Any:

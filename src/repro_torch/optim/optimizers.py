@@ -23,6 +23,15 @@ keys), so the noise is the reference's in distribution, not in bits.
 :func:`lm_loss_fn` is the mean negative log-likelihood per token of the LM;
 :func:`value_and_grad` gives its value and gradient by autograd through the
 port's eager forward (the counterpart of ``jax.value_and_grad``).
+
+Every leaf is updated chunk by chunk of its leading-axis rows
+(:func:`~repro_torch.distributed.sharding.map_rows`; a leaf of up to 64 M
+elements is one chunk). A leaf may be a
+:class:`~repro_torch.distributed.ShardedTensor` (the LM's parameters on a
+mesh of slots): its gradient, moments and new value are sharded alike, each
+chunk gathered on its home device, computed as the plain leaf's chunk is
+and scattered back, so the bits are the unsharded step's. The reference has
+no mesh code here: GSPMD splits its jitted step.
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from .._device import tree_leaves, tree_map
+from ..distributed.sharding import GradTape, ShardedTensor, map_rows
 
 Params = Any
 F32 = torch.float32
@@ -42,10 +52,16 @@ class AdamState(NamedTuple):
     count: torch.Tensor  # int32, 0-d, on the leaves' device
 
 
+def _zeros_f32(p):
+    if isinstance(p, ShardedTensor):
+        return p.zeros_like(F32)
+    return torch.zeros(p.shape, dtype=F32, device=p.device)
+
+
 def adam_init(params: Params) -> AdamState:
-    zeros = tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
+    zeros = tree_map(_zeros_f32, params)
     device = tree_leaves(params)[0].device
-    return AdamState(mu=zeros, nu=tree_map(torch.clone, zeros),
+    return AdamState(mu=zeros, nu=tree_map(_zeros_f32, params),
                      count=torch.zeros((), dtype=torch.int32, device=device))
 
 
@@ -56,7 +72,7 @@ def adam_step(grads: Params, state: AdamState, params: Params, lr: float = 1e-3,
     c1 = 1 - b1 ** cf  # 0-d float32, as the reference's weak-typed scalars
     c2 = 1 - b2 ** cf
 
-    def upd(g, m, v, p):
+    def upd_rows(g, m, v, p):
         # in-place ops on fresh temporaries only: the same roundings as the
         # reference's expressions, with fewer full-size buffers alive
         g = g.to(F32)
@@ -67,12 +83,16 @@ def adam_step(grads: Params, state: AdamState, params: Params, lr: float = 1e-3,
         del den
         return p.to(F32).sub(step).to(p.dtype), m, v
 
+    def upd(g, m, v, p):
+        return map_rows(lambda p_, g_, m_, v_: upd_rows(g_, m_, v_, p_), [p, g, m, v])
+
     out = tree_map(upd, grads, state.mu, state.nu, params)
     return _unzip(out, 0), AdamState(_unzip(out, 1), _unzip(out, 2), count)
 
 
 def _is_triple(x) -> bool:
-    return isinstance(x, tuple) and len(x) == 3 and all(isinstance(t, torch.Tensor) for t in x)
+    return isinstance(x, tuple) and len(x) == 3 and all(
+        isinstance(t, (torch.Tensor, ShardedTensor)) for t in x)
 
 
 def _unzip(tree: Any, i: int) -> Any:
@@ -85,7 +105,8 @@ def _unzip(tree: Any, i: int) -> Any:
 
 
 def sgd_step(grads: Params, params: Params, lr: float = 1e-2) -> Params:
-    return tree_map(lambda p, g: (p.to(F32) - lr * g.to(F32)).to(p.dtype), params, grads)
+    return tree_map(lambda p, g: map_rows(
+        lambda p_, g_: (p_.to(F32) - lr * g_.to(F32)).to(p_.dtype), [p, g]), params, grads)
 
 
 def _sorted_paths(tree: Any, prefix: tuple = ()) -> list[tuple]:
@@ -112,15 +133,19 @@ def sgld_step(gen: torch.Generator, grads: Params, params: Params, lr: float,
               temperature: float = 1.0) -> Params:
     """Stochastic gradient Langevin dynamics, the classic scalable-Bayes
     comparator to subsampled MH: one normal draw from ``gen`` per leaf, in
-    sorted leaf order."""
+    sorted leaf order (of a sharded leaf too, whole on its home device, so
+    the generator's stream is the unsharded step's)."""
     noise_scale = (2.0 * lr * temperature) ** 0.5
     noise = {}
     for path in _sorted_paths(params):
         p = _at(params, path)
         noise[path] = torch.randn(p.shape, generator=gen, dtype=F32, device=p.device)
-    return _with_paths(
-        lambda path, p, g: (p.to(F32) + lr * g.to(F32) + noise_scale * noise[path]).to(p.dtype),
-        params, grads)
+
+    def upd(path, p, g):
+        return map_rows(lambda p_, g_, xi: (p_.to(F32) + lr * g_.to(F32)
+                                            + noise_scale * xi).to(p_.dtype), [p, g, noise[path]])
+
+    return _with_paths(upd, params, grads)
 
 
 def _at(tree: Any, path: tuple) -> Any:
@@ -147,15 +172,22 @@ def value_and_grad(fn: Callable) -> Callable:
     gradient with respect to every leaf of ``params`` (a tree of the same
     structure, each leaf in its own dtype; zeros for a leaf ``fn`` does not
     read), by autograd. ``params`` is read through detached views; nothing
-    of it is copied or changed."""
+    of it is copied or changed. A sharded leaf's gradient is sharded alike
+    (:class:`~repro_torch.distributed.GradTape`)."""
 
     def vg(params, *args):
-        tree = tree_map(lambda t: t.detach().requires_grad_(True), params)
-        leaves = tree_leaves(tree)
-        with torch.enable_grad():
+        tape = GradTape()
+        tree = tree_map(tape.watch, params)
+        with torch.enable_grad(), tape:
             value = fn(tree, *args)
-            grads = torch.autograd.grad(value, leaves, allow_unused=True)
-        it = iter(torch.zeros_like(l) if g is None else g for l, g in zip(leaves, grads))
+            grads = tape.grad(value, allow_unused=True)
+
+        def finish(leaf, g):
+            if isinstance(leaf, ShardedTensor):
+                return g.finish()
+            return torch.zeros_like(leaf) if g is None else g
+
+        it = iter(finish(l, g) for l, g in zip(tape.watched, grads))
         return value.detach(), tree_map(lambda _: next(it), tree)
 
     return vg

@@ -387,9 +387,10 @@ def test_fused_and_plain_routes_agree_on_cpu(lr):
 def test_deferred_paths_raise(lr):
     """The mesh paths are ported (tests/test_torch_distributed.py): on one
     slot every shard= form runs unsharded, bit for bit the default run.
-    Per-chain logit pools are not ported; masked stepping and schedules are
-    ported (tests/test_torch_schedule.py), and a schedule that is not a
-    ScheduleConfig is refused."""
+    Masked stepping and schedules are ported (tests/test_torch_schedule.py),
+    and a schedule that is not a ScheduleConfig is refused. Per-chain
+    (K, N, D) logit pools are ported: an ensemble round equals the
+    reference's (tests/test_torch_perchain.py holds them further)."""
     cfg = SubsampledMHConfig(batch_size=50, epsilon=0.05)
     base = ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, config=cfg, device="cpu")
     _, want, _ = base.run(1, base.init(torch.zeros(D)), 5)
@@ -402,12 +403,19 @@ def test_deferred_paths_raise(lr):
     # composite cycles are ported; a cycle beside (target, proposal) is refused
     with pytest.raises((TypeError, ValueError)):
         ChainEnsemble(lr["tt"], RandomWalk(0.05), 2, device="cpu", transition=object())
-    # per-chain (K, N, D) logit pools wait: no path of the reference reaches them
-    per_chain = build_target("logit", (torch.zeros(2, 10, 3), torch.ones(2, 10)), 10,
+    # per-chain (K, N, D) logit pools: the reference's round on the same pools
+    rng = np.random.default_rng(5)
+    xs = rng.standard_normal((2, 10, 3)).astype(np.float32)
+    ys = np.where(rng.uniform(size=(2, 10)) < 0.5, 1.0, -1.0).astype(np.float32)
+    w, wp = rng.standard_normal((2, 2, 3)).astype(np.float32)
+    idx = rng.integers(0, 10, (2, 4)).astype(np.int32)
+    per_chain = build_target("logit", (_t(xs), _t(ys)), 10, prior_logpdf=lambda t: t.sum(-1))
+    j_chain = J.build_target("logit", (jnp.asarray(xs), jnp.asarray(ys)), 10,
                              prior_logpdf=lambda t: t.sum(-1))
-    with pytest.raises(NotImplementedError):
-        per_chain.log_local_ensemble(torch.zeros(2, 3), torch.ones(2, 3),
-                                     torch.zeros(2, 4, dtype=torch.int32))
+    got = per_chain.log_local_ensemble(_t(w), _t(wp), _t(idx)).numpy()
+    want = np.asarray(j_chain.log_local_ensemble(jnp.asarray(w), jnp.asarray(wp),
+                                                 jnp.asarray(idx)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
 
 

@@ -1897,3 +1897,99 @@ def test_sharded_lm_decode_on_card_slots(cuda_device):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert all(torch.equal(a, b) for a, b in zip(_leaves(cache), _leaves(want_cache)))
+
+
+_INT_VIEW = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def _bits(t):
+    from repro_torch.distributed import ShardedTensor
+
+    t = t.gather() if isinstance(t, ShardedTensor) else t
+    return t.contiguous().view(_INT_VIEW[t.dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [2, 4])
+def test_sharded_mala_step_on_card_slots(cuda_device, model):
+    """Three MALA steps on parameters sharded over four slots of the card
+    ((2, 2) and (1, 4)) against the unsharded steps from one seed: every
+    gradient (returned sharded), theta', info field and final parameter
+    bit for bit as integer views, at reduced width in bf16; the round op
+    launched. Then one Adam step (``value_and_grad`` + ``adam_step``) the
+    same way, its parameters and moments bit for bit."""
+    from repro_torch.bayes import TrainConfig, mala_grads, mala_move
+    from repro_torch.bayes.train import _flat_paths, subsampled_decide
+    from repro_torch.core.subsampled_mh import draw_log_u
+    from repro_torch.distributed import ShardedTensor, shard_params
+    from repro_torch.models import param_specs
+    from repro_torch.optim import adam_init, adam_step, lm_loss_fn
+    from repro_torch.optim.optimizers import value_and_grad
+
+    cfg, params, batch = _lm_case(cuda_device)
+    tc = TrainConfig(round_batch=2, epsilon=0.2, proposal="mala", mala_step=2e-5)
+    mesh = _card_mesh(model)
+    sp = shard_params(params, mesh, specs=param_specs(cfg))
+    chains = {"plain": params, "sharded": sp}
+    gens = {k: torch.Generator(device=cuda_device).manual_seed(5) for k in chains}
+    ops.reset_launches()
+    for _ in range(3):
+        out = {}
+        for name, theta in chains.items():
+            log_u = draw_log_u(gens[name], (), cuda_device)
+            g = mala_grads(cfg, tc, theta, batch)
+            theta_p = mala_move(theta, dict(g), tc, gens[name])
+            new, info = subsampled_decide(cfg, tc, theta, theta_p, log_u, batch)
+            out[name] = (g, _flat_paths(theta_p), info, new)
+        (g0, p0, i0, n0), (g1, p1, i1, n1) = out["plain"], out["sharded"]
+        assert all(isinstance(v, ShardedTensor) for v in g1.values())
+        assert all(torch.equal(_bits(g0[k]), _bits(g1[k])) for k in g0)
+        assert all(torch.equal(_bits(a), _bits(b)) for (_, a), (_, b) in zip(p0, p1))
+        for x, y in zip(i0, i1):
+            assert torch.equal(x.view(torch.int32) if x.is_floating_point() else x,
+                               y.view(torch.int32) if y.is_floating_point() else y)
+        chains = {"plain": n0, "sharded": n1}
+    torch.cuda.synchronize()
+    assert ops.launches["t_test_round"] > 0
+    for (_, a), (_, b) in zip(_flat_paths(chains["plain"]), _flat_paths(chains["sharded"])):
+        assert torch.equal(_bits(a), _bits(b))
+
+    vg = value_and_grad(lm_loss_fn(cfg))
+    (_, g0), (_, g1) = vg(params, batch), vg(sp, batch)
+    want, got = adam_step(g0, adam_init(params), params), adam_step(g1, adam_init(sp), sp)
+    for tree_w, tree_g in zip((want[0], want[1].mu, want[1].nu), (got[0], got[1].mu, got[1].nu)):
+        for (_, a), (_, b) in zip(_flat_paths(tree_w), _flat_paths(tree_g)):
+            assert isinstance(b, ShardedTensor) and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_per_chain_logit_pools_on_card(cuda_device):
+    """The ``logit`` family on per-chain (K, N, D) pools: each chain's rows
+    gathered on the card, then one launch of the pair-delta kernel's
+    gathered form, at K = 32, m = 100 of N = 1 000, D = 50 (phase A's case)
+    and K = 33, m = 7, D = 3, against the plain version on the same rows
+    (FP32_TOL) and against the shared-pool route on a pool copied per chain
+    (the same rows and row sums; the bits are printed, not held)."""
+    from repro_torch.core.target_builder import get_family
+    from repro_torch.kernels import ref
+
+    fam = get_family("logit")
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for k, n, m, d in ((32, 1000, 100, 50), (33, 200, 7, 3)):
+        x = torch.randn(k, n, d, generator=gen, device=cuda_device) / d ** 0.5
+        y = torch.where(torch.rand(k, n, generator=gen, device=cuda_device) < 0.5, 1.0, -1.0)
+        w = torch.randn(k, d, generator=gen, device=cuda_device)
+        wp = w + 0.05 * torch.randn(k, d, generator=gen, device=cuda_device)
+        idx = torch.randint(0, n, (k, m), generator=gen, device=cuda_device, dtype=torch.int32)
+        kk = torch.arange(k, device=cuda_device)[:, None]
+        ops.reset_launches()
+        got = fam.ensemble_delta((x, y), w, wp, idx)
+        torch.cuda.synchronize()
+        assert dict(ops.launches) == {"batched_logit_delta": 1}
+        want = ref.batched_logit_delta_ref(x[kk, idx.long()], y[kk, idx.long()], w, wp)
+        torch.testing.assert_close(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+        shared = fam.ensemble_delta((x[0], y[0]), w, wp, idx)
+        copied = fam.ensemble_delta((x[:1].expand(k, n, d).contiguous(),
+                                     y[:1].expand(k, n).contiguous()), w, wp, idx)
+        print(f"\nK={k} m={m} D={d}: per-chain route bit for bit the shared pool's in-kernel "
+              f"gather: {torch.equal(shared.view(torch.int32), copied.view(torch.int32))}")

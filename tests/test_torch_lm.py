@@ -377,10 +377,10 @@ def test_propose_paths_freezes_other_leaves():
 
 def test_deferred_train_paths_raise():
     """What still raises on the LM's train path: an unknown proposal, MALA
-    without the batch its gradient needs, a cache of another pool's size,
-    and MALA over parameters sharded on a mesh (the gradient through
-    gathered layers is later work). ``proposal="mala"`` and the cached step
-    build."""
+    without the batch its gradient needs, a cache of another pool's size.
+    ``proposal="mala"`` and the cached step build, and MALA over parameters
+    sharded on a mesh proposes the unsharded theta' and log u bit for bit
+    (tests/test_torch_mala_mesh.py holds it further)."""
     cfg = reduce_config(ARCHS["chatglm3-6b"])
     with pytest.raises(ValueError, match="unknown proposal"):
         make_train_step(cfg, TrainConfig(proposal="hmc"))
@@ -399,9 +399,13 @@ def test_deferred_train_paths_raise():
     with force_devices(4):
         mesh = make_mesh_for_devices(model_parallel=2, device="cpu")
         sharded = shard_params(params, mesh, specs=param_specs(cfg))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            propose(torch.Generator().manual_seed(0), sharded, TrainConfig(proposal="mala"),
-                    batch, cfg)
+        got = propose(torch.Generator().manual_seed(0), sharded, TrainConfig(proposal="mala"),
+                      batch, cfg)
+    want = propose(torch.Generator().manual_seed(0), params, TrainConfig(proposal="mala"),
+                   batch, cfg)
+    assert torch.equal(got[1], want[1])
+    for (_, a), (_, b) in zip(_flat_paths(got[0]), _flat_paths(want[0])):
+        assert torch.equal(a.gather().view(torch.int16), b.view(torch.int16))
 
 
 # ---------------------------------------------------------------------------

@@ -203,15 +203,26 @@ def test_sharded_step_equals_unsharded(arch, shape, kind):
         assert any(bool(i.accepted) for i in want_infos) or arch != "chatglm3-6b"
 
 
-def test_mala_over_sharded_parameters_raises():
+def test_mala_over_sharded_parameters_equals_unsharded():
+    """A MALA step over parameters sharded on (2, 2): the new parameters
+    (sharded leaves) and every info field the unsharded step's, bit for bit
+    (tests/test_torch_mala_mesh.py holds each gradient and theta' too)."""
     cfg = reduce_config(ARCHS["chatglm3-6b"])
     batch = TokenStream(DataConfig(cfg.vocab, 8, 4, 1), device="cpu").batch(0)
+    params = init_params(0, cfg, device="cpu")
+    step = make_train_step(cfg, TrainConfig(proposal="mala"))
+    want, want_info = step(torch.Generator().manual_seed(0), params, batch)
     with force_devices(4):
         mesh = _mesh(2, 2)
-        sp = shard_params(init_params(0, cfg, device="cpu"), mesh, specs=param_specs(cfg))
-        step = make_train_step(cfg, TrainConfig(proposal="mala"))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step(torch.Generator().manual_seed(0), sp, batch)
+        sp = shard_params(params, mesh, specs=param_specs(cfg))
+        got, info = step(torch.Generator().manual_seed(0), sp, batch)
+    assert all(isinstance(l, ShardedTensor) for l in tree_leaves(got))
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for a, b in zip(tree_leaves(gather_params(got)), tree_leaves(want)):
+        assert torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+    for a, b in zip(info, want_info):
+        assert torch.equal(a.view(ints[a.dtype]) if a.is_floating_point() else a,
+                           b.view(ints[b.dtype]) if b.is_floating_point() else b)
 
 
 # ---------------------------------------------------------------------------
