@@ -636,6 +636,53 @@ def record(report, name, label, err, ms, plain_ms, byts, ops_, host_ms, plain_ho
                  library_ms=library_ms)
 
 
+GUARD_LAUNCHES, GUARD_TURNS = 2000, 3  # launches a timing, and guarded / unguarded turns
+
+
+def guard_cost(report):
+    """The host cost of the launch's device guard (``_build.launch``: the
+    tensors' card made current when it is not): phase B's launch
+    (``logit_delta``, m=100 of N=12 214, D=50) ``GUARD_LAUNCHES`` times,
+    with the guard and with it bypassed, in turns; host µs a launch, the
+    least of ``GUARD_TURNS`` timings each."""
+    import torch
+
+    from repro_torch.kernels import _build, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(12214, 50, generator=gen, device="cuda")
+    y = torch.where(torch.rand(12214, generator=gen, device="cuda") < 0.5, 1.0, -1.0)
+    w, wp = torch.randn(2, 50, generator=gen, device="cuda")
+    idx = torch.randint(0, 12214, (100,), generator=gen, device="cuda", dtype=torch.int32)
+    guarded = _build.launch
+
+    def host_us():
+        ops.logit_delta(x, y, w, wp, idx=idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GUARD_LAUNCHES):
+            ops.logit_delta(x, y, w, wp, idx=idx)
+        torch.cuda.synchronize()
+        return 1e6 * (time.perf_counter() - t0) / GUARD_LAUNCHES
+
+    times = {"guarded": [], "unguarded": []}
+    try:
+        for _ in range(GUARD_TURNS):
+            for name in times:
+                _build.launch = guarded if name == "guarded" else (
+                    lambda fn, device, *args: fn(*args))
+                times[name].append(host_us())
+    finally:
+        _build.launch = guarded
+    ops.reset_launches()
+    g, u = min(times["guarded"]), min(times["unguarded"])
+    report["guard"] = {"host_us_a_launch": {k: min(v) for k, v in times.items()},
+                       "turns": times, "cost_us": g - u, "cost_share": (g - u) / u}
+    print(f"the launch's device guard: phase B's launch {g:.3f} host µs guarded, {u:.3f} "
+          f"unguarded ({g - u:+.3f} µs, {100 * (g - u) / u:+.2f}%; least of {GUARD_TURNS} turns "
+          f"of {GUARD_LAUNCHES} launches each; {card_line()})")
+
+
 def ar1_library(xt, xp, par, idx=None, rows=None):
     """The library composite of the AR(1) delta (the yardstick the port never
     calls): the sections (``index_select`` of shared pools or ``gather`` of
@@ -1570,7 +1617,9 @@ def lm_ce_setup(params, cfg):
     h = forward_hidden(params, tokens[:, :-1], cfg)
     data = convert.ce_data(h.reshape(-1, cfg.d_model), tokens[:, 1:])
     n = data[0].shape[0]
-    target = build_target("ce", data, n, log_global=gaussian_log_global(CE_PRIOR_VAR))
+    # the prior too (its recipe, so that a mesh of cards can place the pool)
+    target = build_target("ce", data, n, log_global=gaussian_log_global(CE_PRIOR_VAR),
+                          prior_logpdf=lambda t: (-0.5 / CE_PRIOR_VAR) * (t * t).sum((-2, -1)))
     return data, target
 
 
@@ -1684,6 +1733,37 @@ def _leaves(tree):
 
 
 MP_SLOTS, MP_MODEL = 4, 2  # H-mp and T-mp: a 2 x 2 ("data", "model") mesh of slots on cuda:0
+FOUR_CARDS = tuple(f"{n}@4cards" for n in (  # the runs four cards add
+    "X-chains", "X-2d", "X-2d-data4", "X-masked", "X-L", "X-bf16", "H-mp", "T-mp", "H-mala-mp",
+    "H-adam-mp", "J-mp")) + ("T-hybrid-4cards",)
+
+
+def mp_phase(name: str, physical: int) -> str:
+    """The report's name of mesh phase ``name`` over ``physical`` cards."""
+    return name if physical == 1 else f"{name}@{physical}cards"
+
+
+def mp_where(physical: int) -> str:
+    return (f"{MP_SLOTS} slots of cuda:0 (copies between cards bypassed: one card)"
+            if physical == 1 else f"{MP_SLOTS} slots, one a card on {physical} cards")
+
+
+def reset_card_peaks(physical: int) -> list[int]:
+    """Reset the peak of each of the first ``physical`` cards; returns each
+    card's bytes allocated now."""
+    import torch
+
+    for i in range(physical):
+        torch.cuda.synchronize(i)
+        torch.cuda.reset_peak_memory_stats(i)
+    return [torch.cuda.memory_allocated(i) for i in range(physical)]
+
+
+def card_peaks_gib(resident: list[int]) -> list[float]:
+    """Each card's peak since :func:`reset_card_peaks` above ``resident``, GiB."""
+    import torch
+
+    return [(torch.cuda.max_memory_allocated(i) - b) / 2 ** 30 for i, b in enumerate(resident)]
 
 
 def _ms(events) -> float:
@@ -1715,7 +1795,7 @@ def same_checkpoint_files(a: str, b: str) -> tuple[bool, int]:
     return True, total
 
 
-def phase_h_mp(report, root, h_params, h_infos):
+def phase_h_mp(report, root, h_params, h_infos, physical=1):
     """H's subsampled run again through ``launch.train`` with
     ``--model-parallel 2`` on four slots of cuda:0 (``force_devices(4,
     physical=1)``): a 2 x 2 ("data", "model") mesh, so the "embed" rule (data
@@ -1725,9 +1805,11 @@ def phase_h_mp(report, root, h_params, h_infos):
     written piece by piece from the slots, must hold H's files byte for
     byte; then H's step-20 checkpoint is restored onto the mesh's shardings
     and held to H's parameters. H's parameters stay live (the comparison),
-    so the peak is taken above what was resident at the start. One card:
-    copies between cards are bypassed. Last, the dry run's temp bytes at
-    H's batch are written beside the card's peak."""
+    so the peak is taken above what was resident at the start. On one card
+    copies between cards are bypassed; over ``physical`` cards (one slot a
+    card, ``H-mp@4cards``) each card's peak is recorded. Last, on one card,
+    the dry run's temp bytes at H's batch are written beside the card's
+    peak."""
     import numpy as np
     import torch
 
@@ -1742,19 +1824,21 @@ def phase_h_mp(report, root, h_params, h_infos):
     from repro_torch.models import param_specs
 
     cfg = ARCHS[LM_ARCH]
-    r = report["phases"]["H-mp"]
-    print(f"phase H-mp: H's {LM_STEPS} subsampled steps with --model-parallel {MP_MODEL} on "
-          f"{MP_SLOTS} slots of cuda:0 ({MP_SLOTS // MP_MODEL} x {MP_MODEL} data x model; copies "
-          "between cards bypassed: one card)")
+    phase = mp_phase("H-mp", physical)
+    r = report["phases"].setdefault(phase, {})
+    print(f"phase {phase}: H's {LM_STEPS} subsampled steps with --model-parallel {MP_MODEL} on "
+          f"{mp_where(physical)}, {MP_SLOTS // MP_MODEL} x {MP_MODEL} data x model")
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
+    cards = reset_card_peaks(physical)
     reset_transfers()
-    with force_devices(MP_SLOTS, physical=1), timed_transfers() as events:
-        out = counted(report, "H-mp", lambda: train.main([
+    with force_devices(MP_SLOTS, physical=physical), timed_transfers() as events:
+        out = counted(report, phase, lambda: train.main([
             "--steps", str(LM_STEPS), "--ckpt-every", str(LM_STEPS),
             "--ckpt-dir", f"{root}/mp", "--model-parallel", str(MP_MODEL)]))
         counts = transfer_counts()
         mesh = make_mesh_for_devices(model_parallel=MP_MODEL, device="cuda")
+    r["card_peaks_gib"] = card_peaks_gib(cards)
     # the launcher's checkpoint, saved from the pieces, against H's files
     t0 = time.perf_counter()
     step_dir = lambda d: os.path.join(d, f"step_{ckpt.latest_step(d):010d}")  # noqa: E731
@@ -1764,8 +1848,8 @@ def phase_h_mp(report, root, h_params, h_infos):
     print(f"  its step-{LM_STEPS - 1} checkpoint, written piece by piece, against H's: "
           f"{compared / 1e9:.2f} GB byte for byte: {same_files} ({r['ckpt_compare_s']:.1f}s, "
           "warm page cache)")
-    check(same_files, "phase H-mp: the launcher's checkpoint saved from the mesh's pieces holds "
-          "H's checkpoint files byte for byte")
+    check(same_files, f"phase {phase}: the launcher's checkpoint saved from the mesh's pieces "
+          "holds H's checkpoint files byte for byte")
     shutil.rmtree(f"{root}/mp", ignore_errors=True)
     leaves = _leaves(out["params"])
     n_leaves = len(leaves)
@@ -1788,13 +1872,14 @@ def phase_h_mp(report, root, h_params, h_infos):
           f"ms; a step gathers {r['gather_gb_a_step']:.2f} GB in {r['gather_ms_a_step']:.1f} ms "
           f"and scatters {r['scatter_gb_a_step']:.2f} GB in {r['scatter_ms_a_step']:.1f} ms "
           f"(the initial split {r['init_scatter_ms']:.1f} ms); peak {r['peak_gib']:.2f} GiB above "
-          f"the {r['resident_gib']:.2f} GiB resident (H: {r['h_peak_gib']:.2f} GiB)")
+          f"the {r['resident_gib']:.2f} GiB resident (H: {r['h_peak_gib']:.2f} GiB); each card's "
+          f"peak above what it held {[round(g, 2) for g in r['card_peaks_gib']]} GiB")
     same_infos = len(out["infos"]) == len(h_infos) == LM_STEPS and all(
         np.array_equal(a[k], b[k]) for a, b in zip(out["infos"], h_infos) for k in a)
     same_params = all(torch.equal(a.gather(), b) for a, b in zip(leaves, _leaves(h_params)))
     r.update(infos_bitwise=same_infos, params_bitwise=same_params)
     check(same_infos and same_params,
-          "phase H-mp: every step's info and every final parameter (gathered leaf by leaf) "
+          f"phase {phase}: every step's info and every final parameter (gathered leaf by leaf) "
           "equal H's subsampled run bit for bit")
     del out, leaves
     torch.cuda.empty_cache()
@@ -1812,10 +1897,12 @@ def phase_h_mp(report, root, h_params, h_infos):
     r["restore_bitwise"] = same
     print(f"  H's checkpoint restored onto the 2 x 2 shardings in {r['restore_s']:.1f}s (warm "
           f"page cache), equal to H's parameters: {same}")
-    check(same, "phase H-mp: H's checkpoint restored onto the mesh's shardings equals H's "
+    check(same, f"phase {phase}: H's checkpoint restored onto the mesh's shardings equals H's "
           "parameters bit for bit")
     del restored
     torch.cuda.empty_cache()
+    if physical != 1:
+        return
 
     # written down, not bounded: the dry run's temp bytes at H's batch
     spec = ShapeSpec("h_train", 64, 16, "train")
@@ -1921,15 +2008,14 @@ def phase_j(report, target, theta):
           f"({k}, {theta.shape[0]}, {theta.shape[1]}), {steps} steps")
     ens = ChainEnsemble(target, RandomWalk(CE_SIGMA), k,
                         config=SubsampledMHConfig(batch_size=CE_M, epsilon=0.05, sampler="fy"),
-                        collect=lambda t: t[:, :2, :4].clone())
-    state = ens.init(theta)
-    del theta
+                        collect=lambda t: t[:, :2, :4].clone(), shard=False)
+    state0 = ens.init(theta)
     torch.cuda.reset_peak_memory_stats()
 
     def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = ens.run(41, state, steps)
+        out = ens.run(41, state0, steps)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
@@ -1947,6 +2033,80 @@ def phase_j(report, target, theta):
     check(bool(torch.isfinite(samples).all()) and samples.shape == (k, steps, 2, 4),
           f"phase J samples finite, shape {tuple(samples.shape)}")
     check(0.0 < r["accept"] < 1.0, "phase J: the chains accept and reject")
+    launches = report["phases"]["J"]["launches"]
+    return {"ens": ens, "theta0": theta, "theta": state.theta, "samples": samples,
+            "infos": infos, "rate": r["transitions_per_s"], "steps": steps,
+            "ce_a_round": launches["batched_fused_ce"] // launches["t_test_round"]}
+
+
+def slot_launches(kernel: str) -> dict:
+    """``kernel``'s launches per mesh slot in the last counted run."""
+    from repro_torch.kernels import ops
+
+    return {str(slot): n for (slot, name), n in ops.slot_launches.items() if name == kernel}
+
+
+def phase_j_mp(report, target, j, physical=1):
+    """J's ensemble again with ``shard=True`` over four slots (a 4-chain
+    mesh, two chains a slot; on cuda:0, or one slot a card over
+    ``physical`` cards), from J's initial tables (a fresh state: the
+    Fisher-Yates buffers are drawn in place) and seed: the collected
+    samples, every info field and the final tables must equal J's bit for
+    bit. Recorded: transitions/s against J's, the CE kernel's launches a
+    slot against the round op's, the copies between cards."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed import (device_copies, force_devices,
+                                         reset_device_copies)
+
+    phase = mp_phase("J-mp", physical)
+    report["phases"].setdefault(phase, {})
+    steps = j["steps"]
+    print(f"phase {phase}: J's ce ensemble (K={CE_K}, per-chain fp32 tables) with shard=True on "
+          f"{mp_where(physical)}, {steps} steps from J's state and seed")
+    with force_devices(MP_SLOTS, physical=physical):
+        ens = dataclasses.replace(j["ens"], shard=True)
+        mesh = None if ens._mesh is None else ens._mesh.shape
+        cards = reset_card_peaks(physical)
+        reset_device_copies()
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ens.run(41, ens.init(j["theta0"]), steps)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        (state, samples, infos), wall = counted(report, phase, run)
+    copies = device_copies()
+    slots = slot_launches("batched_fused_ce")
+    rounds = report["phases"][phase]["launches"].get("t_test_round", 0)
+    rate = CE_K * steps / wall
+    differ = [f for f, a, b in zip(type(infos)._fields, infos, j["infos"])
+              if not (a.dtype == b.dtype and torch.equal(a, b))]
+    same = {"samples": torch.equal(samples, j["samples"]), "infos": not differ,
+            "tables": torch.equal(state.theta, j["theta"])}
+    r = report["phases"][phase]
+    r.update(mesh=mesh, physical_cards=physical, transitions_per_s=rate,
+             unsharded_transitions_per_s=j["rate"], sharded_over_unsharded=rate / j["rate"],
+             slot_launches=slots, copies_between_cards=copies,
+             copies_a_transition={k: v / steps for k, v in copies.items()},
+             card_peaks_gib=card_peaks_gib(cards), bitwise=same)
+    print(f"  {card_line()}: mesh {mesh}; transitions/s {rate:.2f} against J's {j['rate']:.2f} "
+          f"({rate / j['rate']:.3f}x); batched_fused_ce launches a slot {slots}, round-op "
+          f"launches {rounds}; copies between cards {copies['count']} ({copies['bytes'] / 1e9:.2f} "
+          f"GB, {copies['bytes'] / steps / 1e9:.3f} GB a transition); each card's peak "
+          f"{[round(g, 2) for g in r['card_peaks_gib']]} GiB; bit for bit J's: {same}")
+    check(mesh == {"chains": MP_SLOTS} and len(slots) == MP_SLOTS and rounds > 0
+          and all(n == j["ce_a_round"] * rounds for n in slots.values()),
+          f"phase {phase}: the CE kernel launched on each of the {MP_SLOTS} slots as often a "
+          f"round as in J ({j['ce_a_round']}; {slots}; round-op launches {rounds})")
+    check(all(same.values()), f"phase {phase}: samples, every info field and the final tables "
+          f"equal J's bit for bit ({same}; info fields that differ: {differ})")
+    del state, samples, infos
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2221,7 +2381,7 @@ def phase_h_mala(report, params, cfg):
             "grad_ms": grad_ms, "steps_per_s": r["steps_per_s"]}
 
 
-def phase_h_mala_mp(report, params, cfg, mala):
+def phase_h_mala_mp(report, params, cfg, mala, physical=1):
     """H-mala's chain again for its first ``HM_MP_STEPS`` steps on H's
     parameters split over the 2 x 2 mesh of H-mp (``--model-parallel 2`` on
     four slots of cuda:0), H-mala's pool split by rows (``shard_batch``):
@@ -2230,7 +2390,8 @@ def phase_h_mala_mp(report, params, cfg, mala):
     unsharded row chunks. Every step's info, every gradient and theta' leaf
     (bit digests) and the parameters after the last step must be H-mala's
     bit for bit. Recorded: the gradient pass's ms, steps/s, gathered and
-    scattered GB a step, the peak above what was resident."""
+    scattered GB a step, the peak above what was resident (each card's over
+    ``physical`` cards, one slot a card)."""
     import torch
 
     from repro_torch.bayes import TrainConfig, make_train_step
@@ -2240,18 +2401,18 @@ def phase_h_mala_mp(report, params, cfg, mala):
     from repro_torch.launch.mesh import make_mesh_for_devices
     from repro_torch.models import param_specs
 
-    r = report["phases"]["H-mala-mp"]
+    phase = mp_phase("H-mala-mp", physical)
+    r = report["phases"].setdefault(phase, {})
     tc = TrainConfig(round_batch=4, epsilon=0.05, proposal="mala", mala_step=HM_STEP)
-    print(f"phase H-mala-mp: H-mala's first {HM_MP_STEPS} steps with --model-parallel {MP_MODEL} on "
-          f"{MP_SLOTS} slots of cuda:0 ({MP_SLOTS // MP_MODEL} x {MP_MODEL} data x model; copies "
-          "between cards bypassed: one card)")
-    with force_devices(MP_SLOTS, physical=1):
+    print(f"phase {phase}: H-mala's first {HM_MP_STEPS} steps with --model-parallel {MP_MODEL} on "
+          f"{mp_where(physical)}, {MP_SLOTS // MP_MODEL} x {MP_MODEL} data x model")
+    with force_devices(MP_SLOTS, physical=physical):
         mesh = make_mesh_for_devices(model_parallel=MP_MODEL, device="cuda")
         sp = shard_params(params, mesh, specs=param_specs(cfg))
         batch = shard_batch(lm_pool(cfg), mesh)
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
+        cards = reset_card_peaks(physical)
         reset_transfers()
 
         def run():
@@ -2260,8 +2421,9 @@ def phase_h_mala_mp(report, params, cfg, mala):
                 counts = transfer_counts()
             return out + (rec, counts, events)
 
-        final, infos, secs, _, rec, counts, events = counted(report, "H-mala-mp", run)
+        final, infos, secs, _, rec, counts, events = counted(report, phase, run)
     peak = torch.cuda.max_memory_allocated()
+    r["card_peaks_gib"] = card_peaks_gib(cards)
     secs = [s - d for s, d in zip(secs, rec["digest_s"])]
     n = len(infos)
     r.update(steps=n, steps_per_s=(n - 1) / sum(secs[1:]), step_s=secs,
@@ -2281,7 +2443,8 @@ def phase_h_mala_mp(report, params, cfg, mala):
           f"{r['scatter_ms_a_step']:.1f} ms; peak {r['peak_gib']:.2f} GiB above the "
           f"{r['resident_gib']:.2f} GiB resident (the sharded gradient's pieces among it), "
           f"against the whole model's {r['model_gib']:.2f} GiB; bit digests "
-          f"{r['digest_s']:.1f}s apart")
+          f"{r['digest_s']:.1f}s apart; each card's peak "
+          f"{[round(g, 2) for g in r['card_peaks_gib']]} GiB")
     accepted = [i for i in range(n) if bool(mala["infos"][i].accepted)]
     want_final = mala["theta_p_digests"][accepted[-1]] if accepted else mala["initial_digests"]
     same = {"infos": n == HM_MP_STEPS and all(
@@ -2291,10 +2454,10 @@ def phase_h_mala_mp(report, params, cfg, mala):
             "final": tree_digests(final) == want_final}
     r.update(bitwise=same, grad_types=rec["grad_types"])
     print(f"  bit for bit H-mala's: {same}; gradients returned as {r['grad_types']}")
-    check(all(same.values()), "phase H-mala-mp: every step's info, gradient and theta' and the "
+    check(all(same.values()), f"phase {phase}: every step's info, gradient and theta' and the "
           f"final parameters equal H-mala's bit for bit ({same})")
     check(r["grad_types"] == ["ShardedTensor"],
-          "phase H-mala-mp: the gradients come back sharded, in the leaves' layouts")
+          f"phase {phase}: the gradients come back sharded, in the leaves' layouts")
 
 
 # ---------------------------------------------------------------------------
@@ -2628,23 +2791,33 @@ def phase_t(report, ckpt_dir):
     return out
 
 
-def phase_t_mp(report, ckpt_dir, t_out):
-    """T again with ``--model-parallel 2`` on four slots of cuda:0: H's
-    checkpoint read straight onto a 2 x 2 mesh's pieces, each layer
-    gathered on the card as it runs. The same operations on the same
-    gathered weights, so the prefill's logits and every generated token
-    must equal T's bit for bit, at full depth. One card: copies between
-    cards are bypassed."""
+def phase_t_mp(report, ckpt_dir, t_out, physical=1):
+    """T again with ``--model-parallel 2`` on four slots of cuda:0 (or one a
+    card over ``physical`` cards): H's checkpoint read straight onto a 2 x 2
+    mesh's pieces, each layer gathered on the card as it runs. The same
+    operations on the same gathered weights, so the prefill's logits and
+    every generated token must equal T's bit for bit, at full depth. On one
+    card copies between cards are bypassed."""
     import torch
 
-    from repro_torch.distributed import ShardedTensor, force_devices
+    from repro_torch.distributed import (ShardedTensor, force_devices, reset_transfers,
+                                         timed_transfers, transfer_counts)
 
-    print(f"phase T-mp: T with --model-parallel {MP_MODEL} on {MP_SLOTS} slots of cuda:0")
-    with force_devices(MP_SLOTS, physical=1):
-        out = run_serve_lm(report, "T-mp", ["--workload", "lm", "--arch", "chatglm3-6b",
-                                            "--ckpt-dir", ckpt_dir,
-                                            "--model-parallel", str(MP_MODEL)])
-    r = report["phases"]["T-mp"]
+    phase = mp_phase("T-mp", physical)
+    report["phases"].setdefault(phase, {})
+    print(f"phase {phase}: T with --model-parallel {MP_MODEL} on {mp_where(physical)}")
+    cards = reset_card_peaks(physical)
+    reset_transfers()
+    with force_devices(MP_SLOTS, physical=physical), timed_transfers() as events:
+        out = run_serve_lm(report, phase, ["--workload", "lm", "--arch", "chatglm3-6b",
+                                           "--ckpt-dir", ckpt_dir,
+                                           "--model-parallel", str(MP_MODEL)])
+        counts = transfer_counts()
+    r = report["phases"][phase]
+    steps = out["tokens"].shape[1]
+    r.update(card_peaks_gib=card_peaks_gib(cards), transfers=counts,
+             gather_gb_a_step=counts["gather"]["bytes"] / steps / 1e9,
+             gather_ms_a_step=_ms(events["gather"]) / steps)
     t = report["phases"]["T"]
     sharded = isinstance(out["params"]["embed"]["table"], ShardedTensor)
     same_logits = torch.equal(out["prefill_logits"], t_out["prefill_logits"])
@@ -2652,11 +2825,14 @@ def phase_t_mp(report, ckpt_dir, t_out):
     r.update(sharded=sharded, prefill_bitwise=same_logits, tokens_bitwise=same_tokens,
              t_decode_tok_s=t["decode_tok_s"], t_decode_step_ms=t["decode_step_ms"],
              t_prefill_tok_s=t["prefill_tok_s"])
-    print(f"  {card_line()}: T-mp decode {r['decode_tok_s']:.1f} tok/s, {r['decode_step_ms']:.2f} "
-          f"ms a step, prefill {r['prefill_tok_s']:.1f} tok/s; T {t['decode_tok_s']:.1f} tok/s, "
-          f"{t['decode_step_ms']:.2f} ms, prefill {t['prefill_tok_s']:.1f}")
+    print(f"  {card_line()}: {phase} decode {r['decode_tok_s']:.1f} tok/s, "
+          f"{r['decode_step_ms']:.2f} ms a step, prefill {r['prefill_tok_s']:.1f} tok/s; T "
+          f"{t['decode_tok_s']:.1f} tok/s, {t['decode_step_ms']:.2f} ms, prefill "
+          f"{t['prefill_tok_s']:.1f}; {r['gather_gb_a_step']:.2f} GB gathered a decode step in "
+          f"{r['gather_ms_a_step']:.1f} ms (prefill and the first read included); each card's "
+          f"peak {[round(g, 2) for g in r['card_peaks_gib']]} GiB")
     check(sharded and same_logits and same_tokens,
-          "phase T-mp: from sharded parameters the prefill's logits and all "
+          f"phase {phase}: from sharded parameters the prefill's logits and all "
           f"{out['tokens'].shape[1]} generated tokens of every row equal T's bit for bit")
 
 
@@ -2848,7 +3024,123 @@ def phase_t_cut(report, phase, arch, check_layers):
     cfg = dataclasses.replace(full, n_layers=n)
     family_header(phase, cfg, full, why)
     out = decode_cut(report, phase, cfg)
+    kept = {"prefill_logits": out["prefill_logits"].cpu(), "tokens": out["tokens"].cpu()}
     hold_decoding(report["phases"][phase], phase, out, check_layers=check_layers)
+    return kept
+
+
+HYBRID_ARCH = "jamba-v0.1-52b"
+
+
+def param_bytes_a_card(cfg, model_parallel: int, cards: int) -> list[int]:
+    """Each slot's bytes of ``cfg``'s parameters on the (data, model) mesh
+    of ``cards`` slots, one a card, by the rules the launcher shards with
+    (the dry run's per-slot count, on meta tensors: nothing allocated), in
+    the mesh's order of slots."""
+    from repro_torch.distributed import force_devices
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.launch.steps import spec_tree_to_shardings
+    from repro_torch.models import abstract_params, param_specs
+
+    with force_devices(cards):
+        mesh = make_mesh_for_devices(model_parallel=model_parallel, device="meta")
+        shardings = spec_tree_to_shardings(param_specs(cfg), mesh)
+    per = dryrun.slot_bytes(abstract_params(cfg), shardings)
+    return [per[k] for k in sorted(per)]
+
+
+def phase_t_hybrid_cards(report, cut_out, physical=MP_SLOTS):
+    """jamba-v0.1-52b whole (all 32 layers, 103 GB of bf16 parameters)
+    over four cards, one slot a card, through ``serve_lm --model-parallel
+    N`` at the front end's defaults, parameters from ``init_sharded_params``
+    (seed 0): each leaf drawn whole on cuda:0, split, freed. First the
+    bytes each card holds at N = 2 and 4 (the dry run's count); then the
+    first period alone decoded over the four cards, which must equal
+    T-hybrid's one-card cut bit for bit (prefill logits and 64 tokens);
+    then the whole model at N = 4 and at N = 2, which must equal each other
+    bit for bit, every prefill logit finite. Recorded: prefill and decode
+    tok/s, ms a decode step, GB gathered a step and each card's peak. With
+    ``physical`` < 4 (a rehearsal on fewer cards) the four slots cycle over
+    them and only the first period runs."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.distributed import (force_devices, logical_axis_rules, reset_transfers,
+                                         timed_transfers, transfer_counts)
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.launch.train import init_sharded_params
+
+    phase = "T-hybrid-4cards"
+    report["phases"].setdefault(phase, {})
+    r = report["phases"][phase]
+    full = ARCHS[HYBRID_ARCH]
+    cards = X_SLOTS
+    a_card = {mp: param_bytes_a_card(full, mp, cards) for mp in (4, 2)}
+    mp = min(a_card, key=lambda m: max(a_card[m]))
+    r.update(param_gb_a_card={m: [b / 1e9 for b in v] for m, v in a_card.items()},
+             model_parallel=mp)
+    family_header(phase, full, full, f"whole over {cards} cards")
+    print(f"  parameter bytes a card (the dry run's count): " + "; ".join(
+        f"--model-parallel {m}: {[round(b / 1e9, 2) for b in v]} GB" for m, v in a_card.items())
+          + f"; N = {mp} holds the least on its fullest card")
+
+    def decode(name, cfg, model_parallel, whole):
+        report["phases"].setdefault(name, {})
+        cards_at = reset_card_peaks(physical)
+        reset_transfers()
+        with force_devices(cards, physical), timed_transfers() as events:
+            if whole:
+                out = run_serve_lm(report, name, ["--workload", "lm", "--arch", cfg.name,
+                                                  "--model-parallel", str(model_parallel)])
+            else:
+                args = serve.build_parser().parse_args(["--workload", "lm", "--arch", cfg.name])
+                mesh = make_mesh_for_devices(model_parallel=model_parallel, device="cuda")
+                params = init_sharded_params(0, cfg, mesh, device="cuda")
+                out = {}
+                with tee_stdout() as tee, logical_axis_rules(mesh):
+                    code = counted(report, name, lambda: serve.decode_lm(
+                        params, cfg, batch=args.batch, prompt_len=args.prompt_len,
+                        gen_len=args.gen_len, out=out))
+                del params
+                decode_record(report, name, code, tee.lines(), out, args,
+                              [f"(n_layers={cfg.n_layers})"])
+            counts = transfer_counts()
+        steps = out["tokens"].shape[1]
+        rec = report["phases"][name]
+        rec.update(card_peaks_gib=card_peaks_gib(cards_at), transfers=counts,
+                   gather_gb_a_step=counts["gather"]["bytes"] / steps / 1e9,
+                   gather_ms_a_step=_ms(events["gather"]) / steps, layers=cfg.n_layers)
+        print(f"  {name}: {cfg.n_layers} layers, --model-parallel {model_parallel}: "
+              f"{rec['gather_gb_a_step']:.2f} GB gathered a decode step in "
+              f"{rec['gather_ms_a_step']:.1f} ms (prefill and init included); each card's peak "
+              f"{[round(g, 2) for g in rec['card_peaks_gib']]} GiB")
+        got = {"prefill_logits": out["prefill_logits"].cpu(), "tokens": out["tokens"].cpu()}
+        del out
+        torch.cuda.empty_cache()
+        return got
+
+    period = dataclasses.replace(full, n_layers=FAMILY_CUTS[HYBRID_ARCH][0])
+    first = decode(phase + "-period", period, mp, False)
+    same_cut = {k: torch.equal(first[k], cut_out[k]) for k in first}
+    print(f"  the first period over {cards} slots on {physical} card(s) against T-hybrid's "
+          f"one-card cut: {same_cut}")
+    check(all(same_cut.values()), f"phase {phase}: the first period decoded over {cards} slots "
+          "equals T-hybrid's one-card cut bit for bit")
+    if physical < cards:
+        return
+    runs = {m: decode(f"{phase}" if m == mp else f"{phase}-mp{m}", full, m, True)
+            for m in (mp, 6 - mp)}
+    same_meshes = {k: torch.equal(runs[4][k], runs[2][k]) for k in runs[4]}
+    finite = all(bool(torch.isfinite(v["prefill_logits"]).all()) for v in runs.values())
+    r.update(first_period_bitwise=same_cut, meshes_bitwise=same_meshes, finite=finite)
+    print(f"  {card_line()} x {torch.cuda.device_count()}: the whole model at --model-parallel "
+          f"4 against 2 {same_meshes}; finite {finite}")
+    check(all(same_meshes.values()) and finite, f"phase {phase}: the whole model decoded over "
+          "--model-parallel 4 and 2 is bit for bit itself, its logits finite")
 
 
 def moe_shares(log, layers_a_forward):
@@ -2965,10 +3257,16 @@ def family_phases(report, wanted=FAMILY_PHASES) -> dict:
     for phase in FAMILY_PHASES:
         if phase in wanted:
             t0 = time.perf_counter()
-            runs[phase]()
+            out = runs[phase]()
             torch.cuda.empty_cache()
             seconds[phase] = time.perf_counter() - t0
             print(f"  {phase}: {seconds[phase]:.1f} s")
+            if phase == "T-hybrid" and torch.cuda.device_count() >= X_SLOTS:
+                t0 = time.perf_counter()
+                phase_t_hybrid_cards(report, out)
+                torch.cuda.empty_cache()
+                seconds["T-hybrid-4cards"] = time.perf_counter() - t0
+                print(f"  T-hybrid-4cards: {seconds['T-hybrid-4cards']:.1f} s")
     seconds["total"] = sum(v for k, v in seconds.items() if k != "total")
     return seconds
 
@@ -3687,10 +3985,10 @@ def phase_q(report):
 
 R_QUERIES = 400  # as Q: the front end's non-smoke default
 # the paced window of R-bg and R-proc ends at 3 commits of the writer (2
-# refresh intervals), or at 20 s; the refresh alone is timed over 3
+# refresh intervals), or at 20 s; the refresh alone is timed over 2
 # refreshes before the window, after it, and after the replicas closed
 # (cut from 10 commits and 5 refreshes to keep the script's time limit)
-R_BG_COMMITS, R_BG_MAX_S, R_ALONE_REFRESHES = 3, 20.0, 3
+R_BG_COMMITS, R_BG_MAX_S, R_ALONE_REFRESHES = 3, 20.0, 2
 # the conjugate harness of the reference's tests (tests/conftest.py:79):
 # n, D, K, burn, kept, and the partition counts
 R_TRUTH_N, R_TRUTH_D, R_TRUTH_K, R_TRUTH_BURN, R_TRUTH_KEEP = 768, 2, 4, 250, 350
@@ -4025,6 +4323,96 @@ def phase_r_bg(report, phase, transport):
         check(all((st.get("start_s") or 0) > 0 and (st.get("device_bytes_allocated") or 0) > 0
                   for st in replicas),
               f"phase {phase}: each replica process started and holds its data on the card")
+
+
+R_LANES, R_LANES_REPLICAS = (1, 2, 4), 4  # R-lanes: lanes_per_shard over one 4-replica fleet
+
+
+def phase_r_lanes(report):
+    """R's fleet (``--fleet``) with four replicas, warmed once, served
+    through one router for each ``lanes_per_shard`` of ``R_LANES``, 400
+    requests of R's classes each, submitted and drained in bursts as
+    ``serve_fleet`` does: requests/s and p99 per class, and the requests
+    each lane served. Every request must be answered, only the first N
+    replicas serve, and every answer of the default class must hold to
+    float64 numpy on the snapshot's draws at R's bar (rtol 1e-4, atol
+    1e-5): no refresh runs between, so every replica serves that snapshot."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fleet import AdmissionConfig, FleetRouter
+    from repro_torch.launch import serve
+
+    args = serve_args("bayeslr", "--queries", str(R_QUERIES), "--fleet", "--replicas",
+                      str(R_LANES_REPLICAS))
+    print(f"phase R-lanes: R's fleet with {R_LANES_REPLICAS} replicas warmed once, served at "
+          f"lanes_per_shard {R_LANES}, {R_QUERIES} requests each")
+    with tee_stdout():
+        fleet, workload, classes = serve._build_fleet(args)
+    r = report["phases"]["R-lanes"]
+    try:
+        t0 = time.perf_counter()
+        fleet.warm()
+        serve._compile_lanes(args, fleet, workload)
+        r["warm_s"] = time.perf_counter() - t0
+        snap = fleet.shards(args.workload)[0].writer.snapshot()
+        names = [rep.name for rep in fleet.shards(args.workload)[0].replicas]
+        cls0 = workload.default_class
+        priorities = {c: 0 for c in classes}
+        priorities[cls0] = 1
+        burst = max(2, args.max_batch // 2)
+
+        def serve_at(lanes):
+            router = FleetRouter(
+                fleet, priorities=priorities, lanes_per_shard=lanes, max_batch=args.max_batch,
+                admission=AdmissionConfig(max_depth=args.max_depth,
+                                          max_miss_rate=args.max_miss_rate),
+                default_deadline_s=args.deadline_ms / 1e3)
+            qgen = torch.Generator().manual_seed(args.seed + 1)
+            pending = []
+            t0 = time.perf_counter()
+            for i in range(0, R_QUERIES, burst):
+                for j in range(min(burst, R_QUERIES - i)):
+                    cls = classes[(i + j) % len(classes)]
+                    xs = workload.query_specs[cls].make_queries(qgen, args.rows_per_query)
+                    pending.append((cls, xs, router.submit(args.workload, cls, xs)))
+                router.drain()
+            wall = time.perf_counter() - t0
+            rep = router.slo_report()
+            worst, held = 0.0, 0
+            for cls, xs, req in pending:
+                if cls != cls0 or req.error is not None:
+                    continue
+                want = serve._offline_reference(workload, workload.query_specs[cls], snap, xs)
+                got = np.asarray(req.values, np.float64)
+                worst = max(worst, float(np.max(np.abs(got - want) / (
+                    serve.PARITY_TOL["atol"] + serve.PARITY_TOL["rtol"] * np.abs(want)))))
+                held += 1
+            answered = sum(req.done.is_set() and req.error is None for _, _, req in pending)
+            return {"lanes": [l.replica.name for l in router._lanes[args.workload]],
+                    "served_a_lane": [l.served for l in router._lanes[args.workload]],
+                    "answered": answered, "errors": rep["errors"], "shed": rep["shed"],
+                    "req_per_s": answered / wall, "wall_s": wall,
+                    "p99_ms": {c: e["p99_ms"] for c, e in rep["classes"].items()},
+                    "parity_held": held, "parity_worst_over_bar": worst}
+
+        out = counted(report, "R-lanes", lambda: {n: serve_at(n) for n in R_LANES})
+    finally:
+        fleet.close()
+    r["by_lanes"] = out
+    for n, e in out.items():
+        print(f"  lanes_per_shard {n}: {e['req_per_s']:.1f} requests/s, p99 ms "
+              + ", ".join(f"{c} {v:.3f}" for c, v in e["p99_ms"].items() if v is not None)
+              + f"; served a lane {e['served_a_lane']}; {e['answered']} answered; parity "
+              f"worst {e['parity_worst_over_bar']:.3f} of R's bar over {e['parity_held']} "
+              "answers")
+    print(f"  {card_line()}")
+    check(all(e["lanes"] == names[:n] and e["answered"] == R_QUERIES and e["errors"] == 0
+              and e["shed"] == 0 for n, e in out.items()),
+          "phase R-lanes: only each shard's first N replicas serve, and every request is "
+          "answered")
+    check(all(e["parity_held"] > 0 and e["parity_worst_over_bar"] <= 1.0 for e in out.values()),
+          "phase R-lanes: every default-class answer within R's bar of float64 numpy")
 
 
 def phase_r(report):
@@ -4509,10 +4897,7 @@ def x_layouts() -> list[tuple[str, int]]:
 def x_slot_launches(report, phase) -> dict:
     """``batched_logit_delta`` launches per mesh slot in ``phase``'s counted
     run, checked equal to its round-op launches on every slot."""
-    from repro_torch.kernels import ops
-
-    slots = {str(slot): n for (slot, name), n in ops.slot_launches.items()
-             if name == "batched_logit_delta"}
+    slots = slot_launches("batched_logit_delta")
     rounds = report["phases"][phase]["launches"].get("t_test_round", 0)
     check(len(slots) == X_SLOTS and all(n == rounds > 0 for n in slots.values()),
           f"phase {phase}: batched_logit_delta launched on each of the {X_SLOTS} slots once a "
@@ -4542,16 +4927,18 @@ def x_run(report, phase, data, steps, physical, **kw):
     ((samples, infos, controller), transitions/s, seconds)."""
     import torch
 
-    from repro_torch.distributed import force_devices
+    from repro_torch.distributed import device_copies, force_devices, reset_device_copies
 
     def run():
         with force_devices(X_SLOTS, physical):
+            reset_device_copies()
             t0 = time.perf_counter()
             samples, _, state, infos = bayeslr_ensemble(3, data, 32, steps, **kw)
             torch.cuda.synchronize()
         return (samples, infos, state.controller), time.perf_counter() - t0
 
     out, wall = counted(report, phase, run)
+    report["phases"][phase]["copies_between_cards"] = device_copies()
     return out, 32 * steps / wall, wall
 
 
@@ -4565,7 +4952,7 @@ def x_unsharded(data, steps, **kw):
     return (samples, infos, state.controller), 32 * steps / wall
 
 
-def phase_x(report, data, c_out, k_out):
+def phase_x(report, data, c_out, k_out, layouts=None):
     """The chains x data mesh on the card, each run held bit for bit against
     its unsharded counterpart (samples and every info field): X-chains
     (``shard=True``, 4 x 1) against C's first steps; X-2d (2 x 2, the
@@ -4573,7 +4960,8 @@ def phase_x(report, data, c_out, k_out):
     X-masked (2 x 2, masked) against K; X-L (L's adaptive masked run with
     the bounded Fisher-Yates draws, 1 x 4) and X-bf16 (2 x 2 at precision
     bf16) against the same run unsharded in this call; then X-fleet. Four
-    slots on cuda:0 (and on four cards where there are four)."""
+    slots on cuda:0 (and on four cards where there are four): ``layouts``,
+    default :func:`x_layouts`."""
     import os
 
     import torch
@@ -4587,7 +4975,7 @@ def phase_x(report, data, c_out, k_out):
     first = lambda steps, smp, inf: (smp[:, :steps], SubsampledMHInfo(  # noqa: E731
         *(f[:, :steps] for f in inf)), None)
     secs = {}
-    for suffix, physical in x_layouts():
+    for suffix, physical in layouts or x_layouts():
         runs = (
             ("X-chains", X_CHAINS_STEPS, dict(shard=True),
              first(X_CHAINS_STEPS, c_samples, c_infos), c_rate),
@@ -4621,6 +5009,8 @@ def phase_x(report, data, c_out, k_out):
             slots = x_slot_launches(report, phase)
             x_same(f"phase {phase}", got, want)
             secs[phase] = time.perf_counter() - t0
+            copies = report["phases"][phase]["copies_between_cards"]
+            rounds = max(1, report["phases"][phase]["launches"].get("t_test_round", 0))
             report["phases"][phase].update(
                 steps=steps, shard=str(kw["shard"]), physical_cards=physical,
                 transitions_per_s=sharded_rate, unsharded_transitions_per_s=rate,
@@ -4630,8 +5020,9 @@ def phase_x(report, data, c_out, k_out):
                   f"{steps} steps: transitions/s sharded {sharded_rate:.1f}, unsharded "
                   f"{rate:.1f} ({sharded_rate / rate:.3f}x); batched_logit_delta launches a "
                   f"slot {slots}; round-op launches "
-                  f"{report['phases'][phase]['launches'].get('t_test_round', 0)}; "
-                  f"{secs[phase]:.2f} s; bit for bit")
+                  f"{report['phases'][phase]['launches'].get('t_test_round', 0)}; copies between "
+                  f"cards {copies['count'] / rounds:.2f} ({copies['bytes'] / rounds:.0f} bytes) a "
+                  f"round; {secs[phase]:.2f} s; bit for bit")
     t0 = time.perf_counter()
     phase_x_fleet(report)
     secs["X-fleet"] = time.perf_counter() - t0
@@ -4715,7 +5106,7 @@ U_SHAPES = {
                     (1_000_000, 2), (1000, 50), (50_000, 50)],
     "batched_loglik": [(32, 100, 50), (32, 400, 50), (8, 100, 3), (8, 100, 50), (16, 50, 50),
                        (32, 25, 50), (8, 512, 32), (8, 64, 4), (4, 256, 32), (256, 128, 64),
-                       (1, 128, 4), (16, 2000, 8), (4, 100, 3)],
+                       (1, 128, 4), (16, 2000, 8), (4, 100, 3), (32, 12214, 50)],
     "gaussian_ar1": [(1, 100), (32, 100), (1, 1000), (1, 10_000), (1, 100_000), (8, 128),
                      (1, 64), (256, 128), (4, 100)],
 }
@@ -4785,8 +5176,8 @@ def phase_u(report):
 
 
 ADAM_PRESET = "100m"  # examples/lm_train_torch.py's largest preset
-# 20 MH steps a pass (cut from 60 for the script's time limit)
-ADAM_STEPS, ADAM_MH_STEPS, ADAM_BATCH, ADAM_SEQ = 300, 20, 16, 64
+# 200 Adam steps and 10 MH steps a pass (cut from 300 and 60 for the script's time limit)
+ADAM_STEPS, ADAM_MH_STEPS, ADAM_BATCH, ADAM_SEQ = 200, 10, 16, 64
 ADAM_WIDE_LAYERS = 2  # chatglm3-6b at full width, depth cut for phase H-adam (b)
 
 
@@ -4798,8 +5189,8 @@ def _finite(tree) -> bool:
 
 def phase_h_adam(report):
     """The hybrid Adam-then-MH path: (a) ``examples/lm_train_torch.run`` at
-    its ``100m`` preset, 300 Adam steps then 60 MH steps over the final norm,
-    each pass twice from one seed; the Adam step's time by
+    its ``100m`` preset, ``ADAM_STEPS`` Adam steps then ``ADAM_MH_STEPS``
+    MH steps over the final norm, each pass twice from one seed; the Adam step's time by
     ``wall_clock_step_stats``; (b) one Adam step alone on chatglm3-6b at
     full width cut to 2 layers."""
     import dataclasses
@@ -4900,8 +5291,12 @@ def phase_h_adam(report):
     print(f"  (b): {b['mean_ms']:.2f} ms mean, {b['min_ms']:.2f} min, "
           f"{b['tokens_per_s']:.0f} tokens/s, Adam state {b['adam_state_gib']:.2f} GiB, peak "
           f"{b['peak_gib']:.2f} GiB")
-    phase_h_adam_mp(report, wide, params, stream.batch(0), b_out, ex.LR)
-    del params, b_out
+    for _, physical in x_layouts():
+        phase_h_adam_mp(report, wide, params, stream.batch(0), b_out, ex.LR, physical)
+    del b_out
+    torch.cuda.empty_cache()
+    phase_h_sgd(report, wide, params, stream.batch(0))
+    del params
     torch.cuda.empty_cache()
     check(a["last_loss"] <= a["first_loss"] - 0.1,
           f"phase H-adam (a): the loss falls by at least 0.1 ({a['first_loss']:.4f} -> "
@@ -4920,7 +5315,7 @@ def phase_h_adam(report):
 ADAM_MP_STEPS = 3  # H-adam-mp: sharded Adam steps timed after the one held to H-adam (b)
 
 
-def phase_h_adam_mp(report, cfg, params, batch, want, lr):
+def phase_h_adam_mp(report, cfg, params, batch, want, lr, physical=1):
     """H-adam (b)'s one Adam step (the loss's gradient by autograd, then the
     update, from fresh moments) on its parameters split over H-mp's 2 x 2
     mesh: autograd through the gathered layers writes the gradient into
@@ -4938,22 +5333,23 @@ def phase_h_adam_mp(report, cfg, params, batch, want, lr):
     from repro_torch.optim import adam_init, adam_step, lm_loss_fn
     from repro_torch.optim.optimizers import value_and_grad
 
-    r = report["phases"]["H-adam-mp"]
-    print(f"phase H-adam-mp: H-adam (b)'s Adam step with --model-parallel {MP_MODEL} on "
-          f"{MP_SLOTS} slots of cuda:0 ({MP_SLOTS // MP_MODEL} x {MP_MODEL} data x model)")
+    phase = mp_phase("H-adam-mp", physical)
+    r = report["phases"].setdefault(phase, {})
+    print(f"phase {phase}: H-adam (b)'s Adam step with --model-parallel {MP_MODEL} on "
+          f"{mp_where(physical)}, {MP_SLOTS // MP_MODEL} x {MP_MODEL} data x model")
     vg = value_and_grad(lm_loss_fn(cfg))
 
     def step(p, o):
         _, grads = vg(p, batch)
         return adam_step(grads, o, p, lr=lr)
 
-    with force_devices(MP_SLOTS, physical=1):
+    with force_devices(MP_SLOTS, physical=physical):
         mesh = make_mesh_for_devices(model_parallel=MP_MODEL, device="cuda")
         sp = shard_params(params, mesh, specs=param_specs(cfg))
         opt = adam_init(sp)
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
+        cards = reset_card_peaks(physical)
         reset_transfers()
 
         def run():
@@ -4972,8 +5368,9 @@ def phase_h_adam_mp(report, cfg, params, batch, want, lr):
                 secs.append(time.perf_counter() - t0)
             return out, first, counts, gms, sms, secs
 
-        out, first, counts, gms, sms, secs = counted(report, "H-adam-mp", run)
+        out, first, counts, gms, sms, secs = counted(report, phase, run)
     peak = torch.cuda.max_memory_allocated()
+    r["card_peaks_gib"] = card_peaks_gib(cards)
     differ = []
     for part, got_t, want_t in (("params", out[0], want[0]), ("mu", out[1].mu, want[1].mu),
                                 ("nu", out[1].nu, want[1].nu)):
@@ -4993,12 +5390,124 @@ def phase_h_adam_mp(report, cfg, params, batch, want, lr):
     print(f"  {card_line()}: an Adam step {r['step_ms_mean']:.1f} ms mean over {ADAM_MP_STEPS} "
           f"(H-adam (b): {r['h_adam_b_mean_ms']:.2f}); a step gathers {r['gather_gb_a_step']:.2f} "
           f"GB in {gms:.1f} ms and scatters {r['scatter_gb_a_step']:.2f} GB in {sms:.1f} ms; peak "
-          f"{r['peak_gib']:.2f} GiB above the {r['resident_gib']:.2f} GiB resident; differing "
-          f"leaves {differ}")
+          f"{r['peak_gib']:.2f} GiB above the {r['resident_gib']:.2f} GiB resident (each card "
+          f"{[round(g, 2) for g in r['card_peaks_gib']]}); differing leaves {differ}")
     check(sharded and not differ and r["count_equal"],
-          "phase H-adam-mp: the sharded step's parameters and both moments (sharded) equal "
+          f"phase {phase}: the sharded step's parameters and both moments (sharded) equal "
           "H-adam (b)'s bit for bit")
     del out, sp, opt
+    torch.cuda.empty_cache()
+
+
+SGD_LR, SGLD_SEED = 1e-3, 7  # H-sgd: the step and the generator's seed (temperature 1)
+
+
+def sgld_all_first(gen, grads, params, lr, temperature=1.0):
+    """``sgld_step`` with every leaf's noise drawn whole before any update,
+    in the same sorted order (the form that held a whole noise tree): the
+    same generator stream, so the same bits; kept to measure its peak."""
+    import torch
+
+    from repro_torch.distributed.sharding import map_rows
+    from repro_torch.optim.optimizers import _at, _sorted_paths, _with_paths
+
+    scale = (2.0 * lr * temperature) ** 0.5
+    noise = {}
+    for path in _sorted_paths(params):
+        p = _at(params, path)
+        noise[path] = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=p.device)
+    return _with_paths(lambda path, p, g: map_rows(
+        lambda p_, g_, xi: (p_.float() + lr * g_.float() + scale * xi).to(p_.dtype),
+        [p, g, noise[path]]), params, grads)
+
+
+def phase_h_sgd(report, cfg, params, batch):
+    """``sgd_step`` and ``sgld_step`` on H-adam (b)'s model (chatglm3-6b at
+    full width cut to 2 layers) and batch: the gradient by autograd, then
+    one SGD and one SGLD step (lr ``SGD_LR``, temperature 1, a generator
+    seeded ``SGLD_SEED``), unsharded and on H-mp's 2 x 2 mesh of four slots
+    of cuda:0. The sharded steps' parameters must equal the unsharded
+    ones bit for bit, and SGLD drawing each leaf's noise just before its
+    update must equal the all-first draw bit for bit. Recorded: ms of the
+    gradient and of each update, and the peak above what was resident of
+    SGLD leaf by leaf against the all-first draw."""
+    import torch
+
+    from repro_torch.bayes.train import _flat_paths
+    from repro_torch.distributed import ShardedTensor, force_devices, shard_params
+    from repro_torch.launch.mesh import make_mesh_for_devices
+    from repro_torch.models import param_specs
+    from repro_torch.optim import lm_loss_fn, sgd_step, sgld_step
+    from repro_torch.optim.optimizers import value_and_grad
+
+    report["phases"].setdefault("H-sgd", {})
+    r = report["phases"]["H-sgd"]
+    print(f"phase H-sgd: sgd_step and sgld_step (lr {SGD_LR:g}, temperature 1) on {cfg.name} at "
+          f"full width cut to {cfg.n_layers} layers, unsharded and with --model-parallel "
+          f"{MP_MODEL} on {mp_where(1)}")
+    vg = value_and_grad(lm_loss_fn(cfg))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def peak_above(fn):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+    def steps(p, label):
+        vg(p, batch)  # first call: autograd's and cuBLAS's set-up
+        (_, g), grad_ms = timed(lambda: vg(p, batch))
+        sgd, sgd_ms = timed(lambda: sgd_step(g, p, lr=SGD_LR))
+        del sgd
+        gen = lambda: torch.Generator(device="cuda").manual_seed(SGLD_SEED)  # noqa: E731
+        (sgld, sgld_ms), peak = peak_above(lambda: timed(
+            lambda: sgld_step(gen(), g, p, lr=SGD_LR)))
+        first, first_peak = peak_above(lambda: sgld_all_first(gen(), g, p, SGD_LR))
+        sgd = sgd_step(g, p, lr=SGD_LR)
+        r[label] = dict(grad_ms=grad_ms, sgd_update_ms=sgd_ms, sgld_update_ms=sgld_ms,
+                        sgld_peak_gib=peak, sgld_all_first_peak_gib=first_peak)
+        print(f"  {label}: gradient {grad_ms:.1f} ms, SGD update {sgd_ms:.1f} ms, SGLD update "
+              f"{sgld_ms:.1f} ms; SGLD's peak above what was resident {peak:.2f} GiB leaf by "
+              f"leaf, {first_peak:.2f} GiB with every noise leaf drawn first")
+        return sgd, sgld, first
+
+    def differ(got, want):
+        out = []
+        for (path, a), (_, b) in zip(_flat_paths(got), _flat_paths(want)):
+            a = a.gather() if isinstance(a, ShardedTensor) else a
+            ints = getattr(torch, _INT_VIEW[str(b.dtype)])
+            if not torch.equal(a.view(ints), b.view(ints)):
+                out.append(path)
+        return out
+
+    def run():
+        want = steps(params, "unsharded")
+        with force_devices(MP_SLOTS, physical=1):
+            mesh = make_mesh_for_devices(model_parallel=MP_MODEL, device="cuda")
+            sp = shard_params(params, mesh, specs=param_specs(cfg))
+            got = steps(sp, "sharded")
+        return want, got
+
+    want, got = counted(report, "H-sgd", run)
+    d = {"sgd": differ(got[0], want[0]), "sgld": differ(got[1], want[1]),
+         "sgld_all_first": differ(want[2], want[1]),
+         "sgld_all_first_sharded": differ(got[2], want[1])}
+    moved = any(not torch.equal(a, b) for (_, a), (_, b) in zip(_flat_paths(want[1]),
+                                                               _flat_paths(params)))
+    r.update(differ=d, sgld_moved=moved)
+    print(f"  {card_line()}: differing leaves {d}; SGLD moved the parameters: {moved}")
+    check(not any(d.values()) and moved,
+          "phase H-sgd: the sharded SGD and SGLD steps equal the unsharded ones, and SGLD leaf "
+          "by leaf the all-first draw, bit for bit")
+    del want, got
     torch.cuda.empty_cache()
 
 
@@ -5583,6 +6092,81 @@ def phase_c(report, data):
 
 
 
+C_EXACT_STEPS = 20  # C-exact's transitions
+C_EXACT_TOL = 1e-4  # C-exact: |sum of deltas - recomputed| over the sum of |delta| (fp32)
+
+
+class LoggedProposal:
+    """A proposal that keeps a copy of every theta' it returns."""
+
+    def __init__(self, inner):
+        self.inner, self.log = inner, []
+
+    def __call__(self, gen, theta, *args, **kw):
+        theta_p, corr = self.inner(gen, theta, *args, **kw)
+        self.log.append(theta_p.clone())
+        return theta_p, corr
+
+
+def phase_c_exact(report, data):
+    """``ChainEnsemble(kernel="exact")`` at C's setting (K=32, N=12 214,
+    D=50, RW 0.05, C's seed and start) for ``C_EXACT_STEPS`` transitions,
+    theta' logged. Each transition is recomputed from the logged theta,
+    theta' and log u with one full-range ``logit_delta`` pass a chain: its
+    sum within ``C_EXACT_TOL`` of the sum of |delta| of the ensemble's
+    (``mu_hat`` N; float32 sums of 12 214 terms in two orders), and every
+    accept decision equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch._device import make_generator
+    from repro_torch.core import ChainEnsemble, RandomWalk
+    from repro_torch.experiments import bayeslr
+    from repro_torch.kernels import ops
+
+    k, steps, dev = 32, C_EXACT_STEPS, torch.device("cuda")
+    x, y = data.x_train.to(dev), data.y_train.to(dev)
+    n = x.shape[0]
+    print(f"phase C-exact: the exact kernel, K={k} lock-step chains at C's setting, {steps} "
+          "transitions, theta' logged")
+    target = bayeslr.make_target(x, y)
+    prop = LoggedProposal(RandomWalk(0.05))
+    ens = ChainEnsemble(target, prop, k, kernel="exact", device=dev)
+
+    def run():
+        gen = make_generator(3, dev)
+        theta0 = 0.5 * torch.randn(k, x.shape[1], generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, samples, infos = ens.run(gen, ens.init(theta0, batched=True), steps)
+        torch.cuda.synchronize()
+        return theta0, samples, infos, time.perf_counter() - t0
+
+    theta0, samples, infos, wall = counted(report, "C-exact", run)
+    worst, flips = 0.0, 0
+    for t in range(steps):
+        theta = theta0 if t == 0 else samples[:, t - 1]
+        theta_p = prop.log[t]
+        g = target.log_global(theta, theta_p)
+        for c in range(k):
+            d = ops.logit_delta(x, y, theta[c], theta_p[c], idx=range(0, n))
+            total = d.sum()
+            worst = max(worst, float((total - infos.mu_hat[c, t] * n).abs() / d.abs().sum()))
+            flips += bool(infos.log_u[c, t] < g[c] + total) != bool(infos.accepted[c, t])
+    r = report["phases"]["C-exact"]
+    r.update(steps=steps, transitions_per_s=k * steps / wall,
+             accept=float(infos.accepted.float().mean()), worst_relative_sum_error=worst,
+             decisions_differ=flips, n_evaluated=int(infos.n_evaluated.max()))
+    print(f"  {card_line()}: transitions/s {r['transitions_per_s']:.1f}; acceptance "
+          f"{r['accept']:.3f}; the recomputed sums within {worst:.2e} of the sum of |delta| "
+          f"(bar {C_EXACT_TOL:g}); decisions that differ {flips} of {k * steps}")
+    check(bool(np.isfinite(samples.cpu().numpy()).all()) and int(infos.n_evaluated.min()) == n,
+          "phase C-exact: finite samples, every transition over all N sections")
+    check(worst <= C_EXACT_TOL and flips == 0,
+          "phase C-exact: each transition's sum agrees with its recomputation and every accept "
+          "decision is equal")
+
+
 def bayeslr_ensemble(seed, data, num_chains, num_steps, *, sigma=0.05, overdisperse=0.5,
                      batch_size=100, epsilon=0.05, sampler="stream", target=None, **ens_kw):
     """What ``bayeslr.run_posterior_ensemble`` does, step for step (the same
@@ -5969,6 +6553,16 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    from repro_torch.distributed import force_devices
+
+    with force_devices(1):  # one slot, cuda:0, unless a phase forces more (the @4cards runs)
+        return run_phases()
+
+
+def run_phases() -> int:
+    """Every phase in order, then the contract's last lines."""
+    import torch
+
     from repro_torch.kernels import _build, autotune
 
     # the tuner: defaults pinned for phase A (the CE kernels' too), forced on
@@ -6049,7 +6643,8 @@ def main() -> int:
                                                        "R-truth", "R-bg", "R-proc", "O-plain",
                                                        "O", "O-soak", "O-kill-proc", *X_RUNS,
                                                        "X-fleet", "U", "H-adam", "C-pc",
-                                                       "H-mala-mp", "H-adam-mp", *EX_NEEDS]},
+                                                       "H-mala-mp", "H-adam-mp", *EX_NEEDS,
+                                                       "C-exact", "J-mp", "R-lanes", "H-sgd"]},
               "kernels": {name: {"name": name, "route": "cuda", "source": sources[name],
                                  "replaces": replaces[name], "launches": 0, "max_abs_err": 0.0,
                                  "ms": None, "plain_ms": None, "bound_ms": None,
@@ -6063,10 +6658,15 @@ def main() -> int:
 
     from repro_torch.experiments import bayeslr, jointdpm
 
+    if torch.cuda.device_count() < X_SLOTS:
+        print(f"four-card runs skipped: {', '.join(FOUR_CARDS)} "
+              f"need {X_SLOTS} cards, one slot a card; this machine shows "
+              f"{torch.cuda.device_count()} (tools/phase_cards.py runs them where there are four)")
     t_a = time.perf_counter()
     phase_a_logit(report)
     phase_a(report)
     phase_a_sv(report)
+    guard_cost(report)
     report["a_seconds"] = {"logit, round op, draw, AR(1), sweep": time.perf_counter() - t_a}
     jdpm_data = jointdpm.synth(60, JDPM_N, JDPM_N_TEST)
     t_jdpm = time.perf_counter()
@@ -6079,6 +6679,7 @@ def main() -> int:
     c_out = phase_c(report, data)
     k_out = phase_k(report, data, c_out)  # phase X holds its masked mesh run to K's
     phase_c_pc(report, data, c_out)
+    phase_c_exact(report, data)
     c_samples, c_infos = c_out[0], c_out[1]  # phases P and X start as C does
     del c_out
     phase_l(report, data)
@@ -6102,7 +6703,8 @@ def main() -> int:
     try:
         params, cfg, h_infos = phase_h(report, ckpt_root)
         t_mp = time.perf_counter()
-        phase_h_mp(report, ckpt_root, params, h_infos)
+        for _, physical in x_layouts():
+            phase_h_mp(report, ckpt_root, params, h_infos, physical)
         report["mp_seconds"] = {"H-mp": time.perf_counter() - t_mp}
         del h_infos
         torch.cuda.empty_cache()
@@ -6111,21 +6713,28 @@ def main() -> int:
         mala = phase_h_mala(report, params, cfg)
         torch.cuda.empty_cache()
         t_mp = time.perf_counter()
-        phase_h_mala_mp(report, params, cfg, mala)
+        for _, physical in x_layouts():
+            phase_h_mala_mp(report, params, cfg, mala, physical)
         report["mp_seconds"]["H-mala-mp"] = time.perf_counter() - t_mp
         del mala
         torch.cuda.empty_cache()
         target, theta = phase_i(report, params, cfg)
         del params  # phase H's model: J needs the room
         torch.cuda.empty_cache()
-        phase_j(report, target, theta)
-        del target, theta
+        j = phase_j(report, target, theta)
+        del theta
+        t_mp = time.perf_counter()
+        for _, physical in x_layouts():
+            phase_j_mp(report, target, j, physical)
+        report["mp_seconds"]["J-mp"] = time.perf_counter() - t_mp
+        del target, j
         torch.cuda.empty_cache()
         t_t = time.perf_counter()
         t_out = phase_t(report, os.path.join(ckpt_root, "sub"))
         params, cfg = t_out["params"], t_out["cfg"]
         t_mp = time.perf_counter()
-        phase_t_mp(report, os.path.join(ckpt_root, "sub"), t_out)
+        for _, physical in x_layouts():
+            phase_t_mp(report, os.path.join(ckpt_root, "sub"), t_out, physical)
         report["mp_seconds"]["T-mp"] = time.perf_counter() - t_mp
         print(f"  seconds taken by phases H-mp and T-mp: {report['mp_seconds']}")
         del t_out
@@ -6152,6 +6761,8 @@ def main() -> int:
     phase_q(report)
     torch.cuda.empty_cache()
     phase_r(report)
+    torch.cuda.empty_cache()
+    phase_r_lanes(report)
     torch.cuda.empty_cache()
     phase_o(report)
     torch.cuda.empty_cache()
@@ -6190,6 +6801,8 @@ def main() -> int:
                         ("H-mp", ("t_test_round",)), ("H-mala-mp", ("t_test_round",)),
                         ("H-adam", ("t_test_round",)),
                         ("C-pc", ("batched_logit_delta", "t_test_round")),
+                        ("C-exact", ("batched_logit_delta",)),
+                        ("J-mp", ("batched_fused_ce", "fy_draw", "t_test_round")),
                         ("I", ("fused_ce", "fy_draw", "t_test_round")),
                         ("J", ("batched_fused_ce", "fy_draw", "t_test_round")),
                         ("P", ("batched_logit_delta", "t_test_round")),

@@ -44,7 +44,12 @@ from .schedule import (
     controller_params,
     controller_update,
 )
-from .sequential_test import SeqTestResult, sequential_test, test_round_decision
+from .sequential_test import (
+    SeqTestResult,
+    expected_batches_theoretical,
+    sequential_test,
+    test_round_decision,
+)
 from .stats import (
     Welford,
     autocorrelation,
@@ -53,6 +58,7 @@ from .stats import (
     finite_population_std_err,
     jarque_bera,
     multichain_ess,
+    predictive_risk,
     slo_summary,
     split_rhat,
     student_t_sf,
@@ -88,11 +94,11 @@ __all__ = [
     "RandomWalk", "ScheduleConfig", "SeqTestResult", "StreamSliceState",
     "SubsampledMHConfig", "SubsampledMHInfo", "TrialReport", "Welford", "acceptance_rate",
     "adaptive_max_rounds", "autocorrelation", "build_target", "controller_init",
-    "controller_params", "controller_update", "effective_sample_size", "ensemble_summary",
+    "controller_params", "controller_update", "effective_sample_size", "ensemble_summary", "expected_batches_theoretical",
     "exact_decide", "finish_transition", "finite_population_std_err", "from_iid_loglik",
     "fy_draw", "fy_draw_bounded", "fy_from_buffer", "fy_init", "fy_reset", "get_family",
     "jarque_bera", "make_bounded_draw",
-    "make_kernel", "make_sampler", "mh_step", "multichain_ess", "propose_and_mu0",
+    "make_kernel", "make_sampler", "mh_step", "multichain_ess", "predictive_risk", "propose_and_mu0",
     "register_family", "registered_families", "spec_of", "run_chain", "run_chain_timed", "run_ensemble",
     "sequential_test", "slo_summary", "split_rhat", "stream_draw", "stream_draw_bounded",
     "stream_init", "stream_reset", "student_t_sf", "subsampled_mh_step", "tail_latency_summary",

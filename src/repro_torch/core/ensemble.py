@@ -79,7 +79,8 @@ The mesh (``shard=``): one process drives an array of slots
 (:mod:`repro_torch.distributed`; by default one a visible device of the
 ensemble's device type, N within ``force_devices(N)``). ``shard="auto"`` or
 ``True`` spreads the chains over a 1-d chain mesh of every slot (``"auto"``
-only when K divides the slot count); ``shard=("chains", "data")``, or a dict
+only when K divides the slot count and no slot is a card, below);
+``shard=("chains", "data")``, or a dict
 of axis sizes, makes a 2-d chains x data mesh (the balanced default: the
 divisor of n nearest sqrt(n) that also divides K). Only each round's
 evaluation is split: slot (i, j) scores rows i and columns j of the (K, m)
@@ -99,15 +100,22 @@ slots of other devices ``"auto"`` runs it unsharded while an explicit
 request raises. Masked stepping shards on the 2-d mesh only, and composite
 cycles run unsharded, as in the reference.
 
-What ``"auto"`` costs: each slot adds a whole wrapper call and two block
-copies, about 100 µs of host a slot a round, while the kernels take a few µs.
-On one NVIDIA H100 (700 W) four slots ran BayesLR at K=32 at 0.56-0.75x the
-unsharded transitions/s in fp32 and 0.34-0.41x at bf16 (``chip_smoke.py``
-phase X, PERF.md §5). ``"auto"`` builds the mesh whenever more than one slot
-is visible and K divides their count, so on a machine with several cards
-pass ``shard=False`` unless the mesh is wanted; its rate on two or more
-cards is held against ``shard=False`` by
-``tests/test_torch_cuda.py::test_shard_auto_against_unsharded_on_cards``.
+What ``"auto"`` decides: it builds the chain mesh only when no slot is a
+card (CPU slots, ``force_devices(N)``), as the reference does over its
+devices; on cards it runs unsharded, because the mesh was slower there for
+every family measured. Each slot adds a wrapper call and block copies,
+about 100 µs of host a slot a round, while a round's kernels take µs; and a
+slot's CE launch splits the vocabulary as the whole round's launch does
+(which keeps the bits), so four cards each run a quarter of one card's
+blocks in about the whole round's time. On four NVIDIA H100 80GB HBM3
+cards (700 W, one slot a card; ``tools/phase_cards.py`` and
+``tests/test_torch_cuda.py::test_shard_auto_against_unsharded_on_cards``)
+BayesLR at K=32 ran at 0.28-0.67x the unsharded transitions/s and the
+``ce`` family at J's shape (K=8 per-chain (65 024, 4 096) tables) at
+0.93-1.02x, copying 12.8 GB of theta and theta' rows between cards a
+transition; four slots of one card ran BayesLR at 0.34-0.75x (PERF.md §5
+X). An explicit ``shard=True``, ``(chains, data)`` tuple or dict still
+builds the mesh, on cards too; both routes give the same bits.
 """
 from __future__ import annotations
 
@@ -195,9 +203,11 @@ class ChainEnsemble:
     masked-continuation superstep; ``schedule=ScheduleConfig(...)`` attaches
     the per-chain adaptive controller (both modes). ``device=None`` means
     the card (raises without one). ``shard`` is ``"auto"``, ``True`` or
-    ``False`` (a 1-d chain mesh over every slot), or a 2-d chains x data
-    request, ``(chain_axis, data_axis)`` or a dict of axis sizes (see the
-    module docstring); on one slot every form runs unsharded.
+    ``False`` (a 1-d chain mesh over every slot; ``"auto"`` builds it only
+    when no slot is a card, the rule the module docstring gives with the
+    four-card numbers that chose it), or a 2-d chains x data request,
+    ``(chain_axis, data_axis)`` or a dict of axis sizes; on one slot every
+    form runs unsharded.
     """
 
     target: PartitionedTarget | None = None
@@ -393,6 +403,8 @@ class ChainEnsemble:
         mesh = self._mesh_2d() if self._shard_2d_request is not None else self._chain_mesh()
         if mesh is None:
             return None
+        if self.shard == "auto" and not self._auto_builds(mesh):
+            return None
         home = sharding.canonical(self._device)
         away = sorted({str(d) for d in mesh.devices.flat if sharding.canonical(d) != home})
         if away and (self.target.spec is None or self.target.bind is None):
@@ -403,6 +415,12 @@ class ChainEnsemble:
                 f"home device {home}: it has no TargetSpec (a closure or a callable pool; "
                 "build_target on tensors places its pools on every slot device)")
         return mesh
+
+    @staticmethod
+    def _auto_builds(mesh) -> bool:
+        """``shard="auto"``'s rule (module docstring): the mesh is built
+        only when no slot is a card."""
+        return all(torch.device(d).type != "cuda" for d in mesh.devices.flat)
 
     @property
     def _config(self) -> SubsampledMHConfig:

@@ -146,3 +146,36 @@ def sequential_test(
         sampler_state=sampler,
         aux=() if aux is None else aux,
     )
+
+
+def expected_batches_theoretical(l_values, mu0: float, batch_size: int, epsilon: float) -> float:
+    """Host-side expectation of the sections evaluated for a fixed (theta,
+    theta') pair, after Korattikara et al. (2014) Eq. 19: the test walked
+    forward on the population moments (mean and std of {l_i}) instead of
+    draws. The theory curve of Fig. 5; host numpy and scipy, as in the
+    reference."""
+    import numpy as np
+    from scipy import stats as sstats
+
+    l = np.asarray(l_values, np.float64)
+    n_total = len(l)
+    mu = l.mean()
+    sl = l.std(ddof=1)
+    if sl == 0:
+        return float(n_total)
+    p_not_stopped = 1.0
+    expected = 0.0
+    n = 0
+    while n < n_total and p_not_stopped > 1e-12:
+        m = min(batch_size, n_total - n)
+        n += m
+        expected += m * p_not_stopped
+        corr = max(1.0 - (n - 1) / max(n_total - 1, 1), 0.0)
+        s = sl / math.sqrt(n) * math.sqrt(corr)
+        if s == 0:
+            break
+        t = abs(mu - mu0) / s
+        pval = 2.0 * sstats.t.sf(t, df=max(n - 1, 1))
+        # the test statistic concentrates fast, so the stop is ~deterministic at each n
+        p_not_stopped *= 1.0 - (1.0 if pval < epsilon else 0.0)
+    return float(expected)

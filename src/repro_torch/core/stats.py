@@ -11,6 +11,7 @@ reference (the last are copies of the reference's, which need no JAX).
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -102,6 +103,14 @@ def effective_sample_size(x) -> float:
             break
         tau += 2.0 * pair
     return float(n / max(tau, 1e-12))
+
+
+def predictive_risk(estimates, truth: float) -> float:
+    """Risk of the running predictive mean (Korattikara et al. 2014),
+    E[(f_bar_T - truth)^2], estimated from one chain's or several chains'
+    estimates (float64 on the host, as the reference)."""
+    estimates = np.atleast_2d(_np(estimates))
+    return float(np.mean((estimates - truth) ** 2))
 
 
 def split_rhat(chains) -> np.ndarray | float:
@@ -274,6 +283,30 @@ def slo_summary(latencies_s, deadlines_s=None, percentiles=(50, 95, 99)) -> dict
 # ---------------------------------------------------------------------------
 
 
+_SLO_DEPRECATED_KEYS = {"total_requests": "count"}
+
+
+class SLOReportDict(dict):
+    """A canonical slo_report dict that still answers the older key
+    spelling ``total_requests`` (as ``count``), with a
+    :class:`DeprecationWarning`. The alias is not a real key: iteration,
+    ``in`` and serialization see only the canonical schema."""
+
+    def __missing__(self, key):
+        canon = _SLO_DEPRECATED_KEYS.get(key)
+        if canon is not None and dict.__contains__(self, canon):
+            warnings.warn(f"slo_report key {key!r} is deprecated; use {canon!r}",
+                          DeprecationWarning, stacklevel=2)
+            return self[canon]
+        raise KeyError(key)
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+
 @dataclasses.dataclass
 class ClassSLO:
     """Per-(workload, request-class) serving statistics.
@@ -356,8 +389,8 @@ class SLOReport:
     recovery: dict | None = None
     classes: dict[str, ClassSLO] = dataclasses.field(default_factory=dict)
 
-    def to_dict(self) -> dict:
-        return dict(
+    def to_dict(self) -> SLOReportDict:
+        return SLOReportDict(
             count=self.count,
             errors=self.errors,
             shed=self.shed,

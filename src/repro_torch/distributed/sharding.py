@@ -274,6 +274,26 @@ def canonical(device) -> torch.device:
     return dev
 
 
+_BETWEEN = [0, 0]  # copies between devices by place() and assemble(): [count, bytes]
+
+
+def device_copies() -> dict:
+    """``{"count", "bytes"}`` of the copies between two devices that
+    :func:`place` and :func:`assemble` made since :func:`reset_device_copies`
+    (a mesh round's pieces, rows and pools; none where every slot is the
+    home device)."""
+    return {"count": _BETWEEN[0], "bytes": _BETWEEN[1]}
+
+
+def reset_device_copies() -> None:
+    _BETWEEN[0] = _BETWEEN[1] = 0
+
+
+def _between(t: torch.Tensor) -> None:
+    _BETWEEN[0] += 1
+    _BETWEEN[1] += t.numel() * t.element_size()
+
+
 def place(t: torch.Tensor, device) -> torch.Tensor:
     """``t`` on ``device``; itself when it is there already. A contiguous
     tensor keeps its address modulo 16 bytes, so a kernel that picks its
@@ -281,6 +301,7 @@ def place(t: torch.Tensor, device) -> torch.Tensor:
     device = canonical(device)
     if canonical(t.device) == device:
         return t
+    _between(t)
     off = t.data_ptr() % 16
     if not t.is_contiguous() or off % t.element_size():
         return t.to(device)
@@ -302,21 +323,24 @@ def assemble(pieces: Sequence[torch.Tensor], blocks: Sequence[Block], shape: Seq
     """The whole ``shape`` tensor on ``device`` from the blocks' pieces."""
     out = torch.empty(tuple(shape), dtype=pieces[0].dtype, device=device)
     for blk, piece in zip(blocks, pieces):
+        if piece.device != out.device:
+            _between(piece)
         out[blk.index].copy_(piece)
     return out
 
 
 class _SlotContext:
-    """Attributes kernel launches to a slot (``_build.SLOT_LAUNCHES``) and
-    makes the slot's card the current one while it launches."""
+    """Attributes kernel launches to a slot (``_build.SLOT_LAUNCHES``), tells
+    them the whole round's (K, m) (``_build.round_shape``) and makes the
+    slot's card the current one while it launches."""
 
-    __slots__ = ("slot", "device", "_prev", "_guard")
+    __slots__ = ("slot", "device", "shape", "_prev", "_guard")
 
-    def __init__(self, slot, device):
-        self.slot, self.device = slot, device
+    def __init__(self, slot, device, shape=None):
+        self.slot, self.device, self.shape = slot, device, shape
 
     def __enter__(self):
-        self._prev = _build.enter_slot(self.slot)
+        self._prev = _build.enter_slot(self.slot, self.shape)
         self._guard = None
         if self.device.type == "cuda" and self.device.index != torch.cuda.current_device():
             self._guard = torch.cuda.device(self.device)
@@ -349,7 +373,7 @@ def split_round(mesh: Mesh, rules: dict, home,
                                    for blk in sh.owners(idx.shape)]
         out = []
         for blk, piece in zip(blocks, shard_tensor(idx, blocks)):
-            with _SlotContext(blk.slot, blk.device):
+            with _SlotContext(blk.slot, blk.device, tuple(idx.shape)):
                 out.append(score(blk, piece))
         return assemble(out, blocks, idx.shape, home)
 

@@ -60,6 +60,11 @@ def synth_2d(seed: int, n: int, *, device=None) -> LRData:
     return LRData(x, y, x[:k], y[:k], w_true)
 
 
+# The shared logistic factor lives in repro_torch.kernels.ref; re-exported
+# under the name the experiments imported it by.
+loglik = logit_loglik
+
+
 def make_target(x: torch.Tensor, y: torch.Tensor, prior_var: float = PRIOR_VAR) -> PartitionedTarget:
     """BayesLR target via the ``logit`` kernel family; the prior sums over
     the last axis, so it scores a (K, D) batch of chains as (K,)."""

@@ -100,6 +100,7 @@ class FleetRouter:
         admission: AdmissionConfig | None = None,
         max_batch: int | None = None,
         default_deadline_s: float | None = None,
+        lanes_per_shard: int | None = None,
         tracer=None,
     ):
         self.fleet = fleet
@@ -115,11 +116,13 @@ class FleetRouter:
             cfg.default_deadline_s if default_deadline_s is None
             else float(default_deadline_s)
         )
+        # lanes_per_shard serves only each shard's first N replicas (None =
+        # all): a sweep of replica counts over one warmed fleet.
         self._lanes: dict[str, list[_Lane]] = {
             workload: [
                 _Lane(shard, replica)
                 for shard in fleet.shards(workload)
-                for replica in shard.replicas
+                for replica in shard.replicas[:lanes_per_shard]
             ]
             for workload in fleet.workloads()
         }

@@ -59,11 +59,14 @@ class FleetConfig:
 
     ``replicas``: read replicas a shard; ``shards``: independent writers a
     workload; ``mesh``: the writers' ensembles' ``shard=``: ``"auto"``
-    keeps each workload's own setting, anything else (``False``, ``True``,
+    keeps each workload's own setting (the workloads' ensembles keep
+    ``ChainEnsemble``'s ``"auto"``, whose rule decides when their chains
+    spread over cards), anything else (``False``, ``True``,
     a ``("chains", "data")`` tuple or a dict of axis sizes) replaces it, as
     in the reference (replicas only evaluate and never shard);
     ``transport``: ``"inproc"`` replicas share the process, ``"proc"``
-    replicas each get an OS process;
+    replicas each get an OS process; ``sync_interval_s``: pause between
+    background refresh-and-broadcast rounds;
     ``replica_threads``: ``torch.set_num_threads`` in each replica
     process (None keeps torch's default); ``subposterior``: data partitions
     P a workload (P = 1 is the unpartitioned fleet, bit for bit);
@@ -75,6 +78,7 @@ class FleetConfig:
     serving: ServingConfig = ServingConfig()
     mesh: Any = "auto"
     transport: str = "inproc"  # "inproc" | "proc"
+    sync_interval_s: float = 0.0
     replica_threads: int | None = 1
     subposterior: int = 1
     combine: str = "consensus"
@@ -397,6 +401,9 @@ class Fleet:
                         except Exception as e:  # noqa: BLE001 - record, back off, retry
                             self._shard_errors[shard.name] = f"{type(e).__name__}: {e}"
                             self._stop.wait(0.5)
+                            continue
+                        if self.config.sync_interval_s:
+                            self._stop.wait(self.config.sync_interval_s)
 
                 t = threading.Thread(target=loop, name=f"fleet-{shard.name}", daemon=True)
                 t.start()

@@ -37,6 +37,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 class _Slot(threading.local):
     slot = None
     racing = False
+    round_shape = None
 
 
 _SLOT = _Slot()
@@ -67,15 +68,25 @@ class _Launches(collections.Counter):
 LAUNCHES: collections.Counter = _Launches()
 
 
-def enter_slot(slot):
-    """Attribute this thread's launches to mesh slot ``slot`` until
-    :func:`leave_slot`; returns the slot it replaces."""
-    prev, _SLOT.slot = _SLOT.slot, slot
+def enter_slot(slot, round_shape=None):
+    """Attribute this thread's launches to mesh slot ``slot``, a piece of
+    a round of ``round_shape`` (K, m), until :func:`leave_slot`; returns
+    what it replaces."""
+    prev = (_SLOT.slot, _SLOT.round_shape)
+    _SLOT.slot, _SLOT.round_shape = slot, round_shape
     return prev
 
 
 def leave_slot(prev) -> None:
-    _SLOT.slot = prev
+    _SLOT.slot, _SLOT.round_shape = prev
+
+
+def round_shape():
+    """(K, m) of the whole round whose piece this thread's mesh slot
+    scores, or None outside a slot: a kernel whose launch parameters follow
+    the grid chooses them for the whole round, so that a piece's bits are
+    the whole launch's."""
+    return _SLOT.round_shape
 
 
 class racing:
@@ -149,6 +160,20 @@ def load(stem: str) -> ctypes.CDLL:
             path = build_all() / f"lib{stem}.so"
             _libs[stem] = ctypes.CDLL(str(path))
         return _libs[stem]
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args)``, a kernel's C entry point, with ``device``'s card
+    current. The runtime launches into the calling thread's current card,
+    so where that is another card (tensors of cuda:1 from a thread on
+    cuda:0) the tensors' card is made current for the call and the thread's
+    own restored after it; otherwise the check is one device query."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
 
 
 def check(err: int, what: str) -> None:

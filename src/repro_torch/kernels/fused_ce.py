@@ -28,7 +28,8 @@ cores (bf16 ``wgmma``, fp32 operands split into exact bf16 terms, fp32
 accumulators; see the source's note). A block is 104 tokens by 128
 vocabulary rows (compiled in); ``tile_v`` sets how many vocabulary rows one
 block walks (a multiple of 128), by default enough splits of the vocabulary
-to fill every SM once. The table streams through TMA where its base is
+to fill every SM once (on a mesh slot, as many as the whole round's launch
+would take, so that each token's bits do not depend on the split). The table streams through TMA where its base is
 16-byte aligned and a row is a multiple of 16 bytes (else plain loads);
 bf16 h rows through ``cp.async`` where they are 16-byte aligned.
 """
@@ -112,15 +113,17 @@ def _launch(h, table, targets, idx, k: int, t: int, name: str, *, round_bf16: bo
         _build.require(h, "h", dev, _TYPES, (None, d))
         _build.require(targets, "targets", dev, (torch.int32,), (h.shape[0],))
         _build.require(idx, "idx", dev, (torch.int32,), (k, t))
-    n_t = -(-t // TILE_T)
-    per, n_split = _splits(dev, -(-v // TILE_V), n_t * k, tile_v)
+    whole = _build.round_shape()  # a mesh slot's piece splits the vocabulary as its round does
+    blocks = -(-t // TILE_T) * k if whole is None else -(-whole[1] // TILE_T) * whole[0]
+    per, n_split = _splits(dev, -(-v // TILE_V), blocks, tile_v)
     part = torch.empty(3 * k * t * n_split, dtype=torch.float32, device=dev)
     out = torch.empty((k, t), dtype=torch.float32, device=dev)
     h_bf16 = h.dtype == torch.bfloat16
     p = _build.ptr
-    err = _bind()(p(h), int(h_bf16), p(table), int(table.dtype == torch.bfloat16), p(targets),
-                  p(idx), stride, p(part), p(out), k, t, d, v, per, n_split, int(round_bf16),
-                  int(_aligned(table, d)), int(h_bf16 and _aligned(h, d)), _build.stream_of(h))
+    err = _build.launch(_bind(), h.device,
+        p(h), int(h_bf16), p(table), int(table.dtype == torch.bfloat16), p(targets), p(idx), stride,
+        p(part), p(out), k, t, d, v, per, n_split, int(round_bf16), int(_aligned(table, d)),
+        int(h_bf16 and _aligned(h, d)), _build.stream_of(h))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

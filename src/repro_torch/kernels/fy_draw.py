@@ -114,8 +114,9 @@ def fy_draw(u, idx, pos, size, m: int, active=None, m_eff=None):
     valid = torch.empty((k, m), dtype=torch.bool, device=dev)
     new_pos = torch.empty((k,), dtype=torch.int32, device=dev)
     p = _build.ptr
-    err = _bind()(p(u), p(idx), p(pos), p(size), p(active), p(m_eff), p(out), p(valid),
-                  p(new_pos), k, m, cap, _build.stream_of(idx))
+    err = _build.launch(_bind(), idx.device,
+        p(u), p(idx), p(pos), p(size), p(active), p(m_eff), p(out), p(valid), p(new_pos), k, m, cap,
+        _build.stream_of(idx))
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return out, valid, new_pos

@@ -68,8 +68,9 @@ def _launch(xt, xp, idx, params, k: int, m: int, stride: int, first: int = 0,
     if k == 0 or m == 0:
         return out  # no sections: nothing to launch
     p = _build.ptr
-    err = _bind()(p(xt), p(xp), int(xt.dtype == torch.bfloat16), int(round_bf16), p(idx), stride,
-                  first, *(p(v) for v in params), p(out), k, m, int(warps), _build.stream_of(xt))
+    err = _build.launch(_bind(), xt.device,
+        p(xt), p(xp), int(xt.dtype == torch.bfloat16), int(round_bf16), p(idx), stride, first,
+        *(p(v) for v in params), p(out), k, m, int(warps), _build.stream_of(xt))
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return out

@@ -233,8 +233,9 @@ def gibbs_z_sweep(x, y, z, w, log_alpha, stats, points, nrm, u, prior, w_sd: flo
     packed = torch.cat([prior.m0.to(dev, torch.float32).reshape(-1),
                         prior.s0.to(dev, torch.float32).reshape(-1)])
     q = _build.ptr
-    err = _bind()(q(x), q(y), q(z), n, d, q(w), q(log_alpha), q(stats.n), q(stats.sum_x),
-                  q(stats.sum_xxt), q(points), k, p, q(nrm), q(u), k_max, q(packed),
-                  float(prior.k0), float(prior.v0), float(w_sd), _build.stream_of(z))
+    err = _build.launch(_bind(), z.device,
+        q(x), q(y), q(z), n, d, q(w), q(log_alpha), q(stats.n), q(stats.sum_x), q(stats.sum_xxt),
+        q(points), k, p, q(nrm), q(u), k_max, q(packed), float(prior.k0), float(prior.v0),
+        float(w_sd), _build.stream_of(z))
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

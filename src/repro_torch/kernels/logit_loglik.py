@@ -92,7 +92,8 @@ def launch_pair_delta(x, y, idx, w_cur, w_prop, k: int, m: int, name: str, *,
     args = (_build.ptr(x), int(x.dtype == torch.bfloat16), _build.ptr(y), _build.ptr(idx),
             _build.ptr(w_cur), _build.ptr(w_prop), _build.ptr(out), k, m, d, first,
             int(round_bf16), _build.stream_of(x))
-    err = _bind(True)(*args, int(warps)) if warps else _bind()(*args)
+    err = (_build.launch(_bind(True), dev, *args, int(warps)) if warps
+           else _build.launch(_bind(), dev, *args))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out

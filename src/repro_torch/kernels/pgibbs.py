@@ -118,8 +118,9 @@ def pgibbs_sweep(noise, u, u_pick, obs, h, phi, s2, h0: float = 0.0) -> torch.Te
     _build.require(u_pick, "u_pick", dev, f32, (k, s))
     out = torch.empty((k, s, t_len), dtype=torch.float32, device=dev)
     q = _build.ptr
-    err = _bind()(q(obs), q(h), q(phi), q(s2), q(noise), q(u), q(u_pick), q(out), k, s, t_len, p,
-                  float(h0), _build.stream_of(h))
+    err = _build.launch(_bind(), h.device,
+        q(obs), q(h), q(phi), q(s2), q(noise), q(u), q(u_pick), q(out), k, s, t_len, p, float(h0),
+        _build.stream_of(h))
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1
     return out

@@ -276,10 +276,14 @@ def lgamma_fp32(inp: torch.Tensor) -> torch.Tensor:
 
 
 def betainc_fp32(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-                 lgamma=lgamma_fp32) -> torch.Tensor:
+                 lgamma=lgamma_fp32, check_every: int | None = None) -> torch.Tensor:
     """Regularized incomplete beta I_x(a, b) by JAX's float32 recurrence.
     ``lgamma`` is the log-gamma of the prefactor (a test hook: the prefactor
-    is where the tail's rounding error lives at large a)."""
+    is where the tail's rounding error lives at large a). The recurrence
+    stops once every element has converged, looked at every
+    ``check_every`` steps (default: every step on the CPU, every 16th on
+    the card, where a look is a synchronisation); a converged element is
+    frozen, so every choice gives the same bits as running the cap."""
     a, b, x = torch.broadcast_tensors(a.to(F32), b.to(F32), x.to(F32))
     small = _c(EPS_HALF, x)
     a_is_zero = (a == 0) | (b == math.inf)
@@ -301,10 +305,8 @@ def betainc_fp32(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     c = h.clone()
     d = torch.zeros_like(x)
     live = torch.ones_like(x, dtype=torch.bool)
-    # On the CPU stop once every element has converged; on the card run the
-    # whole cap (converged elements are frozen), since a host read would
-    # cost a synchronisation per step.
-    early_exit = x.device.type == "cpu"
+    if check_every is None:
+        check_every = 1 if x.device.type == "cpu" else 16
     for it in range(1, BETAINC_MAX_ITERS):
         if it == 1:
             num = torch.ones_like(x)
@@ -326,7 +328,7 @@ def betainc_fp32(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
         delta = c * d
         h = torch.where(live, h * delta, h)
         live = live & ((delta - 1.0).abs() >= small)
-        if early_exit and not bool(live.any()):
+        if it % check_every == 0 and not bool(live.any()):
             break
 
     lg_b, lg_ab, lg_a = lgamma(torch.stack([b, a + b, a]))  # one pass for the three

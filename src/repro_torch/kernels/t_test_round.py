@@ -87,9 +87,9 @@ def t_test_round(l, valid, count, mean, m2, mu0, eps, n_total, max_rounds,
     if per_chain:
         _build.require(n_total, "n_total", dev, f32, vec)
     p = _build.ptr
-    err = _bind()(p(l), p(valid), k, m, p(count), p(mean), p(m2), p(mu0), p(eps),
-                  0.0 if per_chain else float(n_total), p(n_total if per_chain else None),
-                  int(max_rounds), p(rounds), p(done), p(decision), p(pval),
-                  _build.stream_of(l))
+    err = _build.launch(_bind(), l.device,
+        p(l), p(valid), k, m, p(count), p(mean), p(m2), p(mu0), p(eps), 0.0 if per_chain else
+        float(n_total), p(n_total if per_chain else None), int(max_rounds), p(rounds), p(done),
+        p(decision), p(pval), _build.stream_of(l))
     _build.check(err, NAME)
     _build.LAUNCHES[NAME] += 1

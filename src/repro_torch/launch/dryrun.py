@@ -328,9 +328,10 @@ def trace_cell(cell: Cell) -> dict:
             "seconds": seconds}
 
 
-def _slot_bytes(specs, shardings) -> int:
-    """Over all slots, the largest sum of the bytes of the pieces a slot
-    holds of the leaves of ``specs`` that have a sharding."""
+def slot_bytes(specs, shardings) -> dict:
+    """``{slot: bytes}``: the sum of the bytes of the pieces each slot holds
+    of the leaves of ``specs`` (tensors, meta ones too) that have a
+    sharding."""
     per_slot: collections.Counter = collections.Counter()
     for t, sh in zip(tree_leaves(specs), tree_leaves(shardings)):
         if t is None or sh is None:
@@ -338,7 +339,12 @@ def _slot_bytes(specs, shardings) -> int:
         for blk in sh.owners(t.shape):
             n = int(np.prod([s.stop - s.start for s in blk.index], dtype=np.int64))
             per_slot[blk.slot] += n * t.element_size()
-    return max(per_slot.values(), default=0)
+    return dict(per_slot)
+
+
+def _slot_bytes(specs, shardings) -> int:
+    """Over all slots, the largest of :func:`slot_bytes`."""
+    return max(slot_bytes(specs, shardings).values(), default=0)
 
 
 def _output_specs(cell: Cell):

@@ -134,18 +134,19 @@ def sgld_step(gen: torch.Generator, grads: Params, params: Params, lr: float,
     """Stochastic gradient Langevin dynamics, the classic scalable-Bayes
     comparator to subsampled MH: one normal draw from ``gen`` per leaf, in
     sorted leaf order (of a sharded leaf too, whole on its home device, so
-    the generator's stream is the unsharded step's)."""
+    the generator's stream is the unsharded step's). Each leaf's noise is
+    drawn just before its update and freed after it: the updates draw
+    nothing, so the stream is that of drawing every leaf's noise first,
+    while at most one leaf's noise lives at a time."""
     noise_scale = (2.0 * lr * temperature) ** 0.5
-    noise = {}
+    new = {}
     for path in _sorted_paths(params):
-        p = _at(params, path)
-        noise[path] = torch.randn(p.shape, generator=gen, dtype=F32, device=p.device)
-
-    def upd(path, p, g):
-        return map_rows(lambda p_, g_, xi: (p_.to(F32) + lr * g_.to(F32)
-                                            + noise_scale * xi).to(p_.dtype), [p, g, noise[path]])
-
-    return _with_paths(upd, params, grads)
+        p, g = _at(params, path), _at(grads, path)
+        xi = torch.randn(p.shape, generator=gen, dtype=F32, device=p.device)
+        new[path] = map_rows(lambda p_, g_, xi_: (p_.to(F32) + lr * g_.to(F32)
+                                                  + noise_scale * xi_).to(p_.dtype), [p, g, xi])
+        del xi
+    return _with_paths(lambda path, p: new.pop(path), params)
 
 
 def _at(tree: Any, path: tuple) -> Any:

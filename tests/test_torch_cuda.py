@@ -1378,29 +1378,72 @@ def _ensemble_run(data, shard, steps, dev):
     return samples, infos, 32 * steps / (time.perf_counter() - t0)
 
 
+def _ce_ensemble_run(target, theta, shard, steps, dev):
+    from repro_torch.core import ChainEnsemble, RandomWalk, SubsampledMHConfig
+
+    ens = ChainEnsemble(target, RandomWalk(1.2e-4), theta.shape[0], device=dev, shard=shard,
+                        config=SubsampledMHConfig(batch_size=100, epsilon=0.05, sampler="fy"),
+                        collect=lambda t: t[:, :2, :4].clone())
+    state0 = ens.init(theta, batched=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, samples, infos = ens.run(41, state0, steps)
+    torch.cuda.synchronize()
+    return samples, infos, theta.shape[0] * steps / (time.perf_counter() - t0), ens._mesh
+
+
+def _j_shaped_ce(dev):
+    """J's shape: a pool of N = 8 128 bf16 rows of width 4 096 with next
+    tokens of a 65 024 vocabulary, and K = 8 per-chain fp32 tables (random,
+    seeded), under a Gaussian prior."""
+    from repro_torch.core import build_target
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n, d, v, k = 8128, 4096, 65024, 8
+    h = (torch.randn(n, d, generator=gen, device=dev) * 2.0).to(torch.bfloat16)
+    tokens = torch.randint(0, v, (n,), generator=gen, device=dev, dtype=torch.int32)
+    target = build_target("ce", (h, tokens), n,
+                          prior_logpdf=lambda t: -0.5 * (t * t).sum((-2, -1)))
+    theta = 0.02 * torch.randn(k, v, d, generator=gen, device=dev)
+    return target, theta
+
+
 @pytest.mark.cuda
-def test_shard_auto_against_unsharded_on_cards(cuda_device):
-    """``shard="auto"`` on every visible card (two or more) against
-    ``shard=False``: BayesLR at phase C's setting (K = 32, m = 100, N =
-    12 214, D = 50), 100 steps, the samples and infos bit for bit; both rates
-    are printed (the cost of ``"auto"``, ROADMAP §3). Skips on one card."""
+@pytest.mark.parametrize("family", ["logit", "ce"])
+def test_shard_auto_against_unsharded_on_cards(family, cuda_device):
+    """The chain mesh on every visible card (two or more) against
+    ``shard=False``, in turns (plain, mesh, mesh, plain): BayesLR at phase
+    C's setting (K = 32, m = 100, N = 12 214, D = 50), 100 steps; and the
+    ``ce`` family at J's shape (K = 8 per-chain tables, m = 100 of N =
+    8 128; two chains a card on four cards), 10 steps. Samples and infos
+    bit for bit; both rates are printed. ``shard="auto"`` builds no mesh
+    on cards (the rule of ``ChainEnsemble``'s docstring, which these rates
+    chose) and is bit for bit too. Skips on one card."""
     from repro_torch.experiments import bayeslr
 
     if torch.cuda.device_count() < 2:
         pytest.skip("shard='auto' spreads over several cards; this machine has one")
-    data = bayeslr.synth_mnist_like(0, device=cuda_device)
-    rates = {}
-    out = {}
-    for shard in (False, "auto", "auto", False):  # in turns: plain, auto, auto, plain
-        samples, infos, rate = _ensemble_run(data, shard, 100, cuda_device)
+    if family == "logit":
+        data = bayeslr.synth_mnist_like(0, device=cuda_device)
+        run = lambda shard: _ensemble_run(data, shard, 100, cuda_device)  # noqa: E731
+    else:
+        target, theta = _j_shaped_ce(cuda_device)
+        run = lambda shard: _ce_ensemble_run(target, theta, shard, 10, cuda_device)[:3]  # noqa
+    rates, out = {}, {}
+    for shard in (False, True, True, False):  # in turns: plain, mesh, mesh, plain
+        samples, infos, rate = run(shard)
         rates.setdefault(str(shard), []).append(rate)
         out[str(shard)] = (samples, infos)
-    (sa, ia), (sf, if_) = out["auto"], out["False"]
-    assert torch.equal(sa, sf)
-    for a, b in zip(ia, if_):
-        assert torch.equal(a, b)
-    print(f"\nshard='auto' on {torch.cuda.device_count()} cards: transitions/s "
-          f"{rates['auto']} against shard=False {rates['False']} "
+    samples, infos, _ = run("auto")
+    out["auto"] = (samples, infos)
+    for key in ("True", "auto"):
+        assert torch.equal(out[key][0], out["False"][0]), key
+        for a, b in zip(out[key][1], out["False"][1]):
+            assert torch.equal(a, b), key
+    if family == "ce":
+        assert _ce_ensemble_run(target, theta, "auto", 1, cuda_device)[3] is None
+    print(f"\n{family}: the chain mesh on {torch.cuda.device_count()} cards: transitions/s "
+          f"{rates['True']} against shard=False {rates['False']} "
           f"({torch.cuda.get_device_name(0)})")
 
 
@@ -1814,12 +1857,18 @@ def test_wall_clock_step_stats_synchronizes(cuda_device):
 # ---------------------------------------------------------------------------
 
 
-def _card_mesh(model):
+def _card_mesh(model, physical=1):
     from repro_torch.distributed import force_devices
     from repro_torch.launch.mesh import make_mesh_for_devices
 
-    with force_devices(4, physical=1):
+    with force_devices(4, physical=physical):
         return make_mesh_for_devices(4, model_parallel=model)
+
+
+def _four_cards():
+    if torch.cuda.device_count() < 4:
+        pytest.skip("one slot a card needs four cards; this machine has "
+                    f"{torch.cuda.device_count()}")
 
 
 @pytest.mark.cuda
@@ -1829,6 +1878,19 @@ def test_sharded_lm_step_on_card_slots(cuda_device, model):
     slots of the card ((2, 2) and (1, 4)), the round op on every round:
     every info field, the cache and every parameter equal the unsharded
     steps' bit for bit, with proposals accepted and rejected."""
+    _check_sharded_lm_step(cuda_device, model, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", [2, 4])
+def test_sharded_lm_step_on_four_cards(cuda_device, model):
+    """H-mp's check with one slot a card: the test above over four cards,
+    the pieces on cuda:0..3 and the compute on cuda:0. Skips on fewer."""
+    _four_cards()
+    _check_sharded_lm_step(cuda_device, model, 4)
+
+
+def _check_sharded_lm_step(cuda_device, model, physical):
     from repro_torch.bayes import (LogLikCache, TrainConfig, make_cached_train_step,
                                    make_train_step)
     from repro_torch.distributed import gather_params, logical_axis_rules, shard_params
@@ -1836,7 +1898,7 @@ def test_sharded_lm_step_on_card_slots(cuda_device, model):
 
     cfg, params, batch = _lm_case(cuda_device)
     tc = TrainConfig(round_batch=2, epsilon=0.2, sigma=1e-3)
-    mesh = _card_mesh(model)
+    mesh = _card_mesh(model, physical)
 
     def chain(step, theta, cached):
         gen = torch.Generator(device=cuda_device).manual_seed(5)
@@ -1993,3 +2055,193 @@ def test_per_chain_logit_pools_on_card(cuda_device):
                                      y[:1].expand(k, n).contiguous()), w, wp, idx)
         print(f"\nK={k} m={m} D={d}: per-chain route bit for bit the shared pool's in-kernel "
               f"gather: {torch.equal(shared.view(torch.int32), copied.view(torch.int32))}")
+
+
+# ---------------------------------------------------------------------------
+# Launches on another card; the ce chain mesh; the exact ensemble step; SGD
+# and SGLD on the mesh; the router's lanes_per_shard
+# ---------------------------------------------------------------------------
+
+_FY_FIRST = list(_FY_CASES)[0]
+_GIBBS_FIRST = list(_GIBBS_CASES)[0]
+# each kernel's card-against-plain check, run on another card's tensors
+_ON_CARD = {
+    "logit_delta": lambda dev: test_pair_delta_kernel_matches_plain("fp32", dev),
+    "batched_logit_delta": lambda dev: test_pair_delta_kernel_matches_plain("bf16", dev),
+    "t_test_round": lambda dev: test_round_kernel_matches_plain("K32_m100", dev),
+    "gaussian_ar1_delta": lambda dev: test_ar1_delta_kernel_matches_plain("fp32", dev),
+    "fy_draw": lambda dev: test_fy_draw_kernel_matches_plain(_FY_FIRST, dev),
+    "pgibbs_sweep": lambda dev: test_pgibbs_kernel_matches_plain(dev),
+    "fused_ce": lambda dev: test_batched_and_gather_fused_ce_match_plain(False, dev),
+    "batched_fused_ce": lambda dev: test_batched_and_gather_fused_ce_match_plain(True, dev),
+    "gibbs_z_sweep": lambda dev: _check_gibbs_against_plain(_GIBBS_FIRST, dev),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", list(_ON_CARD))
+def test_launch_on_another_card_from_this_thread(kernel, cuda_device):
+    """Each of the nine kernels on cuda:1 tensors, launched from a thread
+    whose current card is cuda:0: the launch goes to the tensors' card (the
+    wrapper's device guard), its outputs held against the plain version as
+    the kernel's own card test holds them, and the thread's current card
+    is cuda:0 again after it. Skips on one card."""
+    import threading
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("a launch on another card needs two cards; this machine has one")
+    other, seen, errors = torch.device("cuda", 1), [], []
+
+    def run():
+        try:
+            torch.cuda.set_device(0)
+            _ON_CARD[kernel](other)
+            seen.extend([ops.launches[kernel], torch.cuda.current_device()])
+        except BaseException as e:  # noqa: BLE001 - re-raised on the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if errors:
+        raise errors[0]
+    assert seen[0] > 0 and seen[1] == 0, seen
+
+
+def _small_ce(dev, k=8):
+    from repro_torch.core import build_target
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n, d, v = 600, 64, 1000
+    h = torch.randn(n, d, generator=gen, device=dev)
+    tokens = torch.randint(0, v, (n,), generator=gen, device=dev, dtype=torch.int32)
+    target = build_target("ce", (h, tokens), n, prior_logpdf=lambda t: -(t * t).sum((-2, -1)))
+    return target, 0.05 * torch.randn(k, v, d, generator=gen, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physical", [1, 4])
+def test_ce_chain_mesh_on_card_slots(physical, cuda_device):
+    """J-mp's check at reduced width: a K = 8 ``ce`` ensemble (per-chain
+    (1 000, 64) tables, m = 100 of N = 600) with ``shard=True`` over four
+    slots (on the card, and one a card over four cards) against
+    ``shard=False``: samples and every info field bit for bit, the CE
+    kernel launched on each slot as often a round as unsharded. Four cards
+    skip on fewer."""
+    from repro_torch.distributed import force_devices
+
+    if physical > 1:
+        _four_cards()
+    target, theta = _small_ce(cuda_device)
+    ops.reset_launches()
+    want, want_infos, _, _ = _ce_ensemble_run(target, theta, False, 6, cuda_device)
+    a_round = ops.launches["batched_fused_ce"] // ops.launches["t_test_round"]
+    with force_devices(4, physical=physical):
+        ops.reset_launches()
+        got, infos, _, mesh = _ce_ensemble_run(target, theta, True, 6, cuda_device)
+    assert mesh is not None and mesh.shape == {"chains": 4}
+    assert torch.equal(got, want)
+    for a, b in zip(infos, want_infos):
+        assert torch.equal(a, b)
+    per_slot = {s: n for (s, name), n in ops.slot_launches.items() if name == "batched_fused_ce"}
+    assert len(per_slot) == 4 and set(per_slot.values()) == {a_round * ops.launches["t_test_round"]}
+
+
+@pytest.mark.cuda
+def test_exact_ensemble_step_recomputed_on_card(cuda_device):
+    """C-exact at reduced size: ``ChainEnsemble(kernel="exact")`` (K = 8,
+    N = 2 000, D = 10) for 6 transitions with theta' logged; each
+    transition recomputed by one full-range ``logit_delta`` pass a chain
+    from the logged theta, theta' and log u: the sum within 1e-4 of the sum
+    of |delta| (float32 sums in two orders) and every decision equal."""
+    from repro_torch.core import ChainEnsemble, RandomWalk, build_target
+
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    n, d, k, steps = 2000, 10, 8, 6
+    x = torch.randn(n, d, generator=gen, device=cuda_device) / d ** 0.5
+    y = torch.where(torch.rand(n, generator=gen, device=cuda_device) < 0.5, 1.0, -1.0)
+    target = build_target("logit", (x, y), n, prior_logpdf=lambda w: -5.0 * (w * w).sum(-1))
+    log = []
+
+    def proposal(g, theta):
+        theta_p, corr = RandomWalk(0.05)(g, theta)
+        log.append(theta_p.clone())
+        return theta_p, corr
+
+    ens = ChainEnsemble(target, proposal, k, kernel="exact", device=cuda_device)
+    theta0 = 0.3 * torch.randn(k, d, generator=gen, device=cuda_device)
+    ops.reset_launches()
+    _, samples, infos = ens.run(9, ens.init(theta0, batched=True), steps)
+    assert ops.launches["batched_logit_delta"] == steps
+    for t in range(steps):
+        theta = theta0 if t == 0 else samples[:, t - 1]
+        g = target.log_global(theta, log[t])
+        for c in range(k):
+            delta = ops.logit_delta(x, y, theta[c], log[t][c], idx=range(0, n))
+            assert float((delta.sum() - infos.mu_hat[c, t] * n).abs()) <= 1e-4 * float(
+                delta.abs().sum())
+            assert bool(infos.log_u[c, t] < g[c] + delta.sum()) == bool(infos.accepted[c, t])
+    assert 0 < int(infos.accepted.sum()) < infos.accepted.numel()
+
+
+@pytest.mark.cuda
+def test_sgd_and_sgld_on_card_slots(cuda_device):
+    """H-sgd at reduced width: ``sgd_step`` and ``sgld_step`` on parameters
+    sharded over four slots of the card ((2, 2)) against the unsharded
+    steps, from one gradient and one generator seed: every parameter bit
+    for bit as integer views; SGLD moves every leaf."""
+    from repro_torch.bayes.train import _flat_paths
+    from repro_torch.distributed import shard_params
+    from repro_torch.models import param_specs
+    from repro_torch.optim import lm_loss_fn, sgd_step, sgld_step
+    from repro_torch.optim.optimizers import value_and_grad
+
+    cfg, params, batch = _lm_case(cuda_device)
+    sp = shard_params(params, _card_mesh(2), specs=param_specs(cfg))
+    vg = value_and_grad(lm_loss_fn(cfg))
+    (_, g0), (_, g1) = vg(params, batch), vg(sp, batch)
+    gen = lambda: torch.Generator(device=cuda_device).manual_seed(7)  # noqa: E731
+    for want, got in ((sgd_step(g0, params, 1e-3), sgd_step(g1, sp, 1e-3)),
+                      (sgld_step(gen(), g0, params, 1e-3), sgld_step(gen(), g1, sp, 1e-3))):
+        for (_, a), (_, b) in zip(_flat_paths(want), _flat_paths(got)):
+            assert torch.equal(_bits(a), _bits(b))
+    moved = sgld_step(gen(), g0, params, 1e-3)
+    assert all(not torch.equal(a, b) for (_, a), (_, b) in zip(_flat_paths(moved),
+                                                                _flat_paths(params)))
+
+
+@pytest.mark.cuda
+def test_router_lanes_per_shard_on_card(cuda_device):
+    """R-lanes at reduced size: a three-replica fleet on the card, served
+    through routers of 1, 2 and all lanes a shard: only the first N
+    replicas serve, and every answer equals the writer's query on the same
+    rows bit for bit."""
+    from repro_torch.fleet import Fleet, FleetConfig, FleetRouter
+    from repro_torch.serving import FreshnessPolicy, ServingConfig
+
+    fleet = Fleet(FleetConfig(replicas=3, serving=ServingConfig(
+        num_chains=4, refresh_steps=8, window=16, micro_batch=8, max_batch=4,
+        freshness=FreshnessPolicy(max_staleness_s=1e9, min_draws=16), seed=0,
+        device=cuda_device)))
+    fleet.add_workload("bayeslr", n_train=2000, d=5, batch_size=100)
+    try:
+        fleet.warm()
+        shard = fleet.shards("bayeslr")[0]
+        spec = fleet.spec("bayeslr", "predictive")
+        for lanes in (1, 2, None):
+            router = FleetRouter(fleet, max_batch=4, default_deadline_s=30.0,
+                                 lanes_per_shard=lanes)
+            assert [l.replica.name for l in router._lanes["bayeslr"]] == \
+                [r.name for r in shard.replicas[:lanes]]
+            reqs = []
+            for i in range(12):
+                xs = spec.make_queries(torch.Generator().manual_seed(i), 3)
+                reqs.append((xs, router.submit("bayeslr", "predictive", xs)))
+            router.drain()
+            for xs, req in reqs:
+                want, _ = shard.writer.query(spec, xs)
+                np.testing.assert_array_equal(req.result(timeout_s=30.0), np.asarray(want))
+            served = [l.served for l in router._lanes["bayeslr"]]
+            assert sum(served) > 0 and len(served) == (lanes or 3)
+    finally:
+        fleet.close()

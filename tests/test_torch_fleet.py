@@ -494,6 +494,70 @@ def test_router_decides_as_the_reference_router(warm_fleet, admission, prioritie
     assert shed > 0 and any(b for _, _, b, _ in got[1])  # the script sheds and serves
 
 
+@pytest.mark.parametrize("lanes_per_shard,seed", [(1, 0), (2, 1), (None, 0)])
+def test_router_lanes_per_shard_decides_as_the_reference_router(warm_fleet, lanes_per_shard,
+                                                                 seed):
+    """``lanes_per_shard`` on a three-replica shard: the port's router and
+    the reference's serve only the first N replicas (None: all three) and
+    decide alike on the same script, exactly as in the test above."""
+    fleet = warm_fleet
+    added = fleet.add_replica("bayeslr")[1]
+    try:
+        fleet.sync_all()
+        script = _router_script(seed)
+        rows = [np.asarray(_rows(fleet, "predictive", 1000 * seed + i, step[2]))
+                for i, step in enumerate(s for s in script if s[0] == "submit")]
+        kw = dict(priorities=_PRIORITIES["distinct"], max_batch=4, default_deadline_s=30.0,
+                  lanes_per_shard=lanes_per_shard)
+        ours = FleetRouter(fleet, admission=AdmissionConfig(**_ADMISSIONS["both"]), **kw)
+        theirs = j_router.FleetRouter(
+            fleet, admission=j_router.AdmissionConfig(**_ADMISSIONS["both"]), **kw)
+        replicas = fleet.shards("bayeslr")[0].replicas
+        want_names = [r.name for r in replicas[:lanes_per_shard]]
+        assert [l.replica.name for l in ours._lanes["bayeslr"]] == want_names
+        assert [l.replica.name for l in theirs._lanes["bayeslr"]] == want_names
+        got, want = _drive_router(ours, script, rows), _drive_router(theirs, script, rows)
+    finally:
+        fleet.remove_replica("bayeslr", replica_name=added.name)
+    assert got[:2] == want[:2]
+    for a, b in zip(got[2], want[2]):
+        if b is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(a, b)
+    assert got[3] == want[3] and len(got[3]) == (lanes_per_shard or 3)
+    assert _slo_counts(ours.slo_report()) == _slo_counts(theirs.slo_report())
+
+
+def test_sync_interval_spaces_the_background_rounds():
+    """``FleetConfig.sync_interval_s`` defaults to 0.0, as the reference's,
+    and pauses the background refresh-and-broadcast loop between rounds on
+    the loop's stop event: over the same 1.2 s a 0.3 s pause leaves at most
+    five rounds, and fewer than none, and ``stop`` returns without waiting the pause out."""
+    import time
+
+    from repro.fleet.topology import FleetConfig as JFleetConfig
+
+    assert FleetConfig().sync_interval_s == JFleetConfig().sync_interval_s == 0.0
+    counts = {}
+    for pause in (0.0, 0.3):
+        fleet = _tiny_fleet(replicas=1, sync_interval_s=pause)
+        try:
+            fleet.warm()
+            writer = fleet.shards("bayeslr")[0].writer
+            start = writer.steps_done
+            fleet.start()
+            time.sleep(1.2)
+            t0 = time.perf_counter()
+            fleet.stop()
+            stop_s = time.perf_counter() - t0
+            counts[pause] = (writer.steps_done - start) // writer.refresh_steps
+        finally:
+            fleet.close()
+        assert stop_s < 1.0  # the pause waits on the stop event, not out
+    assert 1 <= counts[0.3] <= 5 and counts[0.3] < counts[0.0], counts
+
+
 def test_router_workers_serve_mixed_classes(warm_fleet):
     fleet = warm_fleet
     fleet.sync_all()

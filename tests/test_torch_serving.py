@@ -456,11 +456,13 @@ _SLO_CASES = {
 def test_slo_report_matches_reference(case):
     """``build_slo_report`` (and the ``slo_summary`` under it) on the same
     completed requests, empty, all shed, a single sample, submit-time
-    counters and a mixed load, gives the reference's report."""
+    counters and a mixed load, gives the reference's report, an
+    ``SLOReportDict`` as the reference's is."""
     rows, kw = _SLO_CASES[case]
     want = j_stats.build_slo_report(_requests(j_queue, rows), **kw).to_dict()
     got = stats.build_slo_report(_requests(p_queue, rows), **kw).to_dict()
-    assert got == want and type(got) is dict
+    assert got == want and type(got) is stats.SLOReportDict
+    assert type(want).__name__ == "SLOReportDict"
     if case == "single":
         entry = got["classes"]["w.fast"]
         assert entry["p50_ms"] == entry["p99_ms"] == pytest.approx(12.0)

@@ -56,4 +56,7 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    from repro_torch.distributed import force_devices
+
+    with force_devices(1):  # one slot, cuda:0: the families run unsharded on any machine
+        sys.exit(main(sys.argv[1:]))

@@ -57,4 +57,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from repro_torch.distributed import force_devices
+
+    with force_devices(1):  # one slot, cuda:0, unless a run forces more (its @4cards layout)
+        sys.exit(main())
