@@ -50,6 +50,7 @@ from ..core.samplers import StreamSliceState, stream_draw, stream_reset
 from ..core.sequential_test import sequential_test
 from ..core.subsampled_mh import draw_log_u
 from ..models.transformer import ModelConfig, forward_loglik
+from ..obs.trace import span
 
 Params = Any
 F32 = torch.float32
@@ -262,7 +263,8 @@ def _test_setup(tc: TrainConfig, params: Params, theta_p: Params, log_u: torch.T
     rb = min(tc.round_batch, pool)
     rounds_total = tc.max_rounds or -(-pool // rb)
     n_sections = tc.dataset_size or pool
-    g = _prior_delta(params, theta_p, tc.prior_var)
+    with span("lm.prior", "prior"):
+        g = _prior_delta(params, theta_p, tc.prior_var)
     mu0 = (log_u - g) / n_sections
     state = stream_reset(StreamSliceState(torch.zeros((), dtype=torch.int32,
                                                       device=mu0.device), pool))
@@ -279,8 +281,10 @@ def subsampled_decide(cfg: ModelConfig, tc: TrainConfig, params: Params, theta_p
 
     def eval_fn(idx):
         rows = _rows_of(batch, next(rounds) * rb, rb)  # the stream's slice of this round
-        lp = forward_loglik(theta_p, rows, cfg, ce_chunk=tc.ce_chunk)
-        lc = forward_loglik(params, rows, cfg, ce_chunk=tc.ce_chunk)
+        with span("lm.forward", "forward", params="theta_p"):
+            lp = forward_loglik(theta_p, rows, cfg, ce_chunk=tc.ce_chunk)
+        with span("lm.forward", "forward", params="theta"):
+            lc = forward_loglik(params, rows, cfg, ce_chunk=tc.ce_chunk)
         return lp - lc
 
     res = sequential_test(None, mu0, stream_draw, eval_fn, state, n_sections, rb,
@@ -341,11 +345,13 @@ def cached_decide(cfg: ModelConfig, tc: TrainConfig, params: Params, theta_p: Pa
         start = min(next(rounds) * rb, pool - rb)  # the stream's slice, clamped to fit
         sl = slice(start, start + rb)
         rows = _rows_of(batch, start, rb)
-        lp = forward_loglik(theta_p, rows, cfg, ce_chunk=tc.ce_chunk)
+        with span("lm.forward", "forward", params="theta_p"):
+            lp = forward_loglik(theta_p, rows, cfg, ce_chunk=tc.ce_chunk)
         if cur_host[sl].all():  # every cached value is fresh: no theta forward
             lcur = cur_ll[sl].clone()
         else:
-            lc = forward_loglik(params, rows, cfg, ce_chunk=tc.ce_chunk)
+            with span("lm.forward", "forward", params="theta"):
+                lc = forward_loglik(params, rows, cfg, ce_chunk=tc.ce_chunk)
             lcur = torch.where(cur_valid[sl], cur_ll[sl], lc)
         cur_ll[sl] = lcur
         cur_valid[sl] = True
@@ -371,12 +377,15 @@ def exact_decide(cfg: ModelConfig, tc: TrainConfig, params: Params, theta_p: Par
     pool = batch["tokens"].shape[0]
     rb = min(tc.round_batch, pool)
     rounds = -(-pool // rb)
-    g = _prior_delta(params, theta_p, tc.prior_var)
+    with span("lm.prior", "prior"):
+        g = _prior_delta(params, theta_p, tc.prior_var)
     total = torch.zeros((), dtype=F32, device=log_u.device)
     for r in range(rounds):
         rows = _rows_of(batch, r * rb, rb)
-        lp = forward_loglik(theta_p, rows, cfg, ce_chunk=tc.ce_chunk)
-        lc = forward_loglik(params, rows, cfg, ce_chunk=tc.ce_chunk)
+        with span("lm.forward", "forward", params="theta_p"):
+            lp = forward_loglik(theta_p, rows, cfg, ce_chunk=tc.ce_chunk)
+        with span("lm.forward", "forward", params="theta"):
+            lc = forward_loglik(params, rows, cfg, ce_chunk=tc.ce_chunk)
         total = total + (lp - lc).sum()
     accept = log_u < g + total
     dev = log_u.device
@@ -398,8 +407,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *, mode: str = "auto"):
     _check(tc)
 
     def train_step(gen, params, batch):
-        theta_p, log_u = propose(gen, params, tc, batch, cfg)
-        return subsampled_decide(cfg, tc, params, theta_p, log_u, batch, mode=mode)
+        with span("lm.step", "step", root=True):
+            with span("lm.propose", "propose", proposal=tc.proposal):
+                theta_p, log_u = propose(gen, params, tc, batch, cfg)
+            return subsampled_decide(cfg, tc, params, theta_p, log_u, batch, mode=mode)
 
     return train_step
 
@@ -410,8 +421,10 @@ def make_exact_step(cfg: ModelConfig, tc: TrainConfig):
     _check(tc)
 
     def exact_step(gen, params, batch):
-        theta_p, log_u = propose(gen, params, tc, batch, cfg)
-        return exact_decide(cfg, tc, params, theta_p, log_u, batch)
+        with span("lm.step", "step", root=True):
+            with span("lm.propose", "propose", proposal=tc.proposal):
+                theta_p, log_u = propose(gen, params, tc, batch, cfg)
+            return exact_decide(cfg, tc, params, theta_p, log_u, batch)
 
     return exact_step
 
@@ -430,8 +443,10 @@ def make_cached_train_step(cfg: ModelConfig, tc: TrainConfig, *, mode: str = "au
     _check(tc)
 
     def train_step(gen, params, batch, cache: LogLikCache):
-        log_u = draw_log_u(gen, (), tree_leaves(params)[0].device)
-        theta_p = _tree_rw_propose(gen, params, tc.sigma, tc.propose_paths)
-        return cached_decide(cfg, tc, params, theta_p, log_u, batch, cache, mode=mode)
+        with span("lm.step", "step", root=True):
+            with span("lm.propose", "propose", proposal="rw"):
+                log_u = draw_log_u(gen, (), tree_leaves(params)[0].device)
+                theta_p = _tree_rw_propose(gen, params, tc.sigma, tc.propose_paths)
+            return cached_decide(cfg, tc, params, theta_p, log_u, batch, cache, mode=mode)
 
     return train_step

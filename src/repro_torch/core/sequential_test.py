@@ -23,6 +23,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from ..kernels import ops, ref
+from ..obs.trace import span
 from .stats import Welford
 
 
@@ -118,25 +119,27 @@ def sequential_test(
     flat = lambda t: t.view(-1)  # (K,) views of the state: () becomes (1,)
     sampler = sampler_state
     batched = len(shape) > 0
-    while True:
-        active = ~done if batched else None
-        if batch_eff is None:
-            sampler, idx, valid = draw_fn(gen, sampler, batch_size, active, mode=mode)
-        else:
-            sampler, idx, valid = draw_bounded_fn(gen, sampler, batch_size, batch_eff, active,
-                                                  mode=mode)
-        if aux is None:
-            l = eval_fn(idx)
-        else:
-            l, aux = eval_fn(idx, aux)
-        ops.t_test_round(
-            l.reshape(-1, batch_size), valid.reshape(-1, batch_size),
-            flat(w.count), flat(w.mean), flat(w.m2), flat(mu0), flat(eps),
-            n_total, max_rounds, flat(rounds), flat(done), flat(decision),
-            flat(pval), mode=mode,
-        )
-        if bool(done.all()):
-            break
+    r, finished = 0, False
+    while not finished:
+        with span("test.round", "round", round=r):
+            active = ~done if batched else None
+            if batch_eff is None:
+                sampler, idx, valid = draw_fn(gen, sampler, batch_size, active, mode=mode)
+            else:
+                sampler, idx, valid = draw_bounded_fn(gen, sampler, batch_size, batch_eff,
+                                                      active, mode=mode)
+            if aux is None:
+                l = eval_fn(idx)
+            else:
+                l, aux = eval_fn(idx, aux)
+            ops.t_test_round(
+                l.reshape(-1, batch_size), valid.reshape(-1, batch_size),
+                flat(w.count), flat(w.mean), flat(w.m2), flat(mu0), flat(eps),
+                n_total, max_rounds, flat(rounds), flat(done), flat(decision),
+                flat(pval), mode=mode,
+            )
+            finished = bool(done.all())
+        r += 1
     return SeqTestResult(
         decision=decision,
         n_evaluated=w.count.to(torch.int32),

@@ -26,11 +26,18 @@ more than one slot each leaf is drawn whole on the
 card from its ``leaf_seed``, split into its owners' pieces by the
 reference's rules and freed; compute stays on the card, so every step, the
 summary line and the checkpoint are the unsharded run's, bit for bit.
+
+``--trace-dir DIR`` records the step spans (``lm.step`` and its
+``lm.propose``, ``lm.prior``, ``test.round`` and ``lm.forward``; see
+``repro_torch.obs.trace``) of every step into ``DIR/spans.jsonl``, as
+``launch/serve.py --trace-dir`` does the request spans; export with
+``python -m repro_torch.obs.trace --export DIR``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import time
 
 import numpy as np
@@ -45,6 +52,7 @@ from ..distributed.sharding import Mesh, ShardedTensor, logical_axis_rules, name
 from ..models import init_params
 from ..models.layers import init_leaf
 from ..models.transformer import ModelConfig, _flatten, _rebuild, leaf_seed, param_specs
+from ..obs import trace
 from ..runtime import LoopConfig, run_loop
 from .mesh import make_mesh_for_devices
 
@@ -87,6 +95,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "cards (or the CPU): the counterpart of forced host devices")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the plain versions)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="record every step's spans in <dir>/spans.jsonl")
     return ap.parse_args(argv)
 
 
@@ -94,11 +104,21 @@ def main(argv=None) -> dict:
     """Run the chain; returns {params, infos, step, wall_s, step_s,
     steps_per_s, peak_bytes} beside the summary line it prints."""
     args = parse_args(argv)
-    with force_devices(args.devices) if args.devices else contextlib.nullcontext():
-        return _main(args)
+    tracer = None
+    if args.trace_dir:
+        tracer = trace.Tracer(jsonl_path=os.path.join(args.trace_dir, "spans.jsonl"))
+        trace.install(tracer)
+        print(f"trace: step spans tee to {args.trace_dir}/spans.jsonl")
+    try:
+        with force_devices(args.devices) if args.devices else contextlib.nullcontext():
+            return _main(args, tracer)
+    finally:
+        if tracer is not None:
+            trace.install(None)
+            tracer.close()
 
 
-def _main(args: argparse.Namespace) -> dict:
+def _main(args: argparse.Namespace, tracer: trace.Tracer | None = None) -> dict:
     device = resolve_device(args.device)
     mesh = make_mesh_for_devices(model_parallel=args.model_parallel, device=device)
     cfg = ARCHS[args.arch]
@@ -119,6 +139,8 @@ def _main(args: argparse.Namespace) -> dict:
         out = step(gen, params, batch)
         sync()
         step_s.append(time.perf_counter() - t)
+        if tracer is not None:  # the step's stream times, read after its synchronize
+            tracer.flush()
         return out
 
     if device.type == "cuda":

@@ -12,7 +12,8 @@ The recording layer over the serving and fleet stack::
      SubsampledMHInfo    record_transition_cost                    /sublinear)
     request path     ──▶ trace.Tracer spans  ──▶ spans stream + ring
      (queue/router/replica/evaluator)            └─▶ Chrome trace export
-    bench artifacts  ──▶ history.HistoryStore (ring of last N runs)
+    LM step          ──▶ trace.span step spans ──▶ default_tracer() ring
+     (propose/prior/rounds/forwards; under the profiler or install())
 
 Front end: ``python -m repro_torch.launch.serve --stats-addr 127.0.0.1:8787
 --obs-dir /tmp/obs --trace-dir /tmp/trace``; a recorded run renders with
@@ -20,7 +21,6 @@ Front end: ``python -m repro_torch.launch.serve --stats-addr 127.0.0.1:8787
 ``python -m repro_torch.obs.trace --export ...``. Records hold host values:
 a torch tensor in one is copied to the host when it is written.
 """
-from .history import HistoryStore
 from .recorder import Recorder, json_default
 from .server import StatsServer
 from .sources import (
@@ -35,10 +35,13 @@ from .trace import (
     STAGES,
     Tracer,
     chrome_trace_events,
+    default_tracer,
     export_chrome_trace,
+    install,
     load_spans,
     new_span_id,
     new_trace_id,
+    span,
     span_close,
     span_open,
 )
@@ -66,7 +69,6 @@ def __getattr__(name):
 __all__ = [
     "AlertEngine",
     "AlertRule",
-    "HistoryStore",
     "Recorder",
     "SLOSampler",
     "STAGES",
@@ -74,8 +76,10 @@ __all__ = [
     "Tracer",
     "chrome_trace_events",
     "default_rules",
+    "default_tracer",
     "export_chrome_trace",
     "health_report",
+    "install",
     "json_default",
     "load_spans",
     "make_on_block",
@@ -85,6 +89,7 @@ __all__ = [
     "record_fleet_sync",
     "record_snapshot",
     "record_transition_cost",
+    "span",
     "span_close",
     "span_open",
 ]

@@ -2,7 +2,7 @@
 package's ``repro.obs`` on the same inputs, and the front end's obs flags.
 
 The recorder, the P² quantiles, the sampler, the adapters, the alert engine,
-the health model, the history ring and the dash renderer are host Python
+the health model and the dash renderer are host Python
 in both packages: fed the same values they must give the same records,
 transitions and text, exactly (time stamps and run ids apart). The port's
 side is fed torch tensors where the serving stack hands it tensors; the
@@ -27,14 +27,13 @@ import torch
 from repro.obs import alerts as j_alerts
 from repro.obs import dash as j_dash
 from repro.obs import health as j_health
-from repro.obs import history as j_history
 from repro.obs import recorder as j_recorder
 from repro.obs import server as j_server
 from repro.obs import sources as j_sources
 from repro.obs import trace as j_trace
 from repro.serving.resident import Snapshot as JSnapshot
 from repro_torch.launch import serve
-from repro_torch.obs import alerts, dash, health, history, recorder, server, sources, trace
+from repro_torch.obs import alerts, dash, health, recorder, server, sources, trace
 from repro_torch.serving.resident import Snapshot
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -455,7 +454,7 @@ def test_health_report_equals_reference(case):
 
 
 # ---------------------------------------------------------------------------
-# Dash, history, the stats server, lazy loading
+# Dash, the stats server, lazy loading
 # ---------------------------------------------------------------------------
 
 
@@ -509,39 +508,6 @@ def test_dash_main_text_equals_reference(tmp_path, closed):
     assert dash.main([str(tmp_path / "nope")]) == 2
     (tmp_path / "empty").mkdir()
     assert dash.main([str(tmp_path / "empty")]) == 2
-
-
-def _write_bench(path, qps):
-    path.mkdir(parents=True, exist_ok=True)
-    (path / "BENCH_serving.json").write_text(json.dumps({"records": [{"qps": qps}]}))
-    (path / "BENCH_multichain.json").write_text(json.dumps({"records": []}))
-
-
-def test_history_store_index_equals_reference(tmp_path):
-    """The same appends give the same ring (ids, artifacts, pruning), and a
-    corrupt index is rebuilt alike; ``saved_at`` stamps apart."""
-    index = lambda store: [{k: v for k, v in r.items() if k != "saved_at"}  # noqa: E731
-                           for r in store.runs()]
-    stores = {}
-    for name, mod in (("mine", history), ("ref", j_history)):
-        store = mod.HistoryStore(str(tmp_path / name), capacity=3)
-        for i in range(5):
-            art = tmp_path / f"art{i}"
-            _write_bench(art, 1000.0 + i)
-            if i % 2:
-                (art / "GATE_verdict.json").write_text(json.dumps({"status": "pass"}))
-            store.append(str(art), run_id=f"r{i}", meta={"commit": f"c{i}"})
-        with pytest.raises(FileNotFoundError):
-            store.append(str(tmp_path / "no_such_artifacts_dir_" / ".."))
-        stores[name] = store
-    assert index(stores["mine"]) == index(stores["ref"])
-    assert len(stores["mine"]) == 3 and stores["mine"].last(1)[0]["id"].startswith("000004-r4")
-    for name, mod in (("mine", history), ("ref", j_history)):
-        (tmp_path / name / "index.json").write_text("{not json")
-        stores[name] = mod.HistoryStore(str(tmp_path / name))
-    assert index(stores["mine"]) == index(stores["ref"])
-    with pytest.raises(ValueError):
-        history.HistoryStore(str(tmp_path / "x"), capacity=0)
 
 
 def _get(url):
